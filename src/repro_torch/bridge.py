@@ -1,0 +1,60 @@
+"""Carry params from the JAX package into the port, through numpy.
+
+The caller hands over the JAX params as a nested dict of numpy arrays
+(``np.asarray`` of each leaf); a sparse leaf arrives as a dict
+``{val, blk_idx, cols, n, m, g, gr, dense_shape, sparse_dim}``.  The
+port's kernels and model then run on exactly the storage the reference
+converted, so parity tests do not depend on near-ties in the greedy
+conversion.  bf16 arrays cross without ``ml_dtypes``: their bits are
+reinterpreted as int16 and viewed as ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.layouts import GroupedNMTensor, SpmmPlan, \
+    pattern_onehots
+from repro_torch.device import resolve_device
+
+__all__ = ["tensor_from_numpy", "params_from_numpy", "SPARSE_KEYS"]
+
+SPARSE_KEYS = ("val", "blk_idx", "cols", "n", "m", "g", "gr", "dense_shape",
+               "sparse_dim")
+
+
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """A torch copy of ``arr`` on ``device``; bf16 keeps its bits."""
+    dev = resolve_device(device)
+    a = np.ascontiguousarray(arr)   # copies read-only / strided arrays
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(dev)
+
+
+def _sparse(d: dict, dev) -> GroupedNMTensor:
+    n, m, g = int(d["n"]), int(d["m"]), int(d["g"])
+    onehot = torch.as_tensor(
+        np.repeat(pattern_onehots(n, m), g, axis=0).astype(np.int8),
+        device=dev)
+    return GroupedNMTensor(
+        val=tensor_from_numpy(d["val"], dev),
+        blk_idx=tensor_from_numpy(d["blk_idx"], dev).to(torch.int32),
+        n=n, m=m, g=g, gr=int(d["gr"]),
+        dense_shape=tuple(int(s) for s in d["dense_shape"]),
+        sparse_dim=int(d["sparse_dim"]),
+        plan=SpmmPlan(cols=tensor_from_numpy(d["cols"], dev)
+                      .to(torch.int32).contiguous(), pat_onehot=onehot))
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The port's params from the reference's (numpy) params tree."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        if "val" in tree and "blk_idx" in tree:
+            return _sparse(tree, dev)
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return tensor_from_numpy(tree, dev)

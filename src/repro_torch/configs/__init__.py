@@ -1,0 +1,24 @@
+"""Architecture registry of the port: the architectures it runs so far."""
+
+from repro_torch.configs import bert_base_sten
+from repro_torch.models.common import ModelConfig
+
+__all__ = ["get_config", "get_smoke"]
+
+_MODULES = {"bert-base-sten": bert_base_sten}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet "
+            f"(ported: {', '.join(_MODULES)})")
+    return _MODULES[name]
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -1,0 +1,72 @@
+"""SparsityBuilder, weight rules only (port of ``repro/core/builder.py``).
+
+Params are nested dicts; a leaf's name is its ``a.b.c``-joined key path
+and rules match it with fnmatch globs, as in the reference.  Intermediate
+sparsity plans (``tag``) are not ported: the reference's ``tag`` is the
+identity when no plan is active, so the port's model has no tag sites.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+
+import torch
+
+from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.core.sparsifiers import apply_sparsifier
+
+__all__ = ["SparsityBuilder", "path_name"]
+
+
+def path_name(path) -> str:
+    """Join a key path into an 'a.b.c' name."""
+    return ".".join(str(p) for p in path)
+
+
+@dataclasses.dataclass
+class WeightRule:
+    pattern: str
+    initial_sparsifier: object
+    out_format: type
+
+
+class SparsityBuilder:
+    """Paper §3.4 API, weight half: mark weights sparse, then convert a
+    params tree."""
+
+    def __init__(self):
+        self._weights: list = []
+
+    def set_weight(self, name: str, initial_sparsifier, out_format=None):
+        self._weights.append(
+            WeightRule(name, initial_sparsifier, out_format or GroupedNMTensor))
+        return self
+
+    def _rule_for(self, name: str):
+        for r in self._weights:
+            if fnmatch.fnmatch(name, r.pattern):
+                return r
+        return None
+
+    def sparsify_params(self, params):
+        """Replace matching leaves by sparse layouts.  A scan-stacked
+        [L, K, N] leaf is converted per layer (the paper's local pruning)
+        and re-stacked on a leading [L] axis."""
+
+        def visit(tree, path):
+            if isinstance(tree, dict):
+                return {k: visit(v, path + (k,)) for k, v in tree.items()}
+            rule = self._rule_for(path_name(path))
+            if rule is None or not isinstance(tree, torch.Tensor):
+                return tree
+            if tree.ndim == 3:
+                return GroupedNMTensor.stack([
+                    apply_sparsifier(rule.initial_sparsifier, tree[i],
+                                     rule.out_format)
+                    for i in range(tree.shape[0])
+                ])
+            return apply_sparsifier(rule.initial_sparsifier, tree,
+                                    rule.out_format)
+
+        return visit(params, ())

@@ -1,0 +1,95 @@
+"""Prefill-shaped n:m:g SpMM: ``C[R, N] = A_canonical[R, K] @ B[K, N]`` in
+f32 (port of ``repro/kernels/nmg_spmm.py``).
+
+:func:`nmg_spmm` launches the hand-written CUDA kernel
+(``csrc/nmg_spmm.cu``) for CUDA tensors and takes the plain PyTorch version
+:func:`nmg_spmm_plain` (the blocked gather + einsum of
+``repro/kernels/ops.py:nmg_spmm_xla``) only for tensors on the CPU.  The
+reference's two Pallas schedules (streamed and grid) compute the same
+function; one CUDA kernel replaces both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.kernels.nmg_gemv import _DTYPE_CODE, _pad_rows, \
+    check_operands
+from repro_torch.tune import routing
+
+__all__ = ["nmg_spmm", "nmg_spmm_plain"]
+
+#: output rows per CUDA block; gr must be a multiple
+_ROWS_PER_BLOCK = 64
+
+
+def _gather_block(b_p, cols, val_g):
+    """One activation-stationary block: gather the planned B rows for a
+    slab of fiber groups and contract in one f32 einsum.
+    cols [G, nb*n], val_g [G, gr, nb*n] -> [G, gr, N] f32."""
+    bg = b_p[cols.reshape(-1).long()].reshape(*cols.shape, b_p.shape[1])
+    return torch.einsum("grk,gkn->grn", val_g.float(), bg.float())
+
+
+def nmg_spmm_plain(a: GroupedNMTensor, b: torch.Tensor, *,
+                   block_elems: int = routing.DEFAULT_SPMM_BLOCK_ELEMS
+                   ) -> torch.Tensor:
+    """Plain version: blocked gather + einsum over the column plan, each
+    block's gathered operand capped at ``block_elems`` elements."""
+    gr = a.gr
+    R_pad, nblocks, n = a.val.shape
+    cols = a.gather_plan().cols
+    Gr = cols.shape[0]
+    K, N = b.shape
+    b_p = _pad_rows(b, nblocks * a.m)
+    val_g = a.val.reshape(Gr, gr, nblocks * n)
+    gb = max(1, min(Gr, block_elems // max(1, nblocks * n * N)))
+    out = torch.cat([_gather_block(b_p, cols[i:i + gb], val_g[i:i + gb])
+                     for i in range(0, Gr, gb)])
+    return out.reshape(R_pad, N)[:a.canonical_rows()]
+
+
+def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A_canonical @ B (f32): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if b.device.type == "cpu":
+        return nmg_spmm_plain(a, b)
+    from repro_torch.kernels import _build
+
+    check_operands([a], b)
+    if a.gr % _ROWS_PER_BLOCK:
+        raise ValueError(f"the SpMM kernel takes gr a multiple of "
+                         f"{_ROWS_PER_BLOCK}, got {a.gr}")
+    K, N = b.shape
+    R = a.canonical_rows()
+    R_pad = a.val.shape[0]
+    KN = a.val.shape[1] * a.val.shape[2]
+    lib = _build.load("nmg_spmm")
+    fn, splits_fn = lib.nmg_spmm_launch, lib.nmg_spmm_splits
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        splits_fn.argtypes = [ctypes.c_int] * 3
+        splits_fn.restype = ctypes.c_int
+    out = torch.empty((R, N), dtype=torch.float32, device=b.device)
+    # K-split partials for shapes whose output tiles cannot fill the card
+    splits = splits_fn(R_pad, N, KN)
+    ws = torch.empty((splits, R, N), dtype=torch.float32,
+                     device=b.device) if splits > 1 else None
+    err = fn(_DTYPE_CODE[b.dtype], a.val.data_ptr(),
+             a.gather_plan().cols.data_ptr(), b.data_ptr(), b.stride(0),
+             b.stride(1), out.data_ptr(),
+             None if ws is None else ws.data_ptr(), R, R_pad, K, KN, N, a.gr,
+             torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nmg_spmm launch failed: error {err}")
+    nmg_spmm.launches += 1
+    return out
+
+
+nmg_spmm.launches = 0

@@ -1,0 +1,134 @@
+"""Shape-routed n:m:g matmul entry points (port of the serving half of
+``repro/kernels/ops.py``).
+
+  right operand        path                       regime
+  -----------------    ------------------------   -------------------------
+  M <= decode_m_max    ``nmg_gemv``  (decode)     weight-stationary GEMV,
+                                                  x.dtype epilogue
+  M >  decode_m_max    ``nmg_spmm``  (prefill)    column-tiled SpMM, f32 out
+
+Each op runs the CUDA kernel for CUDA tensors and its plain version for
+CPU tensors.  ``kernel_counters`` is the port's own plain dict of routing
+decisions and launches per (kernel, route): ``("nmg_linear",
+"gemv[default]")`` for the router's choice, ``("nmg_gemv", "cuda")`` or
+``("nmg_gemv", "plain")`` for where the work ran.  Routes read the shipped
+defaults of ``tune/routing.py`` (no tuning tables yet), hence
+``[default]``.  The reference counts traces; the port runs eagerly, so
+these count calls.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.kernels import nmg_fused, nmg_gemv as _gemv, \
+    nmg_spmm as _spmm
+from repro_torch.kernels.nmg_fused import fusable_qkv, nmg_qkv_plain
+from repro_torch.kernels.nmg_gemv import nmg_gemv_plain
+from repro_torch.kernels.nmg_spmm import nmg_spmm_plain
+from repro_torch.tune import routing
+
+__all__ = [
+    "DECODE_M_MAX",
+    "nmg_matmul",
+    "nmg_spmm",
+    "nmg_spmm_plain",
+    "nmg_gemv",
+    "nmg_gemv_plain",
+    "nmg_linear",
+    "nmg_qkv",
+    "nmg_qkv_plain",
+    "maybe_fused_qkv",
+    "fusable_qkv",
+    "kernel_counters",
+    "reset_kernel_counters",
+]
+
+DECODE_M_MAX = routing.DEFAULT_DECODE_M_MAX
+
+_KERNEL_COUNTS: collections.Counter = collections.Counter()
+
+
+def kernel_counters() -> dict:
+    """{(kernel, route): calls} since the last reset."""
+    return dict(_KERNEL_COUNTS)
+
+
+def reset_kernel_counters() -> None:
+    _KERNEL_COUNTS.clear()
+
+
+def _where(b: torch.Tensor) -> str:
+    return "plain" if b.device.type == "cpu" else "cuda"
+
+
+def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A_canonical[R, K] @ B[K, N] (f32)."""
+    _KERNEL_COUNTS[("nmg_spmm", _where(b))] += 1
+    return _spmm.nmg_spmm(a, b)
+
+
+def nmg_gemv(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
+             transpose_out: bool = False) -> torch.Tensor:
+    """C = A_canonical[R, K] @ B[K, M] for narrow B; [M, R] with
+    ``transpose_out``; f32 unless ``out_dtype``."""
+    _KERNEL_COUNTS[("nmg_gemv", _where(b))] += 1
+    return _gemv.nmg_gemv(a, b, out_dtype=out_dtype,
+                          transpose_out=transpose_out)
+
+
+def nmg_qkv(ws, b: torch.Tensor, *, out_dtype=None,
+            transpose_out: bool = False) -> tuple:
+    """Every projection of ``ws`` against one decode-shaped B in one
+    launch."""
+    _KERNEL_COUNTS[("nmg_qkv", _where(b))] += 1
+    return nmg_fused.nmg_qkv(tuple(ws), b, out_dtype=out_dtype,
+                             transpose_out=transpose_out)
+
+
+def maybe_fused_qkv(x: torch.Tensor, ws):
+    """y_i = x @ W_i for every projection in one launch, or None when the
+    group is ineligible or x is prefill-shaped (callers then run
+    per-projection ``nmg_linear``).  Outputs are in x.dtype."""
+    ws = tuple(ws)
+    if not (routing.DEFAULT_FUSED_QKV and fusable_qkv(ws)):
+        return None
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[0] > DECODE_M_MAX:
+        return None
+    _KERNEL_COUNTS[("nmg_qkv", "fused[default]")] += 1
+    ys = nmg_qkv(ws, x2.T, out_dtype=x.dtype, transpose_out=True)
+    return tuple(y.reshape(*lead, -1) for y in ys)
+
+
+def nmg_matmul(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
+    """Shape-routed sparse @ dense, f32 out either way."""
+    if b.ndim == 2:
+        if b.shape[1] <= DECODE_M_MAX:
+            _KERNEL_COUNTS[("nmg_matmul", "gemv[default]")] += 1
+            return nmg_gemv(a, b)
+        _KERNEL_COUNTS[("nmg_matmul", "spmm[default]")] += 1
+    return nmg_spmm(a, b)
+
+
+def nmg_linear(x: torch.Tensor, w: GroupedNMTensor) -> torch.Tensor:
+    """y = x @ W for an n:m:g weight stored with sparse_dim = input axis.
+    x: [..., K] -> y: [..., N] in x.dtype.  Decode-shaped x takes the GEMV
+    kernel, whose epilogue writes x.dtype in [M, N] order directly; the
+    prefill path casts the f32 SpMM output, then transposes."""
+    if w.sparse_dim % 2 != 0:
+        raise ValueError("n:m:g linear expects the weight sparse along its "
+                         "input axis (sparse_dim=0)")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[0] <= DECODE_M_MAX:
+        _KERNEL_COUNTS[("nmg_linear", "gemv[default]")] += 1
+        y = nmg_gemv(w, x2.T, out_dtype=x.dtype, transpose_out=True)
+        return y.reshape(*lead, -1)
+    _KERNEL_COUNTS[("nmg_linear", "spmm[default]")] += 1
+    yt = nmg_spmm(w, x2.T)                     # f32 [N, M]
+    return yt.to(x.dtype).T.reshape(*lead, -1)

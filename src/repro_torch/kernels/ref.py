@@ -1,0 +1,23 @@
+"""Densify-then-matmul oracles for the ported kernels (port of
+``repro/kernels/ref.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.layouts import GroupedNMTensor
+
+__all__ = ["nmg_spmm_ref", "nmg_qkv_ref"]
+
+
+def nmg_spmm_ref(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A_canonical @ B in f32 through the dense matrix."""
+    dense = a.to_dense()
+    if a.sparse_dim % 2 == 0:  # canonical view is the transpose
+        dense = dense.T
+    return dense.float() @ b.float()
+
+
+def nmg_qkv_ref(ws, b: torch.Tensor) -> tuple:
+    """Fused-QKV oracle: one :func:`nmg_spmm_ref` per projection."""
+    return tuple(nmg_spmm_ref(w, b) for w in ws)

@@ -1,0 +1,15 @@
+"""The ported model stack (non-gated GQA dense decoder)."""
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import (
+    decode_step,
+    forward,
+    init_cache,
+    init_lm,
+    logits_of,
+    prefill,
+    prefill_into_slot,
+)
+
+__all__ = ["ModelConfig", "decode_step", "forward", "init_cache", "init_lm",
+           "logits_of", "prefill", "prefill_into_slot"]

@@ -1,0 +1,136 @@
+"""Model configuration and the sparse-aware weight apply (port of
+``repro/models/common.py``).
+
+``ModelConfig`` is a copy of the reference's dataclass, field for field.
+The port runs only its non-gated GQA dense-decoder subset:
+:meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
+other families.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.layouts import GroupedNMTensor
+
+__all__ = ["ModelConfig", "mm", "mm_fused_qkv", "torch_dtype"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Weight application admitting n:m:g layouts: dense weights are a
+    plain product; a :class:`GroupedNMTensor` goes through the
+    shape-routed kernels (``kernels/ops.py:nmg_linear``).  The result is
+    cast to the dtype ``x @ w`` would promote to, so sparsifying a weight
+    never changes a layer's output dtype."""
+    if not isinstance(w, GroupedNMTensor):
+        return x @ w
+    from repro_torch.kernels import ops as kops
+
+    y = kops.nmg_linear(x, w)
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    return y if y.dtype == out_dtype else y.to(out_dtype)
+
+
+def mm_fused_qkv(x: torch.Tensor, wq, wk, wv) -> tuple:
+    """The attention projections through the fused QKV launch when
+    eligible, else three :func:`mm` calls."""
+    from repro_torch.kernels import ops as kops
+
+    ws = (wq, wk, wv)
+    ys = kops.maybe_fused_qkv(x, ws)
+    if ys is None:
+        return tuple(mm(x, w) for w in ws)
+    outs = []
+    for y, w in zip(ys, ws):
+        out_dtype = torch.promote_types(x.dtype, w.dtype)
+        outs.append(y if y.dtype == out_dtype else y.to(out_dtype))
+    return tuple(outs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    vocab: int = 32000
+    d_model: int = 1024
+    n_layers: int = 8
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    d_ff: int = 4096
+    attn_type: str = "gqa"        # gqa | mla | none | hybrid
+    qkv_bias: bool = False
+    logit_softcap: Optional[float] = None
+    attn_softcap: Optional[float] = None
+    local_window: Optional[int] = None
+    layer_pattern: str = "global"  # global | local | alt_local_global
+    post_norms: bool = False
+    act: str = "silu"              # silu | gelu
+    gated_mlp: bool = True
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    moe: Optional[object] = None
+    mla: Optional[object] = None
+    ssm: Optional[object] = None
+    n_enc_layers: int = 0
+    vision_prefix: int = 0
+    attn_chunk_q: int = 512
+    attn_chunk_k: int = 512
+    attn_dtype: str = "float32"
+    kv_cache_dtype: Optional[str] = None
+    dtype: str = "bfloat16"
+    sparse_targets: tuple = ("mlp.wi", "mlp.wo", "attn.wo")
+    mlp_inline_threshold: Optional[float] = None
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def validate(self):
+        assert self.n_heads % max(1, self.n_kv_heads) == 0
+        return self.check_ported()
+
+    def check_ported(self):
+        """Raise NotImplementedError unless this config lies in the
+        ported subset: non-gated GQA dense decoder, global attention, no
+        MoE/MLA/SSM/enc-dec/VLM prefix/int8 KV/softcaps/bias/post-norms."""
+        unported = {
+            "attn_type != 'gqa'": self.attn_type != "gqa",
+            "gated_mlp": self.gated_mlp,
+            "moe": self.moe is not None,
+            "mla": self.mla is not None,
+            "ssm": self.ssm is not None,
+            "local/global layers": self.layer_pattern != "global"
+            or self.local_window is not None,
+            "softcaps": self.attn_softcap is not None
+            or self.logit_softcap is not None,
+            "qkv_bias": self.qkv_bias,
+            "post_norms": self.post_norms,
+            "enc-dec": self.n_enc_layers > 0,
+            "vision prefix": self.vision_prefix > 0,
+            "kv_cache_dtype": self.kv_cache_dtype is not None,
+            "mlp_inline_threshold": self.mlp_inline_threshold is not None,
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"config {self.name!r} uses features the port does not "
+                f"run yet: {', '.join(bad)}")
+        return self
+
+    def scaled(self, **kw) -> "ModelConfig":
+        """A reduced copy for CPU smoke tests."""
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,225 @@
+"""The ported LM stack: a non-gated GQA dense decoder (port of the dense
+decoder path of ``repro/models/transformer.py``).
+
+Params are nested dicts with the reference's layout: layer leaves are
+stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
+them where the reference scans (a stacked ``GroupedNMTensor`` is sliced
+per layer, a view).  Any projection may be a ``GroupedNMTensor``; ``mm``
+routes it through the n:m:g kernels.
+
+The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]) is updated **in place**
+(``index_put_`` / ``index_copy_``) where the reference returns a new
+array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
+cache for the reference's calling convention.  Decode writes past the
+cache end are clamped onto its last row where the reference drops them:
+only a slot that already finished writes there (its tokens are discarded
+on the host), and a later occupant rewrites every row before reading it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ModelConfig, mm
+
+__all__ = ["init_lm", "forward", "logits_of", "init_cache", "decode_step",
+           "prefill", "prefill_into_slot", "dense_init", "layer_params"]
+
+
+def dense_init(gen: torch.Generator, shape, dtype, device,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal (±2σ) fan-in init drawn from ``gen``, in f32 then
+    cast; stacked [L, fan_in, fan_out] shapes use the per-layer fan-in."""
+    fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+         ) -> torch.Tensor:
+    """RMSNorm with the reference's ``1 + w`` scale, computed in f32."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def _act(name: str):
+    if name == "silu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
+    """Random params for ``cfg`` from a seeded ``torch.Generator`` on
+    ``device``, in the reference's layout (different numbers: the
+    reference draws from ``jax.random``)."""
+    cfg.validate()
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, F_, L, dt = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.tdtype
+    params: dict[str, Any] = {
+        "embedding": dense_init(gen, (cfg.vocab, D), dt, dev, scale=1.0),
+        "final_norm": torch.zeros(D, dtype=dt, device=dev),
+        "layers": {
+            "ln1": torch.zeros(L, D, dtype=dt, device=dev),
+            "ln2": torch.zeros(L, D, dtype=dt, device=dev),
+            "attn": attn.init_gqa(gen, cfg, L=L, device=dev),
+            "mlp": {"wi": dense_init(gen, (L, D, F_), dt, dev),
+                    "wo": dense_init(gen, (L, F_, D), dt, dev)},
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (D, cfg.vocab), dt, dev)
+    return params
+
+
+def layer_params(layers, i: int):
+    """Layer ``i`` of the stacked layer tree (views, no copies)."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    if isinstance(layers, torch.Tensor):
+        return layers[i]
+    return layers.layer(i)
+
+
+def _n_layers(params) -> int:
+    return params["layers"]["ln1"].shape[0]
+
+
+def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+    x = params["embedding"][tokens]
+    # the scale is rounded to the activation dtype first, then multiplied
+    # (one rounding of the exact product, as dtype * dtype would give)
+    scale = float(torch.tensor(math.sqrt(1.0 * cfg.d_model),
+                               dtype=torch.float32).to(x.dtype))
+    return x * scale
+
+
+def _sublayer_attn(lp, x, cfg, *, collect=False):
+    h = _rms(x, lp["ln1"])
+    a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg)
+    return x + a, ({"k": k, "v": v} if collect else {})
+
+
+def _sublayer_ffn(lp, x, cfg):
+    h = _rms(x, lp["ln2"])
+    hh = _act(cfg.act)(mm(h, lp["mlp"]["wi"]))
+    return x + mm(hh, lp["mlp"]["wo"])
+
+
+def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False):
+    """tokens [B, S] -> hidden [B, S, D] (final-normed).  With
+    ``collect_cache`` also returns the per-layer K/V stacked on [L]:
+    (hidden, {"k": [L, B, S, KV, hd], "v": ...})."""
+    x = _embed(params, cfg, tokens)
+    ks, vs = [], []
+    for i in range(_n_layers(params)):
+        lp = layer_params(params["layers"], i)
+        x, c = _sublayer_attn(lp, x, cfg, collect=collect_cache)
+        x = _sublayer_ffn(lp, x, cfg)
+        if collect_cache:
+            ks.append(c["k"])
+            vs.append(c["v"])
+    x = _rms(x, params["final_norm"])
+    if collect_cache:
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return x
+
+
+def logits_of(params, cfg: ModelConfig, hidden):
+    head = params.get("lm_head")
+    if head is None:
+        return hidden @ params["embedding"].T
+    return mm(hidden, head)
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
+    """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
+
+
+def _decode_gqa_at(p, x, cfg, kc, vc, pv):
+    """GQA decode of one layer; writes this token's K/V into the layer's
+    cache views ``kc``/``vc`` [B, S, KV, hd] in place."""
+    B = x.shape[0]
+    q, k, v = attn._qkv(p, x, cfg, pv[:, None])
+    rows = torch.arange(B, device=x.device)
+    wpos = pv.clamp(max=kc.shape[1] - 1).long()
+    kc.index_put_((rows, wpos), k[:, 0].to(kc.dtype))
+    vc.index_put_((rows, wpos), v[:, 0].to(vc.dtype))
+    out = attn.decode_attention(q, kc, vc, pv + 1)
+    return mm(out.reshape(B, 1, -1), p["wo"])
+
+
+def _decode_layer(lp, x, cfg, kc, vc, pv):
+    h = _rms(x, lp["ln1"])
+    x = x + _decode_gqa_at(lp["attn"], h, cfg, kc, vc, pv)
+    return _sublayer_ffn(lp, x, cfg)
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos):
+    """token [B, 1] int; pos [] or [B] (per-slot positions); returns
+    (logits [B, V], cache) with the cache updated in place."""
+    x = _embed(params, cfg, token)
+    pv = attn.pos_vec(pos, token.shape[0], device=token.device)
+    for i in range(_n_layers(params)):
+        x = _decode_layer(layer_params(params["layers"], i), x, cfg,
+                          cache["k"][i], cache["v"][i], pv)
+    x = _rms(x, params["final_norm"])
+    return logits_of(params, cfg, x)[:, 0], cache
+
+
+def _write_slot_leaf(dst, src, slot: int):
+    """Write one request's collected cache leaf into batch row ``slot`` of
+    ``dst`` [L, B_slots, S_cache, ...], in place.  Absolute position p
+    lands at row ``p % S_cache`` (a prompt longer than the cache keeps its
+    tail)."""
+    src = src[:, 0]                                     # [L, ...]
+    S_c, S_src = dst.shape[2], src.shape[1]
+    take = min(S_src, S_c)
+    piece = src[:, -take:].to(dst.dtype)
+    rows = ((S_src - take)
+            + torch.arange(take, device=dst.device)) % S_c
+    dst[:, slot].index_copy_(1, rows, piece)
+    return dst
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
+            *, cache=None, slot: int | None = None):
+    """Parallel forward that also fills the decode cache; returns
+    (last-position logits [B, V], cache).  With ``cache_len`` a fresh
+    cache is allocated and positions [0, S) written for the batch; with
+    ``cache`` + ``slot`` one request [1, S] is written into batch row
+    ``slot`` (the serving admission path)."""
+    B, S = tokens.shape
+    hidden, contribs = forward(params, cfg, tokens, collect_cache=True)
+    logits = logits_of(params, cfg, hidden[:, -1:])[:, 0]
+    if cache is not None:
+        assert slot is not None, "slot-mode prefill needs a slot index"
+        assert B == 1, "slot-mode prefill admits one request at a time"
+        for name in ("k", "v"):
+            _write_slot_leaf(cache[name], contribs[name], slot)
+        return logits, cache
+    assert cache_len is not None, "prefill needs cache_len or cache+slot"
+    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    for name in ("k", "v"):
+        take = min(S, cache_len)
+        cache[name][:, :, :take] = contribs[name][:, :, -take:]
+    return logits, cache
+
+
+def prefill_into_slot(params, cfg: ModelConfig, tokens, cache, slot: int):
+    """Admit one request: prefill ``tokens`` [1, S] into batch row
+    ``slot`` of ``cache``; returns (last-position logits [1, V], cache)."""
+    return prefill(params, cfg, tokens, cache=cache, slot=slot)

@@ -1,0 +1,12 @@
+"""Serving stack of the port: request queue, slot KV cache, engine,
+metrics."""
+
+from repro_torch.serve.engine import ServeEngine, compare_dense_sparse, \
+    sparsify_for_serving, warmup_engine
+from repro_torch.serve.metrics import ServeMetrics, summarize
+from repro_torch.serve.queue import Request, RequestOutput, RequestQueue, \
+    SamplingParams, sample_token
+
+__all__ = ["ServeEngine", "compare_dense_sparse", "sparsify_for_serving",
+           "warmup_engine", "ServeMetrics", "summarize", "Request",
+           "RequestOutput", "RequestQueue", "SamplingParams", "sample_token"]

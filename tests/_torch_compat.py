@@ -1,0 +1,67 @@
+"""Helpers shared by the ``tests/test_torch_*.py`` parity tests: carry
+the JAX package's arrays and params into numpy in the shape the port's
+bridge (``repro_torch.bridge``) takes, and skip CUDA-only tests on hosts
+without a card (decided inside the test, never at import)."""
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke as jax_smoke
+from repro.core import nmg as jax_nmg
+from repro.core.layouts import GroupedNMTensor as JaxGroupedNM
+from repro.models import init_lm as jax_init_lm
+from repro.serve.engine import sparsify_for_serving as jax_sparsify
+
+
+def nmg_to_numpy(t) -> dict:
+    """A JAX GroupedNMTensor as the bridge's sparse-leaf dict."""
+    return {"val": np.asarray(t.val), "blk_idx": np.asarray(t.blk_idx),
+            "cols": np.asarray(t.gather_plan().cols), "n": t.n, "m": t.m,
+            "g": t.g, "gr": t.gr, "dense_shape": tuple(t.dense_shape),
+            "sparse_dim": t.sparse_dim}
+
+
+def params_to_numpy(tree):
+    """A JAX params tree as nested dicts of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, JaxGroupedNM):
+        return nmg_to_numpy(tree)
+    return np.asarray(tree)
+
+
+@functools.lru_cache(maxsize=None)
+def smoke_setup(sparse: bool):
+    """The bert-base-sten SMOKE config in f32 for both packages, the
+    reference's params from ``init_lm(PRNGKey(0))`` (n:m:g 1:4:8 gr16
+    with ``attn=True`` when ``sparse``; init and conversion each run under
+    one ``jax.jit``), and their bridged port twins:
+    (jax cfg, port cfg, jax params, port params)."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke
+
+    jcfg = dataclasses.replace(jax_smoke("bert-base-sten"), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke("bert-base-sten"), dtype="float32")
+    jp = jax.jit(jax_init_lm, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    if sparse:
+        jp = jax.jit(lambda p: jax_sparsify(p, 1, 4, 8, gr=16, attn=True))(jp)
+    return jcfg, tcfg, jp, bridge.params_from_numpy(params_to_numpy(jp),
+                                                    device="cpu")
+
+
+#: the reference's n:m:g conversion under one jit per shape and format
+#: (eager, its greedy fori_loop recompiles on every call)
+jax_dense_to_grouped_nm = jax.jit(
+    jax_nmg.dense_to_grouped_nm,
+    static_argnames=("n", "m", "g", "gr", "sparse_dim", "method"))
+
+
+def require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false); runs on the card")

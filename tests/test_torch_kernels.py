@@ -1,0 +1,222 @@
+"""The port's n:m:g kernels against the JAX package's, on the same
+storage (the reference's conversion carried over by the bridge).
+
+On this host the port's wrappers run their plain PyTorch versions (the
+tensors lie on the CPU); those are held against the reference's Pallas
+kernels in interpret mode and its XLA twins, in f32 with rtol = atol =
+1e-5 — the summation order differs between the packages, the arithmetic
+does not.  The CUDA kernels themselves are held against the plain
+versions by ``tests/test_torch_cuda.py``, which runs on the card."""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.nmg_fused import nmg_qkv_pallas
+from repro.kernels.nmg_gemv import nmg_gemv_pallas
+from repro.kernels.nmg_spmm import nmg_spmm_pallas
+from repro_torch import bridge
+from repro_torch.kernels import nmg_fused, nmg_gemv, nmg_spmm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+from tests._torch_compat import jax_dense_to_grouped_nm, nmg_to_numpy
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+# bf16 storage and activations, f32 accumulation in both packages: the
+# products are exact in f32, only the order of the f32 sums differs, so
+# the f32 outputs agree to f32 rounding of sums of ~K terms of size ~1
+BF16_F32OUT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# (n, m, g, gr, R, K): the serving format 1:4:8 (K exact and K padded)
+# and a 2:4 format with padded R
+FORMATS = [(1, 4, 8, 16, 32, 128), (1, 4, 8, 16, 48, 64), (2, 4, 2, 4, 10, 96)]
+FMT_IDS = ["{}:{}:{}gr{}_{}x{}".format(*f) for f in FORMATS]
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(fmt, count=1, dtype=jnp.float32, seed=0):
+    """Reference conversions of [K, R] weights stored sparse along K
+    (the serving orientation), and their bridged port twins."""
+    n, m, g, gr, R, K = fmt
+    rng = np.random.default_rng(seed)
+    refs = [jax_dense_to_grouped_nm(
+        jnp.asarray(rng.standard_normal((K, R)), dtype), n=n, m=m, g=g,
+        gr=gr, sparse_dim=0) for _ in range(count)]
+    ports = [bridge.params_from_numpy(nmg_to_numpy(t), device="cpu")
+             for t in refs]
+    return refs, ports
+
+
+def _b(K, M, dtype=np.float32, seed=1):
+    b = np.random.default_rng(seed).standard_normal((K, M)).astype(dtype)
+    return jnp.asarray(b), torch.from_numpy(b)
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("fmt,M", [(FORMATS[0], 1), (FORMATS[0], 16),
+                                   (FORMATS[2], 3)],
+                         ids=[f"{FMT_IDS[0]}-1", f"{FMT_IDS[0]}-16",
+                              f"{FMT_IDS[2]}-3"])
+def test_gemv_plain_matches_reference(fmt, M):
+    (ref,), (port,) = _weights(fmt)
+    jb, tb = _b(fmt[5], M)
+    got = nmg_gemv.nmg_gemv(port, tb).numpy()
+    np.testing.assert_allclose(got, np.asarray(
+        nmg_gemv_pallas(ref, jb, interpret=True)), **F32_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.nmg_gemv_xla(ref, jb)),
+                               **F32_TOL)
+    got_t = nmg_gemv.nmg_gemv(port, tb, transpose_out=True).numpy()
+    np.testing.assert_allclose(got_t, np.asarray(
+        jops.nmg_gemv_xla(ref, jb, transpose_out=True)), **F32_TOL)
+    np.testing.assert_allclose(got, tref.nmg_spmm_ref(port, tb).numpy(),
+                               **F32_TOL)
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("fmt,stream", [(FORMATS[1], True),
+                                        (FORMATS[1], False),
+                                        (FORMATS[2], True)],
+                         ids=[f"{FMT_IDS[1]}-stream", f"{FMT_IDS[1]}-grid",
+                              f"{FMT_IDS[2]}-stream"])
+def test_spmm_plain_matches_reference(fmt, stream):
+    N = 17
+    (ref,), (port,) = _weights(fmt)
+    jb, tb = _b(fmt[5], N)
+    got = nmg_spmm.nmg_spmm(port, tb)
+    assert got.dtype == torch.float32 and got.shape == (fmt[4], N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        nmg_spmm_pallas(ref, jb, interpret=True, stream=stream, tn=32)),
+        **F32_TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jops.nmg_spmm_xla(ref, jb)),
+                               **F32_TOL)
+
+
+def test_spmm_plain_blocked_equals_unblocked():
+    """The block cap only bounds memory: a one-group-per-block run gives
+    the one-block answer bitwise (each group's einsum is the same)."""
+    _, (port,) = _weights(FORMATS[0])
+    _, tb = _b(FORMATS[0][5], 24)
+    whole = nmg_spmm.nmg_spmm_plain(port, tb)
+    tiny = nmg_spmm.nmg_spmm_plain(port, tb, block_elems=1)
+    assert torch.equal(whole, tiny)
+
+
+@pytest.mark.pallas_interpret
+def test_qkv_plain_matches_reference():
+    M = 8
+    refs, ports = _weights(FORMATS[0], count=3)
+    jb, tb = _b(FORMATS[0][5], M)
+    got = nmg_fused.nmg_qkv(ports, tb, transpose_out=True)
+    want_p = nmg_qkv_pallas(tuple(refs), jb, interpret=True)
+    want_x = jops.nmg_qkv_xla(tuple(refs), jb, transpose_out=True)
+    oracle = tref.nmg_qkv_ref(ports, tb)
+    for g_, wp, wx, o in zip(got, want_p, want_x, oracle):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(wp).T, **F32_TOL)
+        np.testing.assert_allclose(g_.numpy(), np.asarray(wx), **F32_TOL)
+        np.testing.assert_allclose(g_.numpy(), o.T.numpy(), **F32_TOL)
+
+
+@pytest.mark.pallas_interpret
+def test_bf16_gemv_and_spmm_match_reference():
+    """bf16 storage and activations: f32 outputs within BF16_F32OUT_TOL,
+    and the bf16 epilogue within one bf16 rounding step (2**-8 relative)
+    plus the f32 tolerance."""
+    (ref,), (port,) = _weights(FORMATS[0], dtype=jnp.bfloat16)
+    b = np.asarray(jnp.asarray(np.random.default_rng(1).standard_normal(
+        (128, 4)), jnp.bfloat16))
+    jb, tb = jnp.asarray(b), bridge.tensor_from_numpy(b, device="cpu")
+    np.testing.assert_allclose(
+        nmg_gemv.nmg_gemv(port, tb).numpy(),
+        np.asarray(nmg_gemv_pallas(ref, jb, interpret=True)),
+        **BF16_F32OUT_TOL)
+    got16 = nmg_gemv.nmg_gemv(port, tb, out_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got16.float().numpy(),
+        np.asarray(jops.nmg_gemv_xla(ref, jb, out_dtype=jnp.bfloat16),
+                   np.float32), rtol=2 ** -7, atol=1e-4)
+    b2 = np.asarray(jnp.asarray(np.random.default_rng(2).standard_normal(
+        (128, 20)), jnp.bfloat16))
+    np.testing.assert_allclose(
+        nmg_spmm.nmg_spmm(port, bridge.tensor_from_numpy(b2, "cpu")).numpy(),
+        np.asarray(nmg_spmm_pallas(ref, jnp.asarray(b2), interpret=True,
+                                   tn=32)), **BF16_F32OUT_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_qkv_bitwise_equals_sequential(dtype):
+    """One fused call over q/k/v equals three single calls bit for bit."""
+    _, ports = _weights(FORMATS[0], count=3)
+    ports = [p.to(dtype=dtype) for p in ports]
+    _, tb = _b(FORMATS[0][5], 4)
+    tb = tb.to(dtype)
+    fused = nmg_fused.nmg_qkv(ports, tb, out_dtype=dtype, transpose_out=True)
+    for f, w in zip(fused, ports):
+        seq = nmg_gemv.nmg_gemv(w, tb, out_dtype=dtype, transpose_out=True)
+        assert torch.equal(f, seq)
+
+
+@pytest.mark.parametrize("M,route", [(1, "gemv"), (16, "gemv"),
+                                     (17, "spmm"), (33, "spmm")])
+def test_linear_routes_on_m(M, route):
+    """nmg_linear takes GEMV for M <= 16 and SpMM above, as the counters
+    show, and both regimes return x.dtype in [M, N] order."""
+    (ref,), (port,) = _weights(FORMATS[0])
+    x = np.random.default_rng(5).standard_normal((M, 128)).astype(np.float32)
+    tops.reset_kernel_counters()
+    y = tops.nmg_linear(torch.from_numpy(x), port)
+    c = tops.kernel_counters()
+    assert c == {("nmg_linear", f"{route}[default]"): 1,
+                 (f"nmg_{route}", "plain"): 1}
+    assert y.dtype == torch.float32 and y.shape == (M, 32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(
+        jops.nmg_linear(jnp.asarray(x), ref)), **F32_TOL)
+
+
+@pytest.mark.parametrize("M,route", [(16, "gemv"), (17, "spmm")])
+def test_matmul_routes_on_m_with_f32_output(M, route):
+    (ref,), (port,) = _weights(FORMATS[0])
+    jb, tb = _b(128, M)
+    tops.reset_kernel_counters()
+    y = tops.nmg_matmul(port, tb)
+    assert tops.kernel_counters() == {("nmg_matmul", f"{route}[default]"): 1,
+                                      (f"nmg_{route}", "plain"): 1}
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(jops.nmg_matmul(ref, jb)),
+                               **F32_TOL)
+
+
+def test_fused_qkv_routing():
+    _, ports = _weights(FORMATS[0], count=3)
+    tops.reset_kernel_counters()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 3, 128)).astype(np.float32))
+    ys = tops.maybe_fused_qkv(x, ports)
+    assert [tuple(y.shape) for y in ys] == [(2, 3, 32)] * 3
+    assert tops.kernel_counters() == {("nmg_qkv", "fused[default]"): 1,
+                                      ("nmg_qkv", "plain"): 1}
+    assert tops.maybe_fused_qkv(torch.zeros(17, 128), ports) is None
+    assert tops.maybe_fused_qkv(x, [ports[0], torch.zeros(128, 32),
+                                    ports[2]]) is None
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    """A tensor that is not on the CPU goes to the kernel or raises; the
+    plain version is only for CPU tensors.  A meta tensor stands in for a
+    device tensor here (it is neither CPU nor CUDA)."""
+    _, (port,) = _weights(FORMATS[0])
+    b = torch.empty((128, 4), device="meta")
+    before = (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches)
+    with pytest.raises(ValueError, match="not CUDA"):
+        nmg_gemv.nmg_gemv(port, b)
+    with pytest.raises(ValueError, match="not CUDA"):
+        nmg_spmm.nmg_spmm(port, torch.empty((128, 40), device="meta"))
+    with pytest.raises(ValueError, match="not CUDA"):
+        nmg_fused.nmg_qkv([port] * 3, b)
+    assert (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches) == before
