@@ -1,11 +1,11 @@
 """Architecture registry of the port: the architectures it runs so far."""
 
-from repro_torch.configs import bert_base_sten
+from repro_torch.configs import bert_base_sten, qwen1_5_4b
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["get_config", "get_smoke"]
 
-_MODULES = {"bert-base-sten": bert_base_sten}
+_MODULES = {"bert-base-sten": bert_base_sten, "qwen1.5-4b": qwen1_5_4b}
 
 
 def _module(name: str):

@@ -15,48 +15,22 @@
 //
 // Design: four output rows per block, all inside one fiber group
 // (gr % 4 == 0) so they share the group's column plan, and two warps per
-// row splitting its K range.  Per K slab of 512 stored values each thread
-// first issues its `val` loads into registers, then the block gathers the
-// B rows named by `cols` (the precomputed plan, never re-derived from
-// blk_idx) into shared memory as f32, one column of B per shared-memory
-// row: each thread loads a plan entry once and issues its M loads back to
-// back, so the gather costs two dependent memory latencies per slab, not
-// 2*M.  The FMAs then run from registers and shared memory.  Partial sums
-// combine by a fixed warp butterfly and then across the row's two warps in
-// order, so the summation order is a function of the row alone: the fused
+// row splitting its K range; the row loop and its fixed reduction are
+// nmg_rows.cuh's `rows_dot`, shared with the fused FFN kernel.  The fused
 // QKV launch (blockIdx.y picks the segment, no concatenated copy of the
-// weights) is bitwise equal to three single launches.  Stored K rows past
-// the real K (padding of the last chunk) read as zero, so B needs no padded
-// copy; B is read through strides, so x.T needs no copy either.
+// weights) is bitwise equal to three single launches, since a row's
+// summation order depends on the row alone.
 // Still simple: no cp.async/TMA pipelining across slabs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nmg_rows.cuh"
+
 namespace {
 
-constexpr int kRowsPerBlock = 4;       // output rows per block
-constexpr int kWarpsPerRow = 2;        // warps splitting one row's K range
-constexpr int kRowThreads = kWarpsPerRow * 32;
-constexpr int kThreads = kRowsPerBlock * kRowThreads;
-constexpr int kSlab = 512;             // stored K values per slab
-constexpr int kPerThread = kSlab / kRowThreads;
-constexpr int kSlabStride = kSlab + 1;  // padded shared-memory row
-constexpr int kMaxM = 16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename O>
-__device__ __forceinline__ O from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace nmg;
 
 template <typename T, typename O>
 struct Seg {
@@ -80,64 +54,12 @@ nmg_gemv_kernel(Segs<T, O> segs, const T* __restrict__ b, long long ldk,
   const Seg<T, O> seg = segs.s[blockIdx.y];
   const int row0 = blockIdx.x * kRowsPerBlock;
   if (row0 >= seg.R_pad) return;  // uniform across the block
-  const int rloc = threadIdx.x / kRowThreads;  // row within the block
-  const int rt = threadIdx.x % kRowThreads;    // thread within its row
-  const int lane = threadIdx.x & 31;
-  const int row = row0 + rloc;
-  const int* __restrict__ cols = seg.cols + (size_t)(row0 / gr) * KN;
-  const T* __restrict__ vrow = seg.val + (size_t)row * KN;
-
-  __shared__ float sB[kMaxM * kSlabStride];  // sB[c * stride + s]
-  __shared__ float sPart[kRowsPerBlock][kWarpsPerRow][kMaxM];
-
-  float acc[kMaxM];
-#pragma unroll
-  for (int c = 0; c < kMaxM; ++c) acc[c] = 0.f;
-
-  for (int k0 = 0; k0 < KN; k0 += kSlab) {
-    const int tk = min(kSlab, KN - k0);
-    float v[kPerThread];
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int s = rt + j * kRowThreads;
-      v[j] = s < tk ? to_f32(vrow[k0 + s]) : 0.f;
-    }
-    __syncthreads();  // the previous slab is consumed
-    for (int s = threadIdx.x; s < tk; s += kThreads) {
-      const int col = cols[k0 + s];
-      const T* bp = b + (long long)col * ldk;
-#pragma unroll
-      for (int c = 0; c < kMaxM; ++c)
-        if (c < M)
-          sB[c * kSlabStride + s] =
-              col < K ? to_f32(bp[(long long)c * ldc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int s = rt + j * kRowThreads;
-      if (s < tk) {
-#pragma unroll
-        for (int c = 0; c < kMaxM; ++c)
-          if (c < M) acc[c] = fmaf(v[j], sB[c * kSlabStride + s], acc[c]);
-      }
-    }
-  }
-
-  const int warp_in_row = rt >> 5;
-#pragma unroll
-  for (int c = 0; c < kMaxM; ++c) {
-    float x = acc[c];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0 && c < M) sPart[rloc][warp_in_row][c] = x;
-  }
-  __syncthreads();
+  __shared__ RowsSmem sm;
+  const float x = rows_dot(seg.val, seg.cols + (size_t)(row0 / gr) * KN,
+                           row0, b, ldk, ldc, K, KN, M, sm);
+  const int rt = threadIdx.x % kRowThreads;
+  const int row = row0 + threadIdx.x / kRowThreads;
   if (rt < M && row < seg.R) {
-    float x = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarpsPerRow; ++w) x += sPart[rloc][w][rt];
     const size_t o = transpose_out ? (size_t)rt * seg.R + row
                                    : (size_t)row * M + rt;
     seg.out[o] = from_f32<O>(x);

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``<repo>/build/repro_torch/lib<name>-<hash>.so``, where the hash covers the
-source and the flags, so an edited source rebuilds.  Nothing here runs at
-import time; a missing ``nvcc`` or a failed build raises.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds.  Nothing here runs at import time; a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -37,7 +38,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library path, hashed over the source, the shared headers and
+    the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

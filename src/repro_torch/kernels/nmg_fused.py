@@ -1,7 +1,7 @@
-"""Decode megakernel: the fused QKV launch (port of the QKV half of
-``repro/kernels/nmg_fused.py``).
+"""Decode megakernels: the fused QKV and fused gated-FFN launches (port
+of ``repro/kernels/nmg_fused.py``).
 
-``wq``/``wk``/``wv`` share the contraction axis and, when sparsified
+QKV: ``wq``/``wk``/``wv`` share the contraction axis and, when sparsified
 together, the (n, m, g, gr) format, so one GEMV launch can compute all
 three.  The reference concatenates the storage and launches its GEMV body
 once; the CUDA launch here instead takes the three (val, cols, out)
@@ -9,20 +9,39 @@ segments as they are (``blockIdx.y`` picks the segment), so no decode step
 copies the QKV weights.  Each row's summation order depends on the row
 alone, so the fused launch is bitwise equal to three single launches.
 
-The fused gated-FFN kernel (``_ffn_kernel``) is not ported yet: it only
-fires for gated-MLP configs.
+Gated FFN: the gated MLP packs ``w1`` and the gate into one [D, 2F]
+weight.  :func:`nmg_ffn` launches ``csrc/nmg_ffn.cu``, which computes
+each u row (< F) and its partner v row at +F in the GEMV's own order, then
+in its epilogue casts both to ``out_dtype`` and writes ``act(u) * v``:
+the op order of the sequential path (projection with the decode epilogue,
+split, act, multiply), so fused and sequential agree bitwise for silu.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
+import torch.nn.functional as nnf
 
 from repro_torch.core.layouts import GroupedNMTensor
-from repro_torch.kernels.nmg_gemv import _pad_rows, gemv_launch
+from repro_torch.kernels.nmg_gemv import MAX_M, _DTYPE_CODE, _pad_rows, \
+    check_operands, gemv_launch, nmg_gemv_plain
 
-__all__ = ["fusable_qkv", "fused_segments", "nmg_qkv", "nmg_qkv_plain"]
+__all__ = ["act_fn", "fusable_qkv", "fusable_ffn", "fused_segments",
+           "nmg_qkv", "nmg_qkv_plain", "nmg_ffn", "nmg_ffn_plain"]
+
+#: activation codes of the C interface of ``csrc/nmg_ffn.cu``
+_ACT_CODE = {"silu": 0, "gelu": 1}
+
+
+def act_fn(name: str):
+    """The model stack's activation by name: silu, or gelu with its tanh
+    approximation (the fused epilogue replays it)."""
+    if name == "silu":
+        return nnf.silu
+    return lambda t: nnf.gelu(t, approximate="tanh")
 
 
 def fusable_qkv(ws: Sequence) -> bool:
@@ -46,6 +65,18 @@ def fusable_qkv(ws: Sequence) -> bool:
         if w.val.shape[0] != w.blk_idx.shape[0] * w.gr:
             return False
     return True
+
+
+def fusable_ffn(w, F: int) -> bool:
+    """Static eligibility of a packed [D, 2F] gated-MLP weight for the
+    fused FFN launch: grouped n:m:g, sparse along the input axis, exactly
+    2F unpadded rows, and the u/v halves splitting on a fiber-group
+    boundary (F divisible by gr)."""
+    if not isinstance(w, GroupedNMTensor) or w.sparse_dim % 2 != 0:
+        return False
+    if w.canonical_rows() != 2 * F or F <= 0:
+        return False
+    return w.val.shape[-3] == 2 * F and F % w.gr == 0
 
 
 def fused_segments(ws: Sequence) -> list:
@@ -100,3 +131,62 @@ def nmg_qkv(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
 
 
 nmg_qkv.launches = 0
+
+
+def nmg_ffn_plain(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
+                  out_dtype=None, transpose_out: bool = False
+                  ) -> torch.Tensor:
+    """Plain version (``repro/kernels/ops.py:nmg_ffn_xla``): the sequential
+    ops themselves — GEMV with the ``out_dtype`` epilogue, split, act,
+    multiply.  Returns [F, M], or [M, F] with ``transpose_out``."""
+    hh = nmg_gemv_plain(w, b, out_dtype=out_dtype, transpose_out=True)
+    u, v = hh.chunk(2, dim=-1)
+    out = act_fn(act)(u) * v                                  # [M, F]
+    return out if transpose_out else out.T
+
+
+def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
+            out_dtype=None, transpose_out: bool = False) -> torch.Tensor:
+    """``act(u) * v`` of the packed gated weight against a decode-shaped
+    B[D, M] in one launch: the CUDA kernel when the operands lie on the
+    card, the plain version when both lie on the CPU.  A weight that
+    :func:`fusable_ffn` rejects raises."""
+    if b.device.type == "cpu" and w.val.device.type == "cpu":
+        return nmg_ffn_plain(w, b, act=act, out_dtype=out_dtype,
+                             transpose_out=transpose_out)
+    from repro_torch.kernels import _build
+
+    check_operands([w], b, max_m=MAX_M)
+    F = w.canonical_rows() // 2
+    if not fusable_ffn(w, F):
+        raise ValueError("packed weight not fusable (rows padded, odd, or "
+                         "F not a multiple of gr); route sequentially")
+    if act not in _ACT_CODE:
+        raise ValueError(f"activation {act!r} not taken by the FFN kernel")
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.float32, b.dtype):
+        raise ValueError(f"output dtype {out_dtype} not taken for "
+                         f"{b.dtype} inputs")
+    K, M = b.shape
+    KN = w.val.shape[1] * w.val.shape[2]
+    out = torch.empty((M, F) if transpose_out else (F, M),
+                      dtype=out_dtype, device=b.device)
+    fn = _build.load("nmg_ffn").nmg_ffn_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                          ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    err = fn(_DTYPE_CODE[b.dtype], int(out_dtype == torch.float32),
+             _ACT_CODE[act], w.val.data_ptr(), w.gather_plan().cols.data_ptr(),
+             out.data_ptr(), F, b.data_ptr(), b.stride(0), b.stride(1), K,
+             KN, M, w.gr, int(transpose_out),
+             torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nmg_ffn launch failed: error {err}")
+    nmg_ffn.launches += 1
+    return out
+
+
+nmg_ffn.launches = 0

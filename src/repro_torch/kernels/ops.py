@@ -7,8 +7,10 @@
                                                   x.dtype epilogue
   M >  decode_m_max    ``nmg_spmm``  (prefill)    column-tiled SpMM, f32 out
 
-Each op runs the CUDA kernel for CUDA tensors and its plain version for
-CPU tensors.  ``kernel_counters`` is the port's own plain dict of routing
+Decode-shaped groups also fuse: ``maybe_fused_qkv`` (q/k/v in one GEMV
+launch) and ``maybe_fused_ffn`` (the packed gated-MLP weight, projection
+and ``act(u) * v`` in one launch).  Each op runs the CUDA kernel for CUDA
+tensors and its plain version for CPU tensors.  ``kernel_counters`` is the port's own plain dict of routing
 decisions and launches per (kernel, route): ``("nmg_linear",
 "gemv[default]")`` for the router's choice, ``("nmg_gemv", "cuda")`` or
 ``("nmg_gemv", "plain")`` for where the work ran.  Routes read the shipped
@@ -26,7 +28,8 @@ import torch
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels import nmg_fused, nmg_gemv as _gemv, \
     nmg_spmm as _spmm
-from repro_torch.kernels.nmg_fused import fusable_qkv, nmg_qkv_plain
+from repro_torch.kernels.nmg_fused import fusable_ffn, fusable_qkv, \
+    nmg_ffn_plain, nmg_qkv_plain
 from repro_torch.kernels.nmg_gemv import nmg_gemv_plain
 from repro_torch.kernels.nmg_spmm import nmg_spmm_plain
 from repro_torch.tune import routing
@@ -43,6 +46,10 @@ __all__ = [
     "nmg_qkv_plain",
     "maybe_fused_qkv",
     "fusable_qkv",
+    "nmg_ffn",
+    "nmg_ffn_plain",
+    "maybe_fused_ffn",
+    "fusable_ffn",
     "kernel_counters",
     "reset_kernel_counters",
 ]
@@ -103,6 +110,37 @@ def maybe_fused_qkv(x: torch.Tensor, ws):
     _KERNEL_COUNTS[("nmg_qkv", "fused[default]")] += 1
     ys = nmg_qkv(ws, x2.T, out_dtype=x.dtype, transpose_out=True)
     return tuple(y.reshape(*lead, -1) for y in ys)
+
+
+def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
+            out_dtype=None, transpose_out: bool = False) -> torch.Tensor:
+    """Fused gated-MLP pair: packed [D, 2F] weight against decode-shaped
+    B[D, M], gate applied in the kernel's epilogue.  Returns [F, M] (or
+    [M, F] with ``transpose_out``)."""
+    _KERNEL_COUNTS[("nmg_ffn", _where(b))] += 1
+    return nmg_fused.nmg_ffn(w, b, act=act, out_dtype=out_dtype,
+                             transpose_out=transpose_out)
+
+
+def maybe_fused_ffn(x: torch.Tensor, w, *, act: str = "silu"):
+    """``act(u) * v`` of the packed gated weight in one launch, in x.dtype,
+    or None when the weight is ineligible, x is prefill-shaped, or fusion
+    is switched off (callers then run the projection, split and gate)."""
+    if not isinstance(w, GroupedNMTensor):
+        return None
+    R = w.canonical_rows()
+    if R % 2 or not fusable_ffn(w, R // 2):
+        return None
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[0] > DECODE_M_MAX:
+        return None
+    if not routing.DEFAULT_FUSED_FFN:
+        _KERNEL_COUNTS[("nmg_ffn", "sequential[default]")] += 1
+        return None
+    _KERNEL_COUNTS[("nmg_ffn", "fused[default]")] += 1
+    y = nmg_ffn(w, x2.T, act=act, out_dtype=x.dtype, transpose_out=True)
+    return y.reshape(*lead, -1)
 
 
 def nmg_matmul(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.kernels.nmg_fused import act_fn
 
-__all__ = ["nmg_spmm_ref", "nmg_qkv_ref"]
+__all__ = ["nmg_spmm_ref", "nmg_qkv_ref", "nmg_ffn_ref"]
 
 
 def nmg_spmm_ref(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
@@ -21,3 +22,12 @@ def nmg_spmm_ref(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
 def nmg_qkv_ref(ws, b: torch.Tensor) -> tuple:
     """Fused-QKV oracle: one :func:`nmg_spmm_ref` per projection."""
     return tuple(nmg_spmm_ref(w, b) for w in ws)
+
+
+def nmg_ffn_ref(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu"
+                ) -> torch.Tensor:
+    """Fused gated-FFN oracle: project the packed [D, 2F] weight with
+    :func:`nmg_spmm_ref`, split into the u/gate halves along the output
+    rows, apply the activation, multiply.  [F, M] f32."""
+    u, v = nmg_spmm_ref(w, b).chunk(2, dim=0)
+    return act_fn(act)(u) * v

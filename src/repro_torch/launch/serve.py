@@ -4,6 +4,8 @@ through the slot engine, dense or, with ``--sparse``, dense and n:m:g side
 by side.
 
     python -m repro_torch.launch.serve --arch bert-base-sten --engine --sparse
+    python -m repro_torch.launch.serve --arch qwen1.5-4b --engine --sparse \
+        --nm 1:4:8
 
 runs on the card; ``--device cpu`` runs the plain versions on the CPU
 (with ``--smoke`` for a size the CPU can take).

@@ -1,4 +1,4 @@
-"""The ported model stack (non-gated GQA dense decoder)."""
+"""The ported model stack (GQA dense decoder, plain or gated MLP)."""
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (

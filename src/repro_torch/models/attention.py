@@ -115,22 +115,29 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig, *, L: int, device):
-    """Stacked [L, ...] GQA projections, truncated-normal fan-in init."""
+    """Stacked [L, ...] GQA projections, truncated-normal fan-in init;
+    with ``cfg.qkv_bias`` also zero biases ``bq``/``bk``/``bv``."""
     from repro_torch.models.transformer import dense_init
 
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {
+    p = {
         "wq": dense_init(gen, (L, D, H * hd), cfg.tdtype, device),
         "wk": dense_init(gen, (L, D, KV * hd), cfg.tdtype, device),
         "wv": dense_init(gen, (L, D, KV * hd), cfg.tdtype, device),
         "wo": dense_init(gen, (L, H * hd, D), cfg.tdtype, device),
     }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = torch.zeros(L, width, dtype=cfg.tdtype, device=device)
+    return p
 
 
 def _qkv(p, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = mm_fused_qkv(x, p["wq"], p["wk"], p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, KV, hd)

@@ -2,9 +2,9 @@
 ``repro/models/common.py``).
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field.
-The port runs only its non-gated GQA dense-decoder subset:
-:meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
-other families.
+The port runs its GQA dense-decoder subset, plain or gated MLP, with or
+without QKV bias: :meth:`ModelConfig.check_ported` raises
+``NotImplementedError`` for the other families.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
 
-__all__ = ["ModelConfig", "mm", "mm_fused_qkv", "torch_dtype"]
+__all__ = ["ModelConfig", "mm", "mm_fused_qkv", "mm_gated",
+           "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -55,6 +56,22 @@ def mm_fused_qkv(x: torch.Tensor, wq, wk, wv) -> tuple:
         out_dtype = torch.promote_types(x.dtype, w.dtype)
         outs.append(y if y.dtype == out_dtype else y.to(out_dtype))
     return tuple(outs)
+
+
+def mm_gated(x: torch.Tensor, w, act: str, *, inline=None):
+    """The gated-MLP pair (packed [D, 2F] weight) with the activation fused
+    into the projection kernel's epilogue, or None when that route is
+    ineligible: the caller then runs projection, split and activation.
+    Declines when a promotion cast would sit between projection and gate
+    (it would move the activation's rounding, and fused must equal
+    sequential bitwise)."""
+    if inline is not None:
+        return None
+    if torch.promote_types(x.dtype, getattr(w, "dtype", x.dtype)) != x.dtype:
+        return None
+    from repro_torch.kernels import ops as kops
+
+    return kops.maybe_fused_ffn(x, w, act=act)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +122,11 @@ class ModelConfig:
 
     def check_ported(self):
         """Raise NotImplementedError unless this config lies in the
-        ported subset: non-gated GQA dense decoder, global attention, no
-        MoE/MLA/SSM/enc-dec/VLM prefix/int8 KV/softcaps/bias/post-norms."""
+        ported subset: GQA dense decoder (plain or gated MLP, optional QKV
+        bias), global attention, no MoE/MLA/SSM/enc-dec/VLM prefix/int8
+        KV/softcaps/post-norms."""
         unported = {
             "attn_type != 'gqa'": self.attn_type != "gqa",
-            "gated_mlp": self.gated_mlp,
             "moe": self.moe is not None,
             "mla": self.mla is not None,
             "ssm": self.ssm is not None,
@@ -117,7 +134,6 @@ class ModelConfig:
             or self.local_window is not None,
             "softcaps": self.attn_softcap is not None
             or self.logit_softcap is not None,
-            "qkv_bias": self.qkv_bias,
             "post_norms": self.post_norms,
             "enc-dec": self.n_enc_layers > 0,
             "vision prefix": self.vision_prefix > 0,

@@ -1,5 +1,5 @@
-"""The ported LM stack: a non-gated GQA dense decoder (port of the dense
-decoder path of ``repro/models/transformer.py``).
+"""The ported LM stack: a GQA dense decoder with a plain or gated MLP
+(port of the dense decoder path of ``repro/models/transformer.py``).
 
 Params are nested dicts with the reference's layout: layer leaves are
 stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
@@ -22,11 +22,11 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig, mm
+from repro_torch.models.common import ModelConfig, mm, mm_gated
 
 __all__ = ["init_lm", "forward", "logits_of", "init_cache", "decode_step",
            "prefill", "prefill_into_slot", "dense_init", "layer_params"]
@@ -51,12 +51,6 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
-def _act(name: str):
-    if name == "silu":
-        return F.silu
-    return lambda t: F.gelu(t, approximate="tanh")
-
-
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Random params for ``cfg`` from a seeded ``torch.Generator`` on
     ``device``, in the reference's layout (different numbers: the
@@ -72,7 +66,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
             "ln1": torch.zeros(L, D, dtype=dt, device=dev),
             "ln2": torch.zeros(L, D, dtype=dt, device=dev),
             "attn": attn.init_gqa(gen, cfg, L=L, device=dev),
-            "mlp": {"wi": dense_init(gen, (L, D, F_), dt, dev),
+            "mlp": {"wi": dense_init(
+                gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
                     "wo": dense_init(gen, (L, F_, D), dt, dev)},
         },
     }
@@ -111,7 +106,17 @@ def _sublayer_attn(lp, x, cfg, *, collect=False):
 
 def _sublayer_ffn(lp, x, cfg):
     h = _rms(x, lp["ln2"])
-    hh = _act(cfg.act)(mm(h, lp["mlp"]["wi"]))
+    wi = lp["mlp"]["wi"]
+    if cfg.gated_mlp:
+        # projection, split, act, gate in one decode launch when eligible;
+        # None -> the same ops in sequence (the kernel's epilogue replays
+        # their roundings, so the two agree bitwise)
+        hh = mm_gated(h, wi, cfg.act)
+        if hh is None:
+            u, v = mm(h, wi).chunk(2, dim=-1)
+            hh = act_fn(cfg.act)(u) * v
+    else:
+        hh = act_fn(cfg.act)(mm(h, wi))
     return x + mm(hh, lp["mlp"]["wo"])
 
 

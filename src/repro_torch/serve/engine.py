@@ -46,7 +46,11 @@ def sparsify_for_serving(params, n: int = 1, m: int = 4, g: int = 16,
     """Convert the FFN weights (and with ``attn=True`` also wq/wk/wv/wo) to
     the n:m:g serving layout, ``gr`` rows sharing each chunk permutation.
     With ``attn=True`` q/k/v share one format over one contraction axis and
-    decode routes them through the fused QKV launch."""
+    decode routes them through the fused QKV launch.  A gated MLP's packed
+    [D, 2F] ``wi`` converts as one weight; when 2F needs no row padding
+    and F is a multiple of ``gr`` (qwen1.5-4b: 2F = 13824 = 216 x 64; its
+    SMOKE: 256 = 16 x 16), decode routes it through the fused FFN launch
+    (``fusable_ffn``), else through the GEMV and a separate gate."""
     sb = SparsityBuilder()
     sp = GroupedNMSparsifier(n, m, g, gr, sparse_dim=0)   # [K, N] weights
     sb.set_weight("*mlp.wi", sp, GroupedNMTensor)
@@ -111,7 +115,7 @@ class ServeEngine:
         self.queue = RequestQueue()
         self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
                               device=self.device)
-        self.stats = {"rejected": 0, "peak_active": 0}
+        self.stats = {"rejected": 0, "peak_active": 0, "decode_steps": 0}
         self._slots: list[Optional[_SlotState]] = [None] * max_slots
         self._pos = np.zeros(max_slots, np.int32)   # next write position
         self._tok = np.zeros(max_slots, np.int32)   # last sampled token
@@ -225,6 +229,7 @@ class ServeEngine:
         pos = torch.as_tensor(self._pos, device=self.device)
         logits, self.kv.data = decode_step(self.params, self.cfg, tok,
                                            self.kv.data, pos)
+        self.stats["decode_steps"] += 1
         logits_np = logits.float().cpu().numpy()
         t = self._now()
         produced = 0
@@ -252,6 +257,7 @@ class ServeEngine:
             self.params, self.cfg,
             torch.as_tensor(self._tok[:, None], device=self.device),
             self.kv.data, torch.as_tensor(self._pos, device=self.device), T)
+        self.stats["decode_steps"] += T
         toks_np = toks.cpu().numpy()        # the one host sync per chunk
         t1 = self._now()
         produced = 0

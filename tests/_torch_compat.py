@@ -36,18 +36,28 @@ def params_to_numpy(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def smoke_setup(sparse: bool):
-    """The bert-base-sten SMOKE config in f32 for both packages, the
+def smoke_setup(sparse: bool, arch: str = "bert-base-sten",
+                bias_seed=None):
+    """The SMOKE config of ``arch`` in f32 for both packages, the
     reference's params from ``init_lm(PRNGKey(0))`` (n:m:g 1:4:8 gr16
     with ``attn=True`` when ``sparse``; init and conversion each run under
     one ``jax.jit``), and their bridged port twins:
-    (jax cfg, port cfg, jax params, port params)."""
+    (jax cfg, port cfg, jax params, port params).  With ``bias_seed`` the
+    QKV biases, zero after init in both packages, are set to seeded
+    normal values first, so the bias add is exercised."""
     from repro_torch import bridge
     from repro_torch.configs import get_smoke
 
-    jcfg = dataclasses.replace(jax_smoke("bert-base-sten"), dtype="float32")
-    tcfg = dataclasses.replace(get_smoke("bert-base-sten"), dtype="float32")
+    jcfg = dataclasses.replace(jax_smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke(arch), dtype="float32")
     jp = jax.jit(jax_init_lm, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    if bias_seed is not None:
+        rng = np.random.default_rng(bias_seed)
+        attn = dict(jp["layers"]["attn"])
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jax.numpy.asarray(
+                rng.standard_normal(attn[name].shape), attn[name].dtype)
+        jp = {**jp, "layers": {**jp["layers"], "attn": attn}}
     if sparse:
         jp = jax.jit(lambda p: jax_sparsify(p, 1, 4, 8, gr=16, attn=True))(jp)
     return jcfg, tcfg, jp, bridge.params_from_numpy(params_to_numpy(jp),

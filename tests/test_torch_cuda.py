@@ -10,7 +10,12 @@ exactly, so only the order of the f32 sums differs.  With unit-variance
 inputs an output sums up to 768 stored products into partial sums of
 size ~30, so a reordering moves it by a few units of 2**-24 * 30 per
 term: atol = 2e-4, rtol = 1e-5 (the card showed 3.5e-5 at K = 3072).
-Fused QKV against three single launches: bitwise."""
+Fused QKV against three single launches: bitwise.  The fused gated FFN
+against the GEMV followed by PyTorch's own activation and multiply:
+bitwise for silu (the kernel's epilogue replays PyTorch's CUDA silu);
+for gelu's tanh approximation within one rounding step of the output
+type (``tanhf`` and the polynomial may round differently from
+PyTorch's kernel)."""
 
 import pytest
 import torch
@@ -93,3 +98,49 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         nmg_spmm.nmg_spmm(w16, torch.randn(768, 32, device="cuda",
                                            dtype=torch.bfloat16))
+
+
+def _packed(K, F, dtype, seed=0):
+    """A packed gated-MLP weight [K, 2F] at 1:4:8 gr64 on the card."""
+    (w,) = _weights(K, 2 * F, dtype, seed=seed)
+    return w
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_matches_plain_and_sequential(dtype, act, M):
+    _require_cuda()
+    w = _packed(512, 384, dtype)
+    x = torch.randn(M, 512, device="cuda").to(dtype)
+    for t in (False, True):
+        got = nmg_fused.nmg_ffn(w, x.T, act=act, transpose_out=t)
+        assert got.dtype == torch.float32
+        assert got.shape == ((M, 384) if t else (384, M))
+        torch.testing.assert_close(
+            got, nmg_fused.nmg_ffn_plain(w, x.T, act=act, transpose_out=t),
+            **TOL)
+    fused = nmg_fused.nmg_ffn(w, x.T, act=act, out_dtype=dtype,
+                              transpose_out=True)
+    u, v = nmg_gemv.nmg_gemv(w, x.T, out_dtype=dtype,
+                             transpose_out=True).chunk(2, dim=-1)
+    seq = nmg_fused.act_fn(act)(u) * v
+    if act == "silu":
+        assert torch.equal(fused, seq)
+    else:
+        torch.testing.assert_close(
+            fused.float(), seq.float(), atol=1e-6,
+            rtol=2 ** -7 if dtype == torch.bfloat16 else 1e-6)
+
+
+def test_ffn_wrapper_rejects_what_the_kernel_does_not_take():
+    _require_cuda()
+    bf16 = torch.bfloat16
+    w = _packed(512, 384, bf16)
+    with pytest.raises(ValueError, match="not CUDA"):
+        nmg_fused.nmg_ffn(w, torch.randn(512, 4, dtype=bf16))
+    with pytest.raises(ValueError, match="1..16"):
+        nmg_fused.nmg_ffn(w, torch.randn(512, 17, device="cuda", dtype=bf16))
+    odd = _packed(512, 96, bf16)        # F = 96 is not a multiple of gr = 64
+    with pytest.raises(ValueError, match="not fusable"):
+        nmg_fused.nmg_ffn(odd, torch.randn(512, 4, device="cuda", dtype=bf16))

@@ -16,13 +16,15 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro.kernels.nmg_fused import nmg_qkv_pallas
+from repro.kernels.nmg_fused import nmg_ffn_pallas, nmg_qkv_pallas
 from repro.kernels.nmg_gemv import nmg_gemv_pallas
 from repro.kernels.nmg_spmm import nmg_spmm_pallas
 from repro_torch import bridge
 from repro_torch.kernels import nmg_fused, nmg_gemv, nmg_spmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.models.common import mm_gated
+from repro_torch.tune import routing
 
 from tests._torch_compat import jax_dense_to_grouped_nm, nmg_to_numpy
 
@@ -36,6 +38,8 @@ BF16_F32OUT_TOL = dict(rtol=1e-4, atol=1e-4)
 # and a 2:4 format with padded R
 FORMATS = [(1, 4, 8, 16, 32, 128), (1, 4, 8, 16, 48, 64), (2, 4, 2, 4, 10, 96)]
 FMT_IDS = ["{}:{}:{}gr{}_{}x{}".format(*f) for f in FORMATS]
+# a packed gated-MLP weight [K, 2F] = [128, 64]: F = 32 = 2 fiber groups
+FFN_FMT = (1, 4, 8, 16, 64, 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,3 +224,82 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="not CUDA"):
         nmg_fused.nmg_qkv([port] * 3, b)
     assert (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches) == before
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_ffn_plain_matches_reference(act, M):
+    """The fused gated FFN's plain version against the reference's Pallas
+    kernel (interpret mode), its XLA twin and the port's oracle."""
+    (ref,), (port,) = _weights(FFN_FMT)
+    jb, tb = _b(FFN_FMT[5], M)
+    got = nmg_fused.nmg_ffn(port, tb, act=act)
+    assert got.shape == (32, M) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        nmg_ffn_pallas(ref, jb, act=act, interpret=True)), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jops.nmg_ffn_xla(ref, jb, act=act)), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), tref.nmg_ffn_ref(
+        port, tb, act=act).numpy(), **F32_TOL)
+    got_t = nmg_fused.nmg_ffn(port, tb, act=act, transpose_out=True)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(
+        jops.nmg_ffn_xla(ref, jb, act=act, transpose_out=True)), **F32_TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_bitwise_equals_sequential(dtype, act):
+    """The fused route equals the model's own sequential projection,
+    split and gate bit for bit, in one routed call."""
+    _, (port,) = _weights(FFN_FMT)
+    port = port.to(dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 2, 128)).astype(np.float32)).to(dtype)
+    tops.reset_kernel_counters()
+    fused = tops.maybe_fused_ffn(x, port, act=act)
+    assert tops.kernel_counters() == {("nmg_ffn", "fused[default]"): 1,
+                                      ("nmg_ffn", "plain"): 1}
+    u, v = tops.nmg_linear(x, port).chunk(2, dim=-1)
+    seq = nmg_fused.act_fn(act)(u) * v
+    assert fused.shape == (2, 2, 32) and fused.dtype == dtype
+    assert torch.equal(fused, seq)
+
+
+def test_maybe_fused_ffn_declines(monkeypatch):
+    """None (the caller runs the sequential path) for prefill-shaped x, a
+    dense weight, and F not a multiple of gr; the routing default can
+    switch fusion off, which the counters record."""
+    _, (port,) = _weights(FFN_FMT)
+    _, (odd,) = _weights(FORMATS[1])          # 2F = 48, gr 16: F = 24
+    x = torch.zeros(4, 128)
+    tops.reset_kernel_counters()
+    assert tops.maybe_fused_ffn(torch.zeros(17, 128), port) is None
+    assert tops.maybe_fused_ffn(x, torch.zeros(128, 64)) is None
+    assert not tops.fusable_ffn(odd, 24)
+    assert tops.maybe_fused_ffn(torch.zeros(4, 64), odd) is None
+    assert tops.kernel_counters() == {}
+    monkeypatch.setattr(routing, "DEFAULT_FUSED_FFN", False)
+    assert tops.maybe_fused_ffn(x, port) is None
+    assert tops.kernel_counters() == {("nmg_ffn", "sequential[default]"): 1}
+
+
+def test_mm_gated_declines_on_promotion_and_inline():
+    """``mm_gated`` leaves the gate to the caller when a promotion cast
+    would sit between projection and gate, or an inline sparsifier is
+    asked for."""
+    _, (port,) = _weights(FFN_FMT)
+    x = torch.zeros(4, 128, dtype=torch.bfloat16)
+    assert mm_gated(x, port, "silu") is None              # f32 weight
+    assert mm_gated(x.float(), port, "silu", inline=object()) is None
+    assert mm_gated(x.float(), port, "silu").shape == (4, 32)
+
+
+def test_ffn_non_cpu_tensor_never_takes_the_plain_version():
+    """As for the other wrappers: an operand off the CPU goes to the
+    kernel or raises (a meta tensor stands in for a device tensor)."""
+    _, (port,) = _weights(FFN_FMT)
+    before = nmg_fused.nmg_ffn.launches
+    with pytest.raises(ValueError, match="not CUDA"):
+        nmg_fused.nmg_ffn(port, torch.empty((128, 4), device="meta"))
+    assert nmg_fused.nmg_ffn.launches == before

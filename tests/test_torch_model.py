@@ -1,9 +1,10 @@
-"""The port's model stack against the JAX package's on the bert-base-sten
-SMOKE config in f32, with the reference's weights (dense, and n:m:g 1:4:8
-gr16 with ``attn=True``) carried over by the bridge: forward hidden
-states, prefill logits and several decode steps allclose, greedy tokens
-equal.  Plus the port's guards: no JAX/``repro`` imports, no silent CPU
-runs, unported families raise."""
+"""The port's model stack against the JAX package's on the SMOKE configs
+of bert-base-sten (plain MLP) and qwen1.5-4b (gated MLP, QKV bias) in f32,
+with the reference's weights (dense, and n:m:g 1:4:8 gr16 with
+``attn=True``) carried over by the bridge: forward hidden states, prefill
+logits and several decode steps allclose, greedy tokens equal.  Plus the
+port's guards: no JAX/``repro`` imports, no silent CPU runs, unported
+families raise."""
 
 import ast
 import dataclasses
@@ -33,14 +34,12 @@ ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
-def test_prefill_and_decode_match_reference(sparse):
+def _prefill_and_decode(setup):
     """Prompt of 20 tokens (the SpMM route), then four single-token decode
-    steps (GEMV, fused QKV): logits and the filled KV cache allclose,
-    greedy tokens equal."""
-    jcfg, tcfg, jp, tp = smoke_setup(sparse)
-    if sparse:
-        assert isinstance(tp["layers"]["attn"]["wq"], GroupedNMTensor)
+    steps (GEMV, fused QKV, fused FFN): logits and the filled KV cache
+    allclose, greedy tokens equal.  Returns the port's kernel counters of
+    the prefill and of each decode step."""
+    jcfg, tcfg, jp, tp = setup
     toks = np.random.default_rng(0).integers(0, jcfg.vocab, (1, 20),
                                              dtype=np.int32)
 
@@ -50,26 +49,85 @@ def test_prefill_and_decode_match_reference(sparse):
     jl, jc = j_pre(jp, jcfg, jnp.asarray(toks), cache_len)
     tops.reset_kernel_counters()
     tl, tc = prefill(tp, tcfg, torch.from_numpy(toks), cache_len=cache_len)
+    counts = [tops.kernel_counters()]
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    if sparse:
-        assert tops.kernel_counters()[("nmg_linear", "spmm[default]")] > 0
     tok = int(np.argmax(np.asarray(jl)[0]))
     assert tok == int(torch.argmax(tl[0]))
-    tops.reset_kernel_counters()
     for i in range(4):
         t_in = np.array([[tok]], np.int32)
         jl, jc = j_dec(jp, jcfg, jnp.asarray(t_in), jc,
                        jnp.asarray(20 + i))
+        tops.reset_kernel_counters()
         tl, tc = decode_step(tp, tcfg, torch.from_numpy(t_in), tc,
                              torch.tensor(20 + i))
+        counts.append(tops.kernel_counters())
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         tok = int(np.argmax(np.asarray(jl)[0]))
         assert tok == int(torch.argmax(tl[0]))
     np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), **TOL)
+    np.testing.assert_allclose(tc["v"].numpy(), np.asarray(jc["v"]), **TOL)
+    return counts
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_prefill_and_decode_match_reference(sparse):
+    setup = smoke_setup(sparse)
     if sparse:
-        c = tops.kernel_counters()
-        assert c[("nmg_qkv", "fused[default]")] == 4 * tcfg.n_layers
-        assert ("nmg_linear", "spmm[default]") not in c
+        assert isinstance(setup[3]["layers"]["attn"]["wq"], GroupedNMTensor)
+    pre, *steps = _prefill_and_decode(setup)
+    if sparse:
+        assert pre[("nmg_linear", "spmm[default]")] > 0
+        for c in steps:
+            assert c[("nmg_qkv", "fused[default]")] == setup[1].n_layers
+            assert ("nmg_linear", "spmm[default]") not in c
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["zero-bias", "bias"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_qwen_prefill_and_decode_match_reference(sparse, bias):
+    """qwen1.5-4b SMOKE: the gated MLP (packed [D, 2F] wi) and the QKV
+    bias, with biases left at zero and set to seeded nonzero values.  In
+    the n:m:g model every decode step runs each layer's FFN through the
+    fused launch once; the 20-token prefill runs the packed wi through
+    the SpMM and gates it in sequence."""
+    setup = smoke_setup(sparse, "qwen1.5-4b", 3 if bias else None)
+    tcfg, tp = setup[1], setup[3]
+    assert tcfg.gated_mlp and tcfg.qkv_bias
+    assert tp["layers"]["mlp"]["wi"].shape[-1] == 2 * tcfg.d_ff
+    assert bool((tp["layers"]["attn"]["bq"] != 0).any()) == bias
+    pre, *steps = _prefill_and_decode(setup)
+    L = tcfg.n_layers
+    if not sparse:
+        assert not any(k[0] == "nmg_ffn" for c in steps for k in c)
+        return
+    assert ("nmg_ffn", "fused[default]") not in pre
+    assert pre[("nmg_linear", "spmm[default]")] > 0
+    for c in steps:
+        assert c[("nmg_ffn", "fused[default]")] == L
+        assert c[("nmg_ffn", "plain")] == L
+        assert c[("nmg_qkv", "fused[default]")] == L
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_bridge_carries_qkv_bias_and_packed_wi(sparse):
+    """The bias leaves and the packed gated wi (dense or n:m:g) cross the
+    bridge unchanged."""
+    _, tcfg, jp, tp = smoke_setup(sparse, "qwen1.5-4b", 3)
+    for name in ("bq", "bk", "bv"):
+        np.testing.assert_array_equal(
+            tp["layers"]["attn"][name].numpy(),
+            np.asarray(jp["layers"]["attn"][name]))
+    jwi, twi = jp["layers"]["mlp"]["wi"], tp["layers"]["mlp"]["wi"]
+    if not sparse:
+        assert tuple(twi.shape) == (tcfg.n_layers, tcfg.d_model,
+                                    2 * tcfg.d_ff)
+        np.testing.assert_array_equal(twi.numpy(), np.asarray(jwi))
+        return
+    assert twi.dense_shape == (tcfg.d_model, 2 * tcfg.d_ff)
+    np.testing.assert_array_equal(twi.val.numpy(), np.asarray(jwi.val))
+    np.testing.assert_array_equal(twi.blk_idx.numpy(),
+                                  np.asarray(jwi.blk_idx))
+    assert tops.fusable_ffn(twi.layer(0), tcfg.d_ff)
 
 
 def test_sparse_model_equals_its_densified_twin():
@@ -148,11 +206,15 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_families_raise():
-    gated = dataclasses.replace(get_smoke("bert-base-sten"), gated_mlp=True)
-    with pytest.raises(NotImplementedError, match="gated_mlp"):
-        init_lm(gated, device="cpu")
+    softcap = dataclasses.replace(get_smoke("qwen1.5-4b"), attn_softcap=50.0)
+    with pytest.raises(NotImplementedError, match="softcaps"):
+        init_lm(softcap, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("qwen1.5-4b")
+        get_config("gemma2-9b")
     full = get_config("bert-base-sten")
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab, full.dtype) \
         == (12, 768, 3072, 30522, "bfloat16")
+    qwen = get_config("qwen1.5-4b")
+    assert (qwen.n_layers, qwen.d_model, qwen.d_ff, qwen.vocab, qwen.dtype,
+            qwen.gated_mlp, qwen.qkv_bias, qwen.rope_theta) \
+        == (40, 2560, 6912, 151936, "bfloat16", True, True, 1e6)

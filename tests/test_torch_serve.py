@@ -26,11 +26,11 @@ def _prompts(vocab):
     return [rng.integers(0, vocab, n, dtype=np.int32) for n in PROMPTS]
 
 
-@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
-def test_engine_token_streams_equal_reference(sparse):
+def _engine_streams(setup):
     """Four requests through two slots (so admission happens while other
-    slots decode), chunked greedy decode: identical tokens per request."""
-    jcfg, tcfg, jp, tp = smoke_setup(sparse)
+    slots decode), chunked greedy decode: identical tokens per request.
+    Returns the port's kernel counters of the run."""
+    jcfg, tcfg, jp, tp = setup
     prompts = _prompts(jcfg.vocab)
     kw = dict(max_slots=2, max_seq_len=28, decode_chunk=4)
     want = JEngine(jp, jcfg, **kw).run(
@@ -44,11 +44,28 @@ def test_engine_token_streams_equal_reference(sparse):
     for g, w in zip(got, want):
         assert g.tokens == w.tokens, (g.uid, g.tokens, w.tokens)
         assert g.finish_reason == w.finish_reason == "length"
+    return tops.kernel_counters()
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_engine_token_streams_equal_reference(sparse):
+    c = _engine_streams(smoke_setup(sparse))
     if sparse:
-        c = tops.kernel_counters()
         assert c[("nmg_qkv", "fused[default]")] > 0
         assert c[("nmg_linear", "spmm[default]")] > 0
         assert c[("nmg_linear", "gemv[default]")] > 0
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_qwen_engine_token_streams_equal_reference(sparse):
+    """qwen1.5-4b SMOKE (gated MLP, seeded nonzero QKV biases): the same
+    token streams as the reference engine; the n:m:g decode runs the fused
+    FFN launch."""
+    c = _engine_streams(smoke_setup(sparse, "qwen1.5-4b", 3))
+    assert (("nmg_ffn", "fused[default]") in c) == sparse
+    if sparse:
+        assert c[("nmg_qkv", "fused[default]")] > 0
+        assert c[("nmg_linear", "spmm[default]")] > 0
 
 
 def test_chunked_decode_equals_per_token_loop():
@@ -92,6 +109,17 @@ def test_metrics_and_rejection():
 
 def test_launch_serve_cli_on_cpu(capsys):
     rc = launch.main(["--arch", "bert-base-sten", "--smoke", "--engine",
+                      "--sparse", "--nm", "1:4:8",
+                      "--requests", "3", "--prompt-len", "18",
+                      "--gen-len", "4", "--device", "cpu", "--no-warmup"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "[sparse] 3 requests, 12 tokens" in out
+    assert "served 3 requests" in out
+
+
+def test_launch_serve_cli_qwen_on_cpu(capsys):
+    rc = launch.main(["--arch", "qwen1.5-4b", "--smoke", "--engine",
                       "--sparse", "--nm", "1:4:8",
                       "--requests", "3", "--prompt-len", "18",
                       "--gen-len", "4", "--device", "cpu", "--no-warmup"])
