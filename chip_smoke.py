@@ -7,7 +7,9 @@
    port's CUDA kernels are built from ``src/repro_torch/csrc`` (one nvcc
    per source, started together).
 2. Kernel phase, bf16 at the shapes of both served models (bert-base-sten
-   and qwen1.5-4b, 1:4:8 gr64): each kernel's wrapper against its plain
+   and qwen1.5-4b, 1:4:8 gr64) and of the training path (``nm_mask`` 2:4
+   on the stacked ``mlp.wo`` / ``attn.wo``, bitwise; ``matmul_threshold``
+   at 1024 tokens x 768 x 3072): each kernel's wrapper against its plain
    PyTorch version on the same inputs (fused QKV bitwise against three
    GEMV launches, the fused gated FFN bitwise against the GEMV followed by
    PyTorch's silu and multiply), then timed with CUDA events against the
@@ -28,9 +30,22 @@
    Each ``attn=True`` model's prefill and decode logits through the
    kernels are then held against the same steps through the plain
    versions, and one 8-step decode chunk is profiled dense and sparse.
-4. Summary: a compact ``{"serve": ...}`` line, a ``{"kernels": [...]}``
-   line (at qwen1.5-4b shapes, launches from its n:m:g run), the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   c. full-width bert-base-sten trains (bf16, batch 8 x 128 tokens,
+      AdamW, GMP): (a) the CLI's default masked path through
+      ``repro_torch.launch.train`` (``--sparsity 0.75 --gmp iterative``,
+      magnitude-pruned FixedMask leaves, 20 steps); (b) the library API
+      with the inline threshold 0.5 on the dense ``mlp.wi`` (the fused
+      matmul-threshold kernel in every forward) and NMSparsifier(2, 4)
+      FixedMask leaves on ``mlp.wo`` / ``attn.wo`` (the nm_mask kernel at
+      the build and at every GMP recompute).  Run (b)'s first step is then
+      repeated from the same state through the plain versions (loss and
+      ``mlp.wi`` gradient compared), and one step of each run is
+      profiled.
+4. Summary: a compact ``{"serve": ..., "train": ...}`` line, a
+   ``{"kernels": [...]}`` line (one entry per TPU kernel: serving kernels
+   at qwen1.5-4b shapes with launches from its n:m:g run, training
+   kernels at bert-base-sten training shapes with launches from run (b)),
+   the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Details go to ``chiprun_out/chip_smoke.json``.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 2
@@ -53,6 +68,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 REPS = 30
 SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's ~1.98 GHz boost clock
 
@@ -122,15 +138,17 @@ def host_ms(fn, n: int = 50) -> float:
 
 def timings(kernel, plain, library, flush) -> dict:
     """Device times of the kernel, its plain version and the library
-    yardstick, and the host cost of issuing the kernel."""
+    yardstick (None where no single PyTorch call computes the function),
+    and the host cost of issuing the kernel."""
     return {"ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
-            "library_ms": time_ms(library, flush),
+            "library_ms": None if library is None
+            else time_ms(library, flush),
             "host_ms": host_ms(kernel)}
 
 
-def bound(nbytes: int, flops: int) -> tuple:
+def bound(nbytes: int, flops: int, rate: float = BF16_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -289,20 +307,111 @@ def kernel_phase(gen, model: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+THRESHOLD = 0.5
+
+
+def train_kernel_phase(gen) -> list:
+    """The training kernels at run (b)'s shapes, bf16, L2 flushed.
+    ``nm_mask`` 2:4 on the stacked leaves run (b) masks along their last
+    axis ([12 * 3072, 768] ``mlp.wo``, [12 * 768, 768] ``attn.wo``),
+    bitwise against its plain version; no single PyTorch call computes
+    the n:m mask, so its library time is None (``topk`` + ``scatter_`` is
+    timed beside it for reference only).  ``matmul_threshold`` at
+    ``mlp.wi``'s shape (1024 tokens x 768 x 3072, t = 0.5, unit-RMS
+    activations against the fan-in init): values within 1e-5 of the
+    largest, the mask equal except where |y| lies within 1e-5 of t; the
+    yardstick is ``torch.matmul`` of the bf16 operands followed by the
+    threshold."""
+    import torch
+
+    from repro_torch.kernels import fused_sparse_matmul as fsm
+    from repro_torch.kernels import nm_mask as nmk
+
+    bf16 = torch.bfloat16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for wname, (R, K) in (("mlp.wo", (12 * 3072, 768)),
+                          ("attn.wo", (12 * 768, 768))):
+        x = (torch.randn(R, K, generator=gen, device="cuda")
+             / math.sqrt(R // 12)).to(bf16)
+        assert torch.equal(nmk.nm_mask(x, 2, 4), nmk.nm_mask_plain(x, 2, 4)), \
+            f"nm_mask differs from its plain version on {wname}"
+
+        def topk_scatter(x=x):
+            blocks = x.abs().reshape(-1, 4)
+            idx = torch.topk(blocks, 2, dim=-1).indices
+            return torch.zeros(blocks.shape, dtype=torch.bool,
+                               device="cuda").scatter_(-1, idx, True)
+
+        # each element read once (2 bytes), its mask byte written once;
+        # m compares and adds per element on the CUDA cores
+        b, by = bound(x.numel() * 3, 2 * 4 * x.numel(), F32_FLOPS)
+        cases.append(dict(
+            kernel="nm_mask", model="bert-train", weight=wname, K=K, N=R,
+            M=0, n_m="2:4", max_abs_err=0.0, tol=0.0, bitwise=True,
+            **timings(lambda x=x: nmk.nm_mask(x, 2, 4),
+                      lambda x=x: nmk.nm_mask_plain(x, 2, 4), None, flush),
+            topk_scatter_ms=time_ms(topk_scatter, flush),
+            bound_ms=b, bound_by=by))
+
+    M, K, N = TRAIN_TOKENS, 768, 3072
+    a = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
+    w = (torch.randn(K, N, generator=gen, device="cuda")
+         / math.sqrt(K)).to(bf16)
+    val, mask = fsm.matmul_threshold(a, w, THRESHOLD)
+    pv, pm = fsm.matmul_threshold_plain(a, w, THRESHOLD)
+    y = a.double() @ w.double()
+    diff = mask != pm
+    near = (y.abs() - THRESHOLD).abs() <= 1e-5 * max(1.0, THRESHOLD)
+    assert not bool((diff & ~near).any()), "threshold mask differs"
+    err = (val - pv)[~diff].abs().max().item()
+    tol = 1e-5 * max(1.0, pv.abs().max().item())
+    assert err <= tol, ("matmul_threshold", err, tol)
+
+    def library():
+        yy = torch.matmul(a, w)
+        keep = yy.abs() >= THRESHOLD
+        return yy.float() * keep, keep
+
+    b, by = bound(a.numel() * 2 + w.numel() * 2 + M * N * (4 + 1),
+                  2 * M * N * K)
+    cases.append(dict(
+        kernel="matmul_threshold", model="bert-train", weight="mlp.wi",
+        K=K, N=N, M=M, threshold=THRESHOLD, max_abs_err=err, tol=tol,
+        mask_flips=int(diff.sum()), kept_share=mask.float().mean().item(),
+        **timings(lambda: fsm.matmul_threshold(a, w, THRESHOLD),
+                  lambda: fsm.matmul_threshold_plain(a, w, THRESHOLD),
+                  library, flush),
+        bound_ms=b, bound_by=by))
+    del flush
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 KERNELS = ("nmg_gemv", "nmg_qkv", "nmg_spmm", "nmg_ffn")
+TRAIN_KERNELS = ("nm_mask", "matmul_threshold")
 
 
 def _wrappers():
     """{kernel name: (module, wrapper attribute, plain attribute)}."""
-    from repro_torch.kernels import nmg_fused, nmg_gemv, nmg_spmm
+    from repro_torch.kernels import fused_sparse_matmul, nm_mask, nmg_fused, \
+        nmg_gemv, nmg_spmm
 
     return {"nmg_gemv": (nmg_gemv, "nmg_gemv", "nmg_gemv_plain"),
             "nmg_qkv": (nmg_fused, "nmg_qkv", "nmg_qkv_plain"),
             "nmg_spmm": (nmg_spmm, "nmg_spmm", "nmg_spmm_plain"),
-            "nmg_ffn": (nmg_fused, "nmg_ffn", "nmg_ffn_plain")}
+            "nmg_ffn": (nmg_fused, "nmg_ffn", "nmg_ffn_plain"),
+            "nm_mask": (nm_mask, "nm_mask", "nm_mask_plain"),
+            "matmul_threshold": (fused_sparse_matmul, "matmul_threshold",
+                                 "matmul_threshold_plain")}
 
 
 def reset_counts() -> None:
@@ -444,8 +553,6 @@ def profile_decode(cfg, params, label) -> dict:
     share divides it by the unprofiled wall time of the same chunk."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import init_cache, prefill_into_slot
     from repro_torch.serve.engine import decode_chunk
@@ -466,9 +573,26 @@ def profile_decode(cfg, params, label) -> dict:
 
     chunk()
     wall = statistics.median(chunk() for _ in range(5))
+    dev = device_profile(chunk, wall)
+    return {"label": label, "chunk_wall_ms": wall * 1e3,
+            "chunk_wall_profiled_ms": dev.pop("wall_profiled_ms"),
+            "device_busy_ms": dev["device_busy_ms"],
+            "device_busy_share": dev["device_busy_share"],
+            "kernel_launches_per_step": dev["launches"] / 8,
+            "top_kernels": dev["top_kernels"]}
+
+
+def device_profile(fn, wall_s: float) -> dict:
+    """One call of ``fn`` under torch.profiler: the kernels' device time
+    (the sum of their self device times), launches, the top kernels, and
+    the busy share against ``wall_s``, the unprofiled wall time of one
+    call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_prof = chunk()
+        wall_prof = fn()
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -477,16 +601,247 @@ def profile_decode(cfg, params, label) -> dict:
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(dev_us(e) for e in kern)
-    launches = sum(e.count for e in kern)
     top = sorted(kern, key=dev_us, reverse=True)[:8]
-    return {
-        "label": label, "chunk_wall_ms": wall * 1e3,
-        "chunk_wall_profiled_ms": wall_prof * 1e3,
-        "device_busy_ms": busy_us / 1e3 if busy_us else None,
-        "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
-        "kernel_launches_per_step": launches / 8,
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "device_us": dev_us(e)} for e in top]}
+    return {"wall_profiled_ms": wall_prof * 1e3,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "device_busy_share": busy_us / 1e6 / wall_s if busy_us else None,
+            "launches": sum(e.count for e in kern),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_us": dev_us(e)} for e in top]}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: training at full width
+# ---------------------------------------------------------------------------
+
+
+def _clone(tree):
+    """A deep copy of a params tree (tensors and FixedMask leaves)."""
+    from repro_torch.core.layouts import FixedMaskTensor
+
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, FixedMaskTensor):
+        return FixedMaskTensor(tree.val.clone(), tree.mask.clone(),
+                               tree.origin)
+    return tree.clone()
+
+
+def _kept(params) -> dict:
+    from repro_torch.core.layouts import FixedMaskTensor
+
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, FixedMaskTensor):
+            out[".".join(path)] = t.mask.float().mean().item()
+
+    walk(params, ())
+    return out
+
+
+def train_summary(label, out, counts, peak_gb, prof) -> dict:
+    """Step times after the first (warm-up) step, tokens/s, losses."""
+    steady = out["step_s"][1:]
+    step_ms = statistics.median(steady) * 1e3
+    losses = out["losses"]
+    assert all(math.isfinite(x) for x in losses), (label, losses)
+    return {"label": label, "steps": len(losses),
+            "step_ms_p50": step_ms,
+            "step_ms_mean": statistics.mean(steady) * 1e3,
+            "first_step_ms": out["step_s"][0] * 1e3,
+            "tokens_per_s": TRAIN_TOKENS / (step_ms / 1e3),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "recomputes": out["recomputes"],
+            "peak_gb": peak_gb, "counts": counts,
+            "kept": _kept(out["params"]), "profile": prof}
+
+
+def profile_train_step(step_fn, out, data, step: int) -> dict:
+    """Where one training step's time goes: the step after the run, from
+    the run's final state, timed unprofiled (median of 3) and then under
+    torch.profiler."""
+    import torch
+
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch_at(step).items()}
+
+    def one():
+        t0 = time.perf_counter()
+        _, _, m = step_fn(out["params"], out["opt_state"], batch)
+        float(m["loss"])
+        return time.perf_counter() - t0
+
+    one()
+    wall = statistics.median(one() for _ in range(3))
+    dev = device_profile(one, wall)
+    return {"step_wall_ms": wall * 1e3, **dev}
+
+
+def train_cli_run() -> dict:
+    """(a) The CLI's default masked path at full width: ``--sparsity 0.75
+    --gmp iterative`` over 20 steps (magnitude-pruned FixedMask leaves on
+    ``mlp`` and ``attn.wo``, a pattern recompute before each step of the
+    ramp, steps 2..16).  Neither training kernel is on this path."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.launch import train as ttrain
+    from repro_torch.optim import AdamWConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", "bert-base-sten", "--steps", "20", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--sparsity", "0.75",
+            "--gmp", "iterative", "--log-every", "5", "--device", "cuda"]
+    args = ttrain.parse_args(argv)
+    reset_counts()
+    out = ttrain.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert all(counts[k] == 0 for k in KERNELS + TRAIN_KERNELS), counts
+    assert out["recomputes"] == list(range(2, 17)), out["recomputes"]
+    # the magnitude mask keeps |x| >= the k-th largest |x|: every bf16
+    # value tied with it is kept too (one bf16 step holds up to ~0.3% of
+    # these weights near the threshold)
+    for name, kept in _kept(out["params"]).items():
+        assert 0.25 <= kept <= 0.255, (name, kept)
+    cfg = out["cfg"]
+    data = SyntheticLMPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=args.seed))
+    prof = profile_train_step(
+        ttrain.make_train_step(cfg, AdamWConfig(lr=args.lr)), out, data,
+        args.steps)
+    return train_summary("a_cli_sparsity0.75", out, counts, peak, prof)
+
+
+def train_parity(cfg, params, batch) -> dict:
+    """Run (b)'s first step (forward and backward) from the same state
+    through the kernels and through the plain versions.  Bounds: loss
+    within 1e-3 relative; the ``mlp.wi`` gradient (bf16) within 2**-6
+    relative in the Frobenius norm — the two forwards differ by the f32
+    summation order of the fused product (and any mask entry on the
+    threshold), which bf16 activations turn into rounding flips of 2**-8
+    relative that compound over 12 layers."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as ttrain
+
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    kept = []
+    route = kops.matmul_threshold
+
+    def recording(a, w, t):    # the fused route, reading each mask's share
+        val, mask = route(a, w, t)
+        kept.append(mask.float().mean())
+        return val, mask
+
+    kops.matmul_threshold = recording
+    try:
+        lk, _, gk = ttrain.loss_and_grads(params, cfg, b)
+    finally:
+        kops.matmul_threshold = route
+    with plain_versions():
+        lp, _, gp = ttrain.loss_and_grads(params, cfg, b)
+    lk, lp = float(lk), float(lp)
+    gwk = gk["layers"]["mlp"]["wi"].float()
+    gwp = gp["layers"]["mlp"]["wi"].float()
+    rel_g = ((gwk - gwp).norm() / gwp.norm()).item()
+    rel_l = abs(lk - lp) / abs(lp)
+    assert rel_l <= 1e-3, ("loss", lk, lp)
+    assert rel_g <= 2 ** -6, ("mlp.wi gradient", rel_g)
+    share = torch.stack(kept).mean().item()
+    assert 0.1 <= share <= 0.9, ("kept share of the threshold", share)
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": rel_l,
+            "wi_grad_rel_err": rel_g,
+            "wi_grad_max_abs_err": (gwk - gwp).abs().max().item(),
+            "wi_grad_max_abs": gwp.abs().max().item(),
+            "threshold_kept_share": share}
+
+
+def train_lib_run() -> dict:
+    """(b) The library API at full width: ``mlp_inline_threshold=0.5`` on
+    the dense ``mlp.wi`` and NMSparsifier(2, 4) FixedMask leaves on
+    ``mlp.wo`` / ``attn.wo``, GMP iterative with recomputes before steps
+    2, 5 and 8 of 10.  The counts cover the build and the loop."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.builder import SparsityBuilder
+    from repro_torch.core.layouts import FixedMaskTensor
+    from repro_torch.core.sparsifiers import NMSparsifier
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamWConfig, GMPSchedule, adamw_init
+
+    cfg = dataclasses.replace(get_config("bert-base-sten"),
+                              mlp_inline_threshold=THRESHOLD)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, seed=1, device="cuda")
+    steps = 10
+    gmp = GMPSchedule(mode="iterative", target_sparsity=0.5, begin_step=2,
+                      end_step=8, recompute_every=3, num_layers=cfg.n_layers)
+    data = SyntheticLMPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=1))
+    step_fn = ttrain.make_train_step(cfg, AdamWConfig())
+    torch.cuda.synchronize()
+    reset_counts()
+    sb = SparsityBuilder()
+    for pat in ("*mlp.wo*", "*attn.wo*"):
+        sb.set_weight(pat, NMSparsifier(2, 4), FixedMaskTensor)
+    params = sb.sparsify_params(params)
+    start = _clone(params)
+    out = ttrain.train_loop(params, adamw_init(params), step_fn, data,
+                            start=0, stop=steps, device="cuda", gmp=gmp,
+                            log_every=5)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert out["recomputes"] == [2, 5, 8], out["recomputes"]
+    want_mt = cfg.n_layers * steps                    # one per forward
+    want_nm = 2 * cfg.n_layers + 2 * len(out["recomputes"])
+    assert counts["matmul_threshold"] == want_mt, (counts, want_mt)
+    assert counts["nm_mask"] == want_nm, (counts, want_nm)
+    assert all(counts[k] == 0 for k in KERNELS), counts
+    for name, kept in _kept(out["params"]).items():
+        assert kept == 0.5, (name, kept)
+    parity = train_parity(cfg, start, data.batch_at(0))
+    del start
+    prof = profile_train_step(step_fn, out, data, steps)
+    res = train_summary("b_lib_nm2:4_threshold0.5", out, counts, peak, prof)
+    res["parity"] = parity
+    return res
+
+
+def report_train(runs, card) -> None:
+    for r in runs:
+        p = r["profile"]
+        busy = p["device_busy_share"]
+        c = r["counts"]
+        print(f"train[{r['label']}] on {card}: {r['steps']} steps, "
+              f"{r['step_ms_p50']:.2f} ms/step p50 ({r['step_ms_mean']:.2f} "
+              f"mean, first {r['first_step_ms']:.1f}), "
+              f"{r['tokens_per_s']:.0f} tok/s, loss {r['loss_first']:.4f} -> "
+              f"{r['loss_last']:.4f}, peak {r['peak_gb']:.2f} GB, "
+              f"recomputes {len(r['recomputes'])}, launches nm_mask "
+              f"{c['nm_mask']} matmul_threshold {c['matmul_threshold']}")
+        print(f"    profiled step: {p['step_wall_ms']:.2f} ms wall, device "
+              + ("not measured (profiler saw no device time)" if busy is None
+                 else f"busy {p['device_busy_ms']:.3f} ms "
+                 f"({busy * 100:.1f}%)")
+              + f", {p['launches']} launches")
+        for k in p["top_kernels"]:
+            print(f"    {k['device_us']:9.1f} us x{k['count']:4d} {k['name']}")
 
 
 def report_runs(runs, card) -> None:
@@ -517,30 +872,41 @@ def report_profiles(profiles, card) -> None:
             print(f"    {k['device_us']:9.1f} us x{k['count']:4d} {k['name']}")
 
 
-def kernels_line(cases, counts) -> list:
-    """One entry per kernel at qwen1.5-4b shapes (decode M = 4, prompt
-    N = 32), with the launches of the given main-path run."""
-    rep = {"nmg_gemv": ("wo_ffn", 4), "nmg_qkv": ("wq|wk|wv", 4),
-           "nmg_spmm": ("wi", 32), "nmg_ffn": ("wi", 4)}
-    src = {"nmg_gemv": ("src/repro_torch/csrc/nmg_gemv.cu",
-                        "src/repro/kernels/nmg_gemv.py:45"),
-           "nmg_qkv": ("src/repro_torch/csrc/nmg_gemv.cu",
-                       "src/repro/kernels/nmg_fused.py:120"),
-           "nmg_spmm": ("src/repro_torch/csrc/nmg_spmm.cu",
-                        "src/repro/kernels/nmg_spmm.py:93"),
-           "nmg_ffn": ("src/repro_torch/csrc/nmg_ffn.cu",
-                       "src/repro/kernels/nmg_fused.py:136")}
+def kernels_line(cases, counts, train_counts) -> list:
+    """One entry per TPU kernel (every ``pl.pallas_call`` body): the
+    serving kernels at qwen1.5-4b shapes (decode M = 4, prompt N = 32)
+    with the launches of its n:m:g run; the SpMM's two schedules (rows 3
+    and 4) are one CUDA kernel, listed once for each; the training kernels
+    at run (b)'s shapes with the launches of run (b)."""
+    rows = [  # name, kernel, source, replaces, (model, weight, M)
+        ("nmg_gemv", "nmg_gemv", "nmg_gemv.cu", "nmg_gemv.py:45",
+         ("qwen", "wo_ffn", 4)),
+        ("nmg_qkv", "nmg_qkv", "nmg_gemv.cu", "nmg_fused.py:120",
+         ("qwen", "wq|wk|wv", 4)),
+        ("nmg_spmm", "nmg_spmm", "nmg_spmm.cu", "nmg_spmm.py:93",
+         ("qwen", "wi", 32)),
+        ("nmg_spmm[grid]", "nmg_spmm", "nmg_spmm.cu", "nmg_spmm.py:67",
+         ("qwen", "wi", 32)),
+        ("nmg_ffn", "nmg_ffn", "nmg_ffn.cu", "nmg_fused.py:136",
+         ("qwen", "wi", 4)),
+        ("nm_mask", "nm_mask", "nm_mask.cu", "nm_mask.py:26",
+         ("bert-train", "mlp.wo", 0)),
+        ("matmul_threshold", "matmul_threshold", "matmul_threshold.cu",
+         "fused_sparse_matmul.py:24", ("bert-train", "mlp.wi", TRAIN_TOKENS)),
+    ]
     kernels = []
-    for name in KERNELS:
-        wname, M = rep[name]
-        c = next(c for c in cases if c["kernel"] == name
-                 and c["model"] == "qwen" and c["weight"] == wname
+    for name, kernel, src, replaces, (model, wname, M) in rows:
+        c = next(c for c in cases if c["kernel"] == kernel
+                 and c["model"] == model and c["weight"] == wname
                  and c["M"] == M)
+        launches = (train_counts if kernel in TRAIN_KERNELS else counts)
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1], "launches": counts[name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches[kernel],
             "max_abs_err": max(x["max_abs_err"] for x in cases
-                               if x["kernel"] == name),
+                               if x["kernel"] == kernel),
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
@@ -570,7 +936,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sources = ("nmg_gemv", "nmg_spmm", "nmg_ffn")
+    sources = ("nmg_gemv", "nmg_spmm", "nmg_ffn", "nm_mask",
+               "matmul_threshold")
     build_s = _build.build_all(sources)
     print(f"kernels built in {build_s:.1f} s")
     for name in sources:
@@ -579,14 +946,19 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = kernel_phase(gen, "bert") + kernel_phase(gen, "qwen")
+    cases = (kernel_phase(gen, "bert") + kernel_phase(gen, "qwen")
+             + train_kernel_phase(gen))
     print(f"kernel phase: {len(cases)} cases within bounds ({card})")
     for c in cases:
+        lib = ("none" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f} ms")
+        extra = "".join(f" {k} {c[k]:.4f}" for k in
+                        ("topk_scatter_ms", "kept_share") if k in c)
         print(f"  {c['model']} {c['kernel']:8s} {c['weight']:9s} "
               f"M={c['M']:3d} err {c['max_abs_err']:.2e} | kernel "
               f"{c['ms']:.4f} ms (host {c['host_ms']:.4f} ms) "
-              f"plain {c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
-              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+              f"plain {c['plain_ms']:.4f} ms library {lib} "
+              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}){extra}")
 
     # (a) bert-base-sten: dense, sparse FFN, sparse FFN + attention
     cfg = get_config("bert-base-sten")
@@ -650,8 +1022,15 @@ def main() -> int:
     q_profiles = [profile_decode(qcfg, qparams, "qwen_dense"),
                   profile_decode(qcfg, qsparse, "qwen_sparse")]
     report_profiles(q_profiles, card)
+    del qparams, qsparse
 
-    kernels = kernels_line(cases, qc)
+    # (c) bert-base-sten training at full width: the CLI's masked path,
+    # then the library API through both training kernels
+    train = [train_cli_run(), train_lib_run()]
+    report_train(train, card)
+    print(f"train parity (b, kernels vs plain): {train[1]['parity']}")
+
+    kernels = kernels_line(cases, qc, train[1]["counts"])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
@@ -662,8 +1041,9 @@ def main() -> int:
         "qwen_serve_peak_gb": q_peak_gb,
         "cases": cases, "runs": runs + qruns,
         "logit_parity": {"bert": parity, "qwen": q_parity},
-        "profiles": profiles + q_profiles, "kernels": kernels,
-        "wall_s": time.perf_counter() - t_start}, indent=1))
+        "profiles": profiles + q_profiles, "train": train,
+        "kernels": kernels, "wall_s": time.perf_counter() - t_start},
+        indent=1))
     print(json.dumps({"serve": {
         r["label"]: {"tok_s": round(r["metrics"]["throughput_tok_s"], 2),
                      "p50_ms": round(r["metrics"]["tok_latency_p50"] * 1e3, 4),
@@ -679,6 +1059,14 @@ def main() -> int:
         "logit_tol": {"bert": parity["tol"], "qwen": q_parity["tol"]},
         "qwen_peak_gb": {"setup": round(q_setup_peak_gb, 3),
                          "serve": round(q_peak_gb, 3)},
+        "train": {r["label"]: {
+            "step_ms_p50": round(r["step_ms_p50"], 3),
+            "tok_s": round(r["tokens_per_s"], 1),
+            "loss_first": round(r["loss_first"], 4),
+            "loss_last": round(r["loss_last"], 4),
+            "peak_gb": round(r["peak_gb"], 3),
+            "device_busy_share": r["profile"]["device_busy_share"],
+            "launches_per_step": r["profile"]["launches"]} for r in train},
         "wall_s": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,11 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.layouts import GroupedNMTensor, SpmmPlan, \
-    pattern_onehots
+from repro_torch.core import sparsifiers
+from repro_torch.core.layouts import FixedMaskTensor, GroupedNMTensor, \
+    SpmmPlan, pattern_onehots
 from repro_torch.device import resolve_device
 
-__all__ = ["tensor_from_numpy", "params_from_numpy", "SPARSE_KEYS"]
+__all__ = ["tensor_from_numpy", "params_from_numpy", "sparsifier_from_dict",
+           "SPARSE_KEYS"]
 
 SPARSE_KEYS = ("val", "blk_idx", "cols", "n", "m", "g", "gr", "dense_shape",
                "sparse_dim")
@@ -50,11 +52,25 @@ def _sparse(d: dict, dev) -> GroupedNMTensor:
                       .to(torch.int32).contiguous(), pat_onehot=onehot))
 
 
+def sparsifier_from_dict(d):
+    """The port's sparsifier named by ``d["type"]`` with the other keys as
+    its fields (None stays None)."""
+    if d is None:
+        return None
+    fields = {k: v for k, v in d.items() if k != "type"}
+    return getattr(sparsifiers, d["type"])(**fields)
+
+
 def params_from_numpy(tree, device="cuda"):
     """The port's params from the reference's (numpy) params tree."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         if "val" in tree and "blk_idx" in tree:
             return _sparse(tree, dev)
+        if "val" in tree and "mask" in tree:
+            return FixedMaskTensor(
+                tensor_from_numpy(tree["val"], dev),
+                tensor_from_numpy(tree["mask"], dev).bool(),
+                sparsifier_from_dict(tree.get("origin")))
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return tensor_from_numpy(tree, dev)

@@ -1,7 +1,10 @@
 """SparsityBuilder, weight rules only (port of ``repro/core/builder.py``).
 
 Params are nested dicts; a leaf's name is its ``a.b.c``-joined key path
-and rules match it with fnmatch globs, as in the reference.  Intermediate
+and rules match it with fnmatch globs, as in the reference.  A rule's
+output format defaults to ``FixedMaskTensor`` (masked training), as in
+the reference, except for a ``GroupedNMSparsifier``, whose masked-dense
+form is not ported: it defaults to ``GroupedNMTensor``.  Intermediate
 sparsity plans (``tag``) are not ported: the reference's ``tag`` is the
 identity when no plan is active, so the port's model has no tag sites.
 """
@@ -13,8 +16,9 @@ import fnmatch
 
 import torch
 
-from repro_torch.core.layouts import GroupedNMTensor
-from repro_torch.core.sparsifiers import apply_sparsifier
+from repro_torch.core.layouts import FixedMaskTensor, GroupedNMTensor
+from repro_torch.core.sparsifiers import GroupedNMSparsifier, \
+    apply_sparsifier
 
 __all__ = ["SparsityBuilder", "path_name"]
 
@@ -39,8 +43,10 @@ class SparsityBuilder:
         self._weights: list = []
 
     def set_weight(self, name: str, initial_sparsifier, out_format=None):
-        self._weights.append(
-            WeightRule(name, initial_sparsifier, out_format or GroupedNMTensor))
+        if out_format is None:
+            out_format = GroupedNMTensor if isinstance(
+                initial_sparsifier, GroupedNMSparsifier) else FixedMaskTensor
+        self._weights.append(WeightRule(name, initial_sparsifier, out_format))
         return self
 
     def _rule_for(self, name: str):
@@ -51,8 +57,10 @@ class SparsityBuilder:
 
     def sparsify_params(self, params):
         """Replace matching leaves by sparse layouts.  A scan-stacked
-        [L, K, N] leaf is converted per layer (the paper's local pruning)
-        and re-stacked on a leading [L] axis."""
+        [L, K, N] leaf is sparsified per layer (the paper's local pruning)
+        and re-stacked on a leading [L] axis.  (A later GMP recompute of a
+        magnitude-pruned leaf is global across its layers, as in the
+        reference: ``unstructured_mask`` flattens the whole leaf.)"""
 
         def visit(tree, path):
             if isinstance(tree, dict):
@@ -61,7 +69,7 @@ class SparsityBuilder:
             if rule is None or not isinstance(tree, torch.Tensor):
                 return tree
             if tree.ndim == 3:
-                return GroupedNMTensor.stack([
+                return _STACK[rule.out_format]([
                     apply_sparsifier(rule.initial_sparsifier, tree[i],
                                      rule.out_format)
                     for i in range(tree.shape[0])
@@ -70,3 +78,7 @@ class SparsityBuilder:
                                     rule.out_format)
 
         return visit(params, ())
+
+
+_STACK = {GroupedNMTensor: GroupedNMTensor.stack,
+          FixedMaskTensor: FixedMaskTensor.stack}

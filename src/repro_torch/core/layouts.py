@@ -1,10 +1,12 @@
-"""Sparsity layouts, n:m:g part (port of ``repro/core/layouts.py``).
+"""Sparsity layouts (port of part of ``repro/core/layouts.py``).
 
-Only what the serving path needs: the revolving-door pattern tables, the
-precomputed gather plan (:class:`SpmmPlan`), :class:`GroupedNMTensor` and
-the trivial :class:`DenseTensor`.  Integer tables are built with numpy
-exactly as the reference builds them, so they equal it element for
-element.
+What the serving and training paths need: the revolving-door pattern
+tables, the precomputed gather plan (:class:`SpmmPlan`),
+:class:`GroupedNMTensor`, the masked-dense :class:`FixedMaskTensor` of
+masked training and the trivial :class:`DenseTensor`.  Integer tables are
+built with numpy exactly as the reference builds them, so they equal it
+element for element.  ``NMTensor`` and the CSR/COO layouts are not
+ported yet.
 
 Layers are scan-stacked in the reference: a stacked ``GroupedNMTensor``
 carries a leading ``[L]`` axis on ``val`` / ``blk_idx`` / ``plan.cols``
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 __all__ = [
+    "SparsityLayout",
     "DenseTensor",
+    "FixedMaskTensor",
     "GroupedNMTensor",
     "SpmmPlan",
     "build_spmm_plan",
@@ -85,8 +89,12 @@ def pattern_onehots(n: int, m: int) -> np.ndarray:
     return oh
 
 
+class SparsityLayout:
+    """Base of the port's layouts: dispatch keys on the layout class."""
+
+
 @dataclasses.dataclass
-class DenseTensor:
+class DenseTensor(SparsityLayout):
     """Trivial layout: a dense tensor."""
 
     data: torch.Tensor
@@ -131,7 +139,58 @@ def build_spmm_plan(blk_idx: torch.Tensor, n: int, m: int, g: int) -> SpmmPlan:
 
 
 @dataclasses.dataclass
-class GroupedNMTensor:
+class FixedMaskTensor(SparsityLayout):
+    """Dense values + boolean mask: the paper's masked-training layout
+    (§5.3).  ``val`` is the trainable tensor; the gradient reaching it
+    through :meth:`to_dense` is the masked cotangent, as in the reference.
+    ``origin`` records the sparsifier that made the mask, so a pattern
+    recompute runs its native algorithm (``SameFormatSparsifier``).  A
+    scan-stacked leaf carries a leading [L] axis on ``val`` and ``mask``.
+    """
+
+    val: torch.Tensor
+    mask: torch.Tensor   # bool, same shape as val
+    origin: object = None
+
+    @property
+    def shape(self):
+        return tuple(self.val.shape)
+
+    @property
+    def dtype(self):
+        return self.val.dtype
+
+    @property
+    def device(self):
+        return self.val.device
+
+    def to_dense(self) -> torch.Tensor:
+        return self.val * self.mask.to(self.val.dtype)
+
+    @classmethod
+    def from_dense(cls, x: torch.Tensor) -> "FixedMaskTensor":
+        return cls(x, x != 0)
+
+    def unbind(self, dim: int = 0) -> list:
+        """Every layer of a stacked tensor, as views; autograd carries the
+        per-layer gradients back into ``val`` with one stack."""
+        return [FixedMaskTensor(v, m, self.origin)
+                for v, m in zip(self.val.unbind(dim), self.mask.unbind(dim))]
+
+    @classmethod
+    def stack(cls, parts) -> "FixedMaskTensor":
+        """Stack per-layer tensors on a leading [L] axis."""
+        return cls(torch.stack([p.val for p in parts]),
+                   torch.stack([p.mask for p in parts]), parts[0].origin)
+
+    def to(self, device=None, dtype=None) -> "FixedMaskTensor":
+        """Move to ``device`` and/or cast ``val`` to ``dtype``."""
+        return FixedMaskTensor(self.val.to(device=device, dtype=dtype),
+                               self.mask.to(device), self.origin)
+
+
+@dataclasses.dataclass
+class GroupedNMTensor(SparsityLayout):
     """Grouped n:m (``n:m:g``) sparsity (paper §5), canonical view [R, K]
     with the sparse dim K.  ``gr`` consecutive rows share one chunk
     permutation.

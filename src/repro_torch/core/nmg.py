@@ -1,5 +1,7 @@
-"""Dense <-> n:m:g conversion (port of ``repro/core/nmg.py``), greedy
-method only.
+"""Dense <-> n:m:g conversion and the mask constructors (port of
+``repro/core/nmg.py``): greedy conversion only, plus ``unstructured_mask``
+(magnitude top-k); the per-block top-n mask is the ``nm_mask`` kernel's
+(``kernels/nm_mask.py``).
 
 The greedy assignment is the paper's CPU algorithm: process the
 (block, pattern) scores from highest to lowest and first-fit assign, which
@@ -24,7 +26,8 @@ from repro_torch.core.layouts import (
     pattern_onehots,
 )
 
-__all__ = ["dense_to_grouped_nm", "grouped_nm_to_dense", "energy"]
+__all__ = ["dense_to_grouped_nm", "grouped_nm_to_dense", "energy",
+           "unstructured_mask"]
 
 
 def energy(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +35,21 @@ def energy(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     num = x_hat.abs().float().sum()
     den = x.abs().float().sum()
     return num / torch.clamp(den, min=torch.finfo(torch.float32).tiny)
+
+
+def unstructured_mask(x: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """Global magnitude top-k mask (scalar fraction sparsifier), in
+    ``x.dtype``.  ``k`` comes from the reference's f32 expression
+    ``round(f32(size) * (1 - f32(sparsity)))`` clipped to [1, size] (numpy
+    rounds half to even, as the reference does), and the mask keeps
+    ``|x| >= k-th largest |x|``: a value threshold, so the order among
+    ties cannot change it."""
+    flat = x.abs().reshape(-1)
+    size = flat.numel()
+    k = int(np.clip(np.round(
+        np.float32(size) * (np.float32(1.0) - np.float32(sparsity))), 1, size))
+    thresh = torch.topk(flat, k, sorted=False).values.min()
+    return (x.abs() >= thresh).to(x.dtype)
 
 
 def _greedy_assign(scores: torch.Tensor, g: int) -> torch.Tensor:

@@ -9,9 +9,12 @@
 
 Decode-shaped groups also fuse: ``maybe_fused_qkv`` (q/k/v in one GEMV
 launch) and ``maybe_fused_ffn`` (the packed gated-MLP weight, projection
-and ``act(u) * v`` in one launch).  Each op runs the CUDA kernel for CUDA
-tensors and its plain version for CPU tensors.  ``kernel_counters`` is the port's own plain dict of routing
-decisions and launches per (kernel, route): ``("nmg_linear",
+and ``act(u) * v`` in one launch).  The training side adds ``nm_mask``
+(the n:m sparsifier's keep mask) and ``matmul_threshold`` (matmul with
+the fused inline threshold sparsifier).  Each op runs the CUDA kernel for
+CUDA tensors and its plain version for CPU tensors.  ``kernel_counters``
+is the port's own plain dict of routing decisions and launches per
+(kernel, route): ``("nmg_linear",
 "gemv[default]")`` for the router's choice, ``("nmg_gemv", "cuda")`` or
 ``("nmg_gemv", "plain")`` for where the work ran.  Routes read the shipped
 defaults of ``tune/routing.py`` (no tuning tables yet), hence
@@ -26,8 +29,8 @@ import collections
 import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
-from repro_torch.kernels import nmg_fused, nmg_gemv as _gemv, \
-    nmg_spmm as _spmm
+from repro_torch.kernels import fused_sparse_matmul as _fsm, \
+    nm_mask as _nm_mask, nmg_fused, nmg_gemv as _gemv, nmg_spmm as _spmm
 from repro_torch.kernels.nmg_fused import fusable_ffn, fusable_qkv, \
     nmg_ffn_plain, nmg_qkv_plain
 from repro_torch.kernels.nmg_gemv import nmg_gemv_plain
@@ -50,6 +53,8 @@ __all__ = [
     "nmg_ffn_plain",
     "maybe_fused_ffn",
     "fusable_ffn",
+    "nm_mask",
+    "matmul_threshold",
     "kernel_counters",
     "reset_kernel_counters",
 ]
@@ -170,3 +175,22 @@ def nmg_linear(x: torch.Tensor, w: GroupedNMTensor) -> torch.Tensor:
     _KERNEL_COUNTS[("nmg_linear", "spmm[default]")] += 1
     yt = nmg_spmm(w, x2.T)                     # f32 [N, M]
     return yt.to(x.dtype).T.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# training-side kernels
+# ---------------------------------------------------------------------------
+
+
+def nm_mask(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Bool per-m-block top-n keep mask along the last axis of ``x``."""
+    _KERNEL_COUNTS[("nm_mask", _where(x))] += 1
+    return _nm_mask.nm_mask(x, n, m)
+
+
+def matmul_threshold(a: torch.Tensor, b: torch.Tensor, threshold: float
+                     ) -> tuple:
+    """Matmul with the fused streaming threshold sparsifier: (masked f32
+    values, bool mask), differentiable in ``a`` and ``b``."""
+    _KERNEL_COUNTS[("matmul_threshold", _where(a))] += 1
+    return _fsm.matmul_threshold(a, b, threshold)

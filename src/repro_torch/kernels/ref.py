@@ -1,5 +1,8 @@
-"""Densify-then-matmul oracles for the ported kernels (port of
-``repro/kernels/ref.py``)."""
+"""Densify-then-matmul oracles for the ported n:m:g kernels (port of
+``repro/kernels/ref.py``).  The training kernels' oracles would be their
+plain versions under another name (``kernels/nm_mask.py:nm_mask_plain``,
+``kernels/fused_sparse_matmul.py:matmul_threshold_plain``), so the
+tests hold those against the JAX package's ``kernels/ref.py`` instead."""
 
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""The ported model stack (GQA dense decoder, plain or gated MLP)."""
+"""The ported model stack (GQA dense decoder, plain or gated MLP) and its
+training loss."""
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (
@@ -7,9 +8,10 @@ from repro_torch.models.transformer import (
     init_cache,
     init_lm,
     logits_of,
+    loss_fn,
     prefill,
     prefill_into_slot,
 )
 
 __all__ = ["ModelConfig", "decode_step", "forward", "init_cache", "init_lm",
-           "logits_of", "prefill", "prefill_into_slot"]
+           "logits_of", "loss_fn", "prefill", "prefill_into_slot"]

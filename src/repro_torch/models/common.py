@@ -3,8 +3,9 @@
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field.
 The port runs its GQA dense-decoder subset, plain or gated MLP, with or
-without QKV bias: :meth:`ModelConfig.check_ported` raises
-``NotImplementedError`` for the other families.
+without QKV bias and the MLP's inline threshold:
+:meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
+other families.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.core.layouts import DenseTensor, GroupedNMTensor, \
+    SparsityLayout
 
 __all__ = ["ModelConfig", "mm", "mm_fused_qkv", "mm_gated",
            "torch_dtype"]
@@ -27,19 +29,40 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """Weight application admitting n:m:g layouts: dense weights are a
-    plain product; a :class:`GroupedNMTensor` goes through the
-    shape-routed kernels (``kernels/ops.py:nmg_linear``).  The result is
+def mm(x: torch.Tensor, w, *, inline=None) -> torch.Tensor:
+    """Weight application admitting sparse layouts: a dense weight is a
+    plain product; a ``GroupedNMTensor`` (serving) goes straight to the
+    shape-routed n:m:g kernels (``kernels/ops.py:nmg_linear``, what its
+    ``dispatch("linear")`` registration calls, without the per-call
+    registry lookup on the host-bound decode path); any other layout
+    (``FixedMaskTensor`` in masked training) goes through
+    ``dispatch("linear")``, and a dense weight with an ``inline``
+    sparsifier through ``dispatch("matmul")`` on ``DenseTensor``
+    operands, where a ``ScalarThresholdSparsifier`` reaches the fused
+    ``matmul_threshold`` kernel.  A layout result comes back masked-dense,
     cast to the dtype ``x @ w`` would promote to, so sparsifying a weight
     never changes a layer's output dtype."""
-    if not isinstance(w, GroupedNMTensor):
+    if not isinstance(w, SparsityLayout) and inline is None:
         return x @ w
-    from repro_torch.kernels import ops as kops
-
-    y = kops.nmg_linear(x, w)
     out_dtype = torch.promote_types(x.dtype, w.dtype)
-    return y if y.dtype == out_dtype else y.to(out_dtype)
+    if isinstance(w, GroupedNMTensor) and inline is None:
+        from repro_torch.kernels import ops as kops
+
+        y = kops.nmg_linear(x, w)
+        return y if y.dtype == out_dtype else y.to(out_dtype)
+    from repro_torch.core import ops as sten_ops
+
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(w, SparsityLayout):
+        y = sten_ops.linear(x2, w, inline=inline)
+    else:
+        y = sten_ops.matmul(DenseTensor(x2), DenseTensor(w), inline=inline)
+    if isinstance(y, SparsityLayout):
+        y = y.to_dense()
+    if y.dtype != out_dtype:
+        y = y.to(out_dtype)
+    return y.reshape(*lead, -1)
 
 
 def mm_fused_qkv(x: torch.Tensor, wq, wk, wv) -> tuple:
@@ -123,8 +146,8 @@ class ModelConfig:
     def check_ported(self):
         """Raise NotImplementedError unless this config lies in the
         ported subset: GQA dense decoder (plain or gated MLP, optional QKV
-        bias), global attention, no MoE/MLA/SSM/enc-dec/VLM prefix/int8
-        KV/softcaps/post-norms."""
+        bias and MLP inline threshold), global attention, no
+        MoE/MLA/SSM/enc-dec/VLM prefix/int8 KV/softcaps/post-norms."""
         unported = {
             "attn_type != 'gqa'": self.attn_type != "gqa",
             "moe": self.moe is not None,
@@ -138,7 +161,6 @@ class ModelConfig:
             "enc-dec": self.n_enc_layers > 0,
             "vision prefix": self.vision_prefix > 0,
             "kv_cache_dtype": self.kv_cache_dtype is not None,
-            "mlp_inline_threshold": self.mlp_inline_threshold is not None,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:

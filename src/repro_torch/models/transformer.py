@@ -3,9 +3,13 @@
 
 Params are nested dicts with the reference's layout: layer leaves are
 stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
-them where the reference scans (a stacked ``GroupedNMTensor`` is sliced
-per layer, a view).  Any projection may be a ``GroupedNMTensor``; ``mm``
-routes it through the n:m:g kernels.
+them where the reference scans (a stacked layout is sliced per layer, a
+view).  Any projection may be a ``GroupedNMTensor`` (``mm`` routes it
+through the n:m:g kernels) or a ``FixedMaskTensor`` (masked training).
+With ``cfg.mlp_inline_threshold`` the MLP up-projection carries the
+scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it runs the
+fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn`` are
+autograd-safe (the training path); remat is not ported.
 
 The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
@@ -23,13 +27,16 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.layouts import FixedMaskTensor
+from repro_torch.core.sparsifiers import ScalarThresholdSparsifier
 from repro_torch.device import resolve_device
 from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig, mm, mm_gated
 
-__all__ = ["init_lm", "forward", "logits_of", "init_cache", "decode_step",
-           "prefill", "prefill_into_slot", "dense_init", "layer_params"]
+__all__ = ["init_lm", "forward", "logits_of", "loss_fn", "init_cache",
+           "decode_step", "prefill", "prefill_into_slot", "dense_init",
+           "layer_params", "layer_list"]
 
 
 def dense_init(gen: torch.Generator, shape, dtype, device,
@@ -77,16 +84,29 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
 
 
 def layer_params(layers, i: int):
-    """Layer ``i`` of the stacked layer tree (views, no copies)."""
+    """Layer ``i`` of the stacked layer tree (views, no copies): the
+    decode step's per-layer slice."""
     if isinstance(layers, dict):
         return {k: layer_params(v, i) for k, v in layers.items()}
     if isinstance(layers, torch.Tensor):
         return layers[i]
+    if isinstance(layers, FixedMaskTensor):
+        return FixedMaskTensor(layers.val[i], layers.mask[i], layers.origin)
     return layers.layer(i)
 
 
-def _n_layers(params) -> int:
-    return params["layers"]["ln1"].shape[0]
+def layer_list(layers) -> list:
+    """Every layer of the stacked layer tree, as views.  Tensors (and a
+    ``FixedMaskTensor``'s val and mask) are unbound once, so autograd
+    carries the per-layer gradients back into each stacked leaf with one
+    stack rather than one full-size scatter per layer."""
+    if isinstance(layers, dict):
+        parts = {k: layer_list(v) for k, v in layers.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(layers, (torch.Tensor, FixedMaskTensor)):
+        return list(layers.unbind(0))
+    return [layers.layer(i) for i in range(layers.val.shape[0])]
 
 
 def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
@@ -107,16 +127,19 @@ def _sublayer_attn(lp, x, cfg, *, collect=False):
 def _sublayer_ffn(lp, x, cfg):
     h = _rms(x, lp["ln2"])
     wi = lp["mlp"]["wi"]
+    inline = None
+    if cfg.mlp_inline_threshold is not None:
+        inline = ScalarThresholdSparsifier(cfg.mlp_inline_threshold)
     if cfg.gated_mlp:
         # projection, split, act, gate in one decode launch when eligible;
         # None -> the same ops in sequence (the kernel's epilogue replays
         # their roundings, so the two agree bitwise)
-        hh = mm_gated(h, wi, cfg.act)
+        hh = mm_gated(h, wi, cfg.act, inline=inline)
         if hh is None:
-            u, v = mm(h, wi).chunk(2, dim=-1)
+            u, v = mm(h, wi, inline=inline).chunk(2, dim=-1)
             hh = act_fn(cfg.act)(u) * v
     else:
-        hh = act_fn(cfg.act)(mm(h, wi))
+        hh = act_fn(cfg.act)(mm(h, wi, inline=inline))
     return x + mm(hh, lp["mlp"]["wo"])
 
 
@@ -126,8 +149,7 @@ def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False):
     (hidden, {"k": [L, B, S, KV, hd], "v": ...})."""
     x = _embed(params, cfg, tokens)
     ks, vs = [], []
-    for i in range(_n_layers(params)):
-        lp = layer_params(params["layers"], i)
+    for lp in layer_list(params["layers"]):
         x, c = _sublayer_attn(lp, x, cfg, collect=collect_cache)
         x = _sublayer_ffn(lp, x, cfg)
         if collect_cache:
@@ -144,6 +166,22 @@ def logits_of(params, cfg: ModelConfig, hidden):
     if head is None:
         return hidden @ params["embedding"].T
     return mm(hidden, head)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy: batch {"tokens" [B, S], "labels"
+    [B, S]}, labels < 0 masked out; logits in f32.  Returns (loss,
+    {"ce", "moe_aux"}); ``moe_aux`` is 0 (no MoE in the ported families),
+    so the loss is the cross-entropy alone."""
+    hidden = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"].long()
+    logits = logits_of(params, cfg, hidden).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = (labels >= 0).float()
+    ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    loss = -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"ce": loss, "moe_aux": aux}
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
@@ -178,7 +216,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     (logits [B, V], cache) with the cache updated in place."""
     x = _embed(params, cfg, token)
     pv = attn.pos_vec(pos, token.shape[0], device=token.device)
-    for i in range(_n_layers(params)):
+    for i in range(cache["k"].shape[0]):
         x = _decode_layer(layer_params(params["layers"], i), x, cfg,
                           cache["k"][i], cache["v"][i], pv)
     x = _rms(x, params["final_norm"])

@@ -13,6 +13,7 @@ import torch
 
 from repro.configs import get_smoke as jax_smoke
 from repro.core import nmg as jax_nmg
+from repro.core.layouts import FixedMaskTensor as JaxFixedMask
 from repro.core.layouts import GroupedNMTensor as JaxGroupedNM
 from repro.models import init_lm as jax_init_lm
 from repro.serve.engine import sparsify_for_serving as jax_sparsify
@@ -26,12 +27,24 @@ def nmg_to_numpy(t) -> dict:
             "sparse_dim": t.sparse_dim}
 
 
+def sparsifier_to_dict(sp):
+    """A JAX sparsifier as the bridge's ``{"type": class name, **fields}``
+    (None stays None)."""
+    if sp is None:
+        return None
+    return {"type": type(sp).__name__, **dataclasses.asdict(sp)}
+
+
 def params_to_numpy(tree):
-    """A JAX params tree as nested dicts of numpy arrays."""
+    """A JAX params tree as nested dicts of numpy arrays; a
+    FixedMaskTensor as ``{"val", "mask", "origin"}``."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, JaxGroupedNM):
         return nmg_to_numpy(tree)
+    if isinstance(tree, JaxFixedMask):
+        return {"val": np.asarray(tree.val), "mask": np.asarray(tree.mask),
+                "origin": sparsifier_to_dict(tree.origin)}
     return np.asarray(tree)
 
 

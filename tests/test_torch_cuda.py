@@ -10,18 +10,24 @@ exactly, so only the order of the f32 sums differs.  With unit-variance
 inputs an output sums up to 768 stored products into partial sums of
 size ~30, so a reordering moves it by a few units of 2**-24 * 30 per
 term: atol = 2e-4, rtol = 1e-5 (the card showed 3.5e-5 at K = 3072).
-Fused QKV against three single launches: bitwise.  The fused gated FFN
-against the GEMV followed by PyTorch's own activation and multiply:
-bitwise for silu (the kernel's epilogue replays PyTorch's CUDA silu);
-for gelu's tanh approximation within one rounding step of the output
-type (``tanhf`` and the polynomial may round differently from
-PyTorch's kernel)."""
+Fused QKV against three single launches: bitwise.  ``nm_mask`` against
+its plain version: bitwise (the same comparisons on the same values).
+``matmul_threshold``: f32 values within rtol = atol = 1e-5 on inputs
+scaled so y ~ N(0, 1), the mask equal except where |y| lies within 1e-5
+of the threshold (another summation order than cuBLAS), and its backward
+equal to the reference's cotangent formula on the kernel's own mask.
+The fused gated FFN against the GEMV followed by PyTorch's own
+activation and multiply: bitwise for silu (the kernel's epilogue replays
+PyTorch's CUDA silu); for gelu's tanh approximation within one rounding
+step of the output type (``tanhf`` and the polynomial may round
+differently from PyTorch's kernel)."""
 
 import pytest
 import torch
 
 from repro_torch.core.nmg import dense_to_grouped_nm
-from repro_torch.kernels import nmg_fused, nmg_gemv, nmg_spmm
+from repro_torch.kernels import fused_sparse_matmul, nm_mask, nmg_fused, \
+    nmg_gemv, nmg_spmm
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +150,114 @@ def test_ffn_wrapper_rejects_what_the_kernel_does_not_take():
     odd = _packed(512, 96, bf16)        # F = 96 is not a multiple of gr = 64
     with pytest.raises(ValueError, match="not fusable"):
         nmg_fused.nmg_ffn(odd, torch.randn(512, 4, device="cuda", dtype=bf16))
+
+
+NM_CASES = [(1, 4), (2, 4), (2, 8), (3, 6), (1, 10), (2, 16)]
+
+
+@pytest.mark.parametrize("shape", [(32, 64), (7, 130), (256, 520),
+                                   (36864, 768)])
+@pytest.mark.parametrize("n,m", NM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_equals_plain(dtype, n, m, shape):
+    """Bitwise, at the reference's test shapes and at the stacked
+    ``mlp.wo`` of full-width bert-base-sten ([12 * 3072, 768])."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    got = nm_mask.nm_mask(x, n, m)
+    assert got.dtype == torch.bool and got.shape == x.shape
+    assert torch.equal(got, nm_mask.nm_mask_plain(x, n, m))
+
+
+@pytest.mark.parametrize("n,m", NM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_ties_and_ragged_blocks(dtype, n, m):
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randint(-2, 3, (3, 16, 131), generator=g,
+                      device="cuda").to(dtype)
+    x[0, 0] = 1.5
+    x[0, 1] = 0
+    x[1, 2, -7:] = 0
+    assert torch.equal(nm_mask.nm_mask(x, n, m),
+                       nm_mask.nm_mask_plain(x, n, m))
+
+
+def _mt_operands(M, K, N, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+    b = (torch.randn(K, N, generator=g, device="cuda") / K ** 0.5).to(dtype)
+    return a, b
+
+
+def _check_mask(mask, want_mask, a, b, t):
+    y = a.double() @ b.double()
+    diff = mask != want_mask
+    near = ((y.abs() - t).abs() <= 1e-5 * max(1.0, t))
+    assert not (diff & ~near).any(), "mask differs off the boundary"
+    return diff
+
+
+@pytest.mark.parametrize("shape", [(32, 48, 40), (64, 64, 64), (33, 70, 9),
+                                   (130, 200, 129), (1024, 768, 3072)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_threshold_matches_plain(dtype, shape):
+    _require_cuda()
+    a, b = _mt_operands(*shape, dtype)
+    for t in (0.5, 2.0):
+        val, mask = fused_sparse_matmul.matmul_threshold(a, b, t)
+        assert val.dtype == torch.float32 and mask.dtype == torch.bool
+        pv, pm = fused_sparse_matmul.matmul_threshold_plain(a, b, t)
+        diff = _check_mask(mask, pm, a, b, t)
+        torch.testing.assert_close(val[~diff], pv[~diff], rtol=1e-5,
+                                   atol=1e-5)
+        # masked entries are zeros carrying y's sign, as y * mask gives
+        y = (a.double() @ b.double())[~mask]
+        dropped = val[~mask]
+        assert (dropped == 0).all()
+        clear = y.abs() > 1e-3
+        assert torch.equal(torch.signbit(dropped)[clear], (y < 0)[clear])
+
+
+def test_matmul_threshold_reads_strided_operands():
+    """A transposed (non-contiguous) operand is read through its strides."""
+    _require_cuda()
+    a, b = _mt_operands(96, 80, 72, torch.bfloat16)
+    bt = b.T.contiguous().T
+    got = fused_sparse_matmul.matmul_threshold(a, bt, 0.5)
+    want = fused_sparse_matmul.matmul_threshold(a, b, 0.5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_threshold_backward_on_the_card(dtype):
+    """The autograd function's gradients are the reference's cotangents
+    on the kernel's mask: da = (g*mask) @ b^T, db = a^T @ (g*mask)."""
+    _require_cuda()
+    a, b = _mt_operands(256, 192, 320, dtype)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    r = torch.randn(256, 320, device="cuda")
+    val, mask = fused_sparse_matmul.matmul_threshold(a, b, 0.5)
+    (val * r).sum().backward()
+    gm = r * mask
+    assert torch.equal(a.grad, (gm @ b.detach().float().T).to(dtype))
+    assert torch.equal(b.grad, (a.detach().float().T @ gm).to(dtype))
+
+
+def test_training_kernel_wrappers_reject_what_they_do_not_take():
+    _require_cuda()
+    x = torch.randn(8, 32, device="cuda")
+    with pytest.raises(ValueError):
+        nm_mask.nm_mask(x, 2, 17)
+    with pytest.raises(ValueError):
+        nm_mask.nm_mask(x.half(), 2, 4)
+    with pytest.raises(ValueError):
+        fused_sparse_matmul.matmul_threshold(x, torch.randn(
+            32, 4, device="cuda", dtype=torch.bfloat16), 0.5)
+    with pytest.raises(ValueError):
+        fused_sparse_matmul.matmul_threshold(x, torch.randn(16, 4,
+                                                            device="cuda"), 0.5)
+    with pytest.raises(ValueError):
+        fused_sparse_matmul.matmul_threshold(x, torch.randn(32, 4), 0.5)
