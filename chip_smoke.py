@@ -12,11 +12,16 @@
    at 1024 tokens x 768 x 3072): each kernel's wrapper against its plain
    PyTorch version on the same inputs (fused QKV bitwise against three
    GEMV launches, the fused gated FFN bitwise against the GEMV followed by
-   PyTorch's silu and multiply), then timed with CUDA events against the
-   plain version and a library yardstick (``torch.matmul`` on the
-   densified weight, plus ``silu(u) * v`` for the FFN; the port never
-   calls it).  The device L2 is flushed before every timed launch: on the
-   serving path a layer's weights are cold when its turn comes.
+   PyTorch's silu and multiply; the tensor-core SpMM and
+   ``matmul_threshold`` also bitwise against a second launch, and the
+   SpMM's bf16 [N, R] epilogue bitwise against its f32 output cast and
+   transposed), then timed with CUDA events against the plain version and
+   a library yardstick (``torch.matmul`` on the densified weight, plus
+   ``silu(u) * v`` for the FFN; the port never calls it).  The two
+   tensor-core kernels also report registers a thread (``-Xptxas -v``)
+   and shared memory a block.  The device L2 is flushed before every
+   timed launch: on the serving path a layer's weights are cold when its
+   turn comes.
 3. Main paths, each with the launch counts zeroed right before its run
    and read right after:
    a. full-width bert-base-sten (12 layers, d_model 768, d_ff 3072, vocab
@@ -55,8 +60,10 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -155,6 +162,61 @@ def bound(nbytes: int, flops: int, rate: float = BF16_FLOPS) -> tuple:
 def storage_bytes(w) -> int:
     cols = w.gather_plan().cols
     return w.val.numel() * w.val.element_size() + cols.numel() * 4
+
+
+def _ptxas_entry(lib: str, entry: str) -> dict:
+    """Registers a thread and static shared memory of one kernel entry,
+    from ``-Xptxas -v``'s report of the library's build."""
+    from repro_torch.kernels import _build
+
+    lines = _build.ptxas_log(lib).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            for used in lines[i + 1:i + 8]:
+                if "Compiling entry function" in used:
+                    break
+                m = re.search(r"Used (\d+) registers", used)
+                if m:
+                    sm = re.search(r"(\d+) bytes smem", used)
+                    return {"registers": int(m.group(1)),
+                            "static_smem_bytes": int(sm.group(1)) if sm
+                            else 0}
+    raise RuntimeError(f"ptxas log of {lib} names no entry {entry}")
+
+
+def spmm_resources(w, b) -> dict:
+    """The bf16 SpMM body's block at this shape: warps, n8 tiles, column
+    tiles, K splits, registers a thread (ptxas) and shared memory a block
+    (its dynamic ring and B buffers)."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("nmg_spmm").nmg_spmm_tc_plan
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p]
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    fn.restype = None
+    plan = (ctypes.c_int * 6)()
+    fn(w.val.shape[0], b.shape[1], w.val.shape[1] * w.val.shape[2], w.gr,
+       b.data_ptr(), b.stride(0), b.stride(1), plan)
+    warps, nt8, col_tiles, splits, smem, staged = list(plan)
+    # the kernel's template arguments: n8 tiles, warps along the rows
+    res = _ptxas_entry("nmg_spmm",
+                       f"nmg_spmm_tc_kernelILi{nt8}ELi{warps // 2}E")
+    return {"warps": warps, "n8_tiles": nt8, "col_tiles": col_tiles,
+            "splits": splits, "staged": bool(staged),
+            "registers": res["registers"],
+            "smem_bytes": smem + res["static_smem_bytes"]}
+
+
+def matmul_threshold_resources() -> dict:
+    """The bf16 matmul_threshold body's registers a thread (ptxas) and
+    shared memory a block (its ring, reused by the epilogue)."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("matmul_threshold").matmul_threshold_tc_smem_bytes
+    fn.restype = ctypes.c_int
+    res = _ptxas_entry("matmul_threshold", "matmul_threshold_tc_kernel")
+    return {"registers": res["registers"],
+            "smem_bytes": fn() + res["static_smem_bytes"]}
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +346,13 @@ def kernel_phase(gen, model: str) -> list:
                  storage_bytes(w) + x.numel() * 2 + M * Fh * 2,
                  2 * w.val.numel() * M, bitwise_vs_sequential=True)
 
-    # SpMM (prefill): B = x.T with N prompt tokens, f32 [R, N] out, at
-    # every shape the main path gives it
+    # SpMM (prefill): B = x.T with N prompt tokens, at every shape the main
+    # path gives it.  The f32 [R, N] output against the plain version and
+    # against a second launch (bitwise); the main path's form (one cast to
+    # bf16, written [N, R]) bitwise against the f32 output cast and
+    # transposed, and timed as the main path calls it (``ms``), beside the
+    # f32 [R, N] form (``ms_f32_out``, the form of the earlier slices'
+    # times)
     for name, (K, R) in shapes.items():
         w = W[name]
         for Ntok in spec["spmm_n"]:
@@ -295,13 +362,23 @@ def kernel_phase(gen, model: str) -> list:
             err = (got - ref).abs().max().item()
             tol = 1e-4 * max(1.0, ref.abs().max().item())
             assert err <= tol, (name, Ntok, err)
+            assert torch.equal(got, nmg_spmm.nmg_spmm(w, x.T)), \
+                f"SpMM launches disagree ({name}, N={Ntok})"
+            yt = nmg_spmm.nmg_spmm(w, x.T, out_dtype=bf16,
+                                   transpose_out=True)
+            assert torch.equal(yt, got.to(bf16).T), \
+                f"SpMM bf16 [N, R] epilogue differs ({name}, N={Ntok})"
             wd = dense_of[id(w)]
             case("nmg_spmm", name, K, R, Ntok, err, tol,
-                 (lambda: nmg_spmm.nmg_spmm(w, x.T),
-                  lambda: nmg_spmm.nmg_spmm_plain(w, x.T),
+                 (lambda: nmg_spmm.nmg_spmm(w, x.T, out_dtype=bf16,
+                                            transpose_out=True),
+                  lambda: nmg_spmm.nmg_spmm_plain(w, x.T, out_dtype=bf16,
+                                                  transpose_out=True),
                   lambda: torch.matmul(x, wd)),
-                 storage_bytes(w) + x.numel() * 2 + R * Ntok * 4,
-                 2 * w.val.numel() * Ntok)
+                 storage_bytes(w) + x.numel() * 2 + R * Ntok * 2,
+                 2 * w.val.numel() * Ntok, bitwise_relaunch=True,
+                 ms_f32_out=time_ms(lambda: nmg_spmm.nmg_spmm(w, x.T), flush),
+                 **spmm_resources(w, x.T))
     del flush
     return cases
 
@@ -372,6 +449,9 @@ def train_kernel_phase(gen) -> list:
     err = (val - pv)[~diff].abs().max().item()
     tol = 1e-5 * max(1.0, pv.abs().max().item())
     assert err <= tol, ("matmul_threshold", err, tol)
+    again = fsm.matmul_threshold(a, w, THRESHOLD)
+    assert torch.equal(val, again[0]) and torch.equal(mask, again[1]), \
+        "matmul_threshold launches disagree"
 
     def library():
         yy = torch.matmul(a, w)
@@ -384,6 +464,7 @@ def train_kernel_phase(gen) -> list:
         kernel="matmul_threshold", model="bert-train", weight="mlp.wi",
         K=K, N=N, M=M, threshold=THRESHOLD, max_abs_err=err, tol=tol,
         mask_flips=int(diff.sum()), kept_share=mask.float().mean().item(),
+        bitwise_relaunch=True, **matmul_threshold_resources(),
         **timings(lambda: fsm.matmul_threshold(a, w, THRESHOLD),
                   lambda: fsm.matmul_threshold_plain(a, w, THRESHOLD),
                   library, flush),
@@ -910,7 +991,8 @@ def kernels_line(cases, counts, train_counts) -> list:
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
-            "shape": f"{wname} K={c['K']} N={c['N']} M={M}"})
+            "shape": f"{wname} K={c['K']} N={c['N']} M={M}",
+            **{k: c[k] for k in ("registers", "smem_bytes") if k in c}})
     return kernels
 
 
@@ -940,10 +1022,14 @@ def main() -> int:
                "matmul_threshold")
     build_s = _build.build_all(sources)
     print(f"kernels built in {build_s:.1f} s")
-    for name in sources:
-        for line in _build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    for name in sources:   # one line per library: its entries' range
+        log = _build.ptxas_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill stores", log))
+        print(f"  ptxas {name}: {len(regs)} entries, "
+              f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+              f"{spills} bytes spill stores")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = (kernel_phase(gen, "bert") + kernel_phase(gen, "qwen")
@@ -953,7 +1039,10 @@ def main() -> int:
         lib = ("none" if c["library_ms"] is None
                else f"{c['library_ms']:.4f} ms")
         extra = "".join(f" {k} {c[k]:.4f}" for k in
-                        ("topk_scatter_ms", "kept_share") if k in c)
+                        ("topk_scatter_ms", "kept_share", "ms_f32_out")
+                        if k in c)
+        extra += "".join(f" {k} {c[k]}" for k in
+                         ("registers", "smem_bytes", "splits") if k in c)
         print(f"  {c['model']} {c['kernel']:8s} {c['weight']:9s} "
               f"M={c['M']:3d} err {c['max_abs_err']:.2e} | kernel "
               f"{c['ms']:.4f} ms (host {c['host_ms']:.4f} ms) "

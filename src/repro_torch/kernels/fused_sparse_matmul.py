@@ -6,7 +6,11 @@ sparsifier (§3.3), ``y = A @ B`` in f32, then ``mask = |y| >= t`` and
 :func:`matmul_threshold` runs the hand-written CUDA kernel
 (``csrc/matmul_threshold.cu``) for CUDA tensors and the plain PyTorch
 version :func:`matmul_threshold_plain` only for tensors on the CPU, inside
-the :class:`MatmulThreshold` autograd function.  Its backward is the
+the :class:`MatmulThreshold` autograd function.  bf16 operands take the
+kernel's tensor-core body, whose 16-byte copies need 16-byte aligned rows:
+an operand without them (a transposed view, K = 70) is handed over as a
+padded copy, made here and counted in the call's time.  f32 operands take
+the CUDA-core body, which reads any strides.  Its backward is the
 reference's cotangent through ``repro/kernels/ref.py:matmul_threshold_ref``:
 ``gm = g * mask`` in f32, ``da = gm @ B^T`` and ``db = A^T @ gm``, each
 cast to its operand's dtype.  The JAX package has no backward kernel
@@ -36,6 +40,20 @@ def matmul_threshold_plain(a: torch.Tensor, b: torch.Tensor,
     return y * mask, mask
 
 
+def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its rows are contiguous, 16-byte aligned and a
+    multiple of 8 elements apart (what the bf16 kernel's 16-byte copies
+    take), else a copy whose row pitch is padded up to a multiple of 8.
+    The kernel never reads the padding (its ragged edges read as zero)."""
+    R, C = x.shape
+    if x.stride(1) == 1 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    pitch = -(-C // 8) * 8
+    buf = torch.empty((R, pitch), dtype=x.dtype, device=x.device)
+    buf[:, :C].copy_(x)
+    return buf[:, :C]
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, threshold: float) -> tuple:
     from repro_torch.kernels import _build
 
@@ -50,6 +68,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, threshold: float) -> tuple:
                          f"of one dtype, got {a.dtype} and {b.dtype}")
     M, K = a.shape
     N = b.shape[1]
+    if a.dtype == torch.bfloat16:   # the tensor-core body's 16-byte copies
+        a, b = _rows_aligned(a), _rows_aligned(b)
     val = torch.empty((M, N), dtype=torch.float32, device=a.device)
     mask = torch.empty((M, N), dtype=torch.bool, device=a.device)
     fn = _build.load("matmul_threshold").matmul_threshold_launch

@@ -7,11 +7,17 @@ f32 (port of ``repro/kernels/nmg_spmm.py``).
 ``repro/kernels/ops.py:nmg_spmm_xla``) only for tensors on the CPU.  The
 reference's two Pallas schedules (streamed and grid) compute the same
 function; one CUDA kernel replaces both.
+
+f32 accumulation; as :func:`~repro_torch.kernels.nmg_gemv.nmg_gemv` does,
+``out_dtype`` casts the f32 sum once (round to nearest even, as
+``.to(dtype)``) and ``transpose_out=True`` writes [N, R], the orientation
+``nmg_linear``'s prefill wants.  The default stays f32 [R, N].
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,7 +40,8 @@ def _gather_block(b_p, cols, val_g):
     return torch.einsum("grk,gkn->grn", val_g.float(), bg.float())
 
 
-def nmg_spmm_plain(a: GroupedNMTensor, b: torch.Tensor, *,
+def nmg_spmm_plain(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
+                   transpose_out: bool = False,
                    block_elems: int = routing.DEFAULT_SPMM_BLOCK_ELEMS
                    ) -> torch.Tensor:
     """Plain version: blocked gather + einsum over the column plan, each
@@ -49,20 +56,30 @@ def nmg_spmm_plain(a: GroupedNMTensor, b: torch.Tensor, *,
     gb = max(1, min(Gr, block_elems // max(1, nblocks * n * N)))
     out = torch.cat([_gather_block(b_p, cols[i:i + gb], val_g[i:i + gb])
                      for i in range(0, Gr, gb)])
-    return out.reshape(R_pad, N)[:a.canonical_rows()]
+    out = out.reshape(R_pad, N)[:a.canonical_rows()]
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    return out.T.contiguous() if transpose_out else out
 
 
-def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A_canonical @ B (f32): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
+             transpose_out: bool = False) -> torch.Tensor:
+    """C = A_canonical @ B: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; f32 [R, N] unless ``out_dtype`` /
+    ``transpose_out``."""
     if b.device.type == "cpu":
-        return nmg_spmm_plain(a, b)
+        return nmg_spmm_plain(a, b, out_dtype=out_dtype,
+                              transpose_out=transpose_out)
     from repro_torch.kernels import _build
 
     check_operands([a], b)
     if a.gr % _ROWS_PER_BLOCK:
         raise ValueError(f"the SpMM kernel takes gr a multiple of "
                          f"{_ROWS_PER_BLOCK}, got {a.gr}")
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.float32, b.dtype):
+        raise ValueError(f"output dtype {out_dtype} not taken for "
+                         f"{b.dtype} inputs")
     K, N = b.shape
     R = a.canonical_rows()
     R_pad = a.val.shape[0]
@@ -72,19 +89,26 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        splits_fn.argtypes = [ctypes.c_int] * 3
+        splits_fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p]
+                              + [ctypes.c_longlong] * 2)
         splits_fn.restype = ctypes.c_int
-    out = torch.empty((R, N), dtype=torch.float32, device=b.device)
+    code = _DTYPE_CODE[b.dtype]
+    out = torch.empty((N, R) if transpose_out else (R, N), dtype=out_dtype,
+                      device=b.device)
     # K-split partials for shapes whose output tiles cannot fill the card
-    splits = splits_fn(R_pad, N, KN)
+    splits = splits_fn(code, R_pad, N, KN, a.gr, b.data_ptr(), b.stride(0),
+                       b.stride(1))
+    # chunk geometry: cs stored values of a row cover cx rows of B
+    cg = math.comb(a.m, a.n) * a.g
     ws = torch.empty((splits, R, N), dtype=torch.float32,
                      device=b.device) if splits > 1 else None
-    err = fn(_DTYPE_CODE[b.dtype], a.val.data_ptr(),
-             a.gather_plan().cols.data_ptr(), b.data_ptr(), b.stride(0),
-             b.stride(1), out.data_ptr(),
+    err = fn(code, a.val.data_ptr(), a.gather_plan().cols.data_ptr(),
+             b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
              None if ws is None else ws.data_ptr(), R, R_pad, K, KN, N, a.gr,
+             a.n * cg, a.m * cg, int(out_dtype != torch.float32),
+             int(transpose_out),
              torch.cuda.current_stream(b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nmg_spmm launch failed: error {err}")

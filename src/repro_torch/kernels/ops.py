@@ -5,7 +5,8 @@
   -----------------    ------------------------   -------------------------
   M <= decode_m_max    ``nmg_gemv``  (decode)     weight-stationary GEMV,
                                                   x.dtype epilogue
-  M >  decode_m_max    ``nmg_spmm``  (prefill)    column-tiled SpMM, f32 out
+  M >  decode_m_max    ``nmg_spmm``  (prefill)    fiber-group SpMM, f32 sum,
+                                                  x.dtype epilogue
 
 Decode-shaped groups also fuse: ``maybe_fused_qkv`` (q/k/v in one GEMV
 launch) and ``maybe_fused_ffn`` (the packed gated-MLP weight, projection
@@ -77,10 +78,13 @@ def _where(b: torch.Tensor) -> str:
     return "plain" if b.device.type == "cpu" else "cuda"
 
 
-def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A_canonical[R, K] @ B[K, N] (f32)."""
+def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
+             transpose_out: bool = False) -> torch.Tensor:
+    """C = A_canonical[R, K] @ B[K, N]; [N, R] with ``transpose_out``; f32
+    unless ``out_dtype``."""
     _KERNEL_COUNTS[("nmg_spmm", _where(b))] += 1
-    return _spmm.nmg_spmm(a, b)
+    return _spmm.nmg_spmm(a, b, out_dtype=out_dtype,
+                          transpose_out=transpose_out)
 
 
 def nmg_gemv(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
@@ -161,8 +165,8 @@ def nmg_matmul(a: GroupedNMTensor, b: torch.Tensor) -> torch.Tensor:
 def nmg_linear(x: torch.Tensor, w: GroupedNMTensor) -> torch.Tensor:
     """y = x @ W for an n:m:g weight stored with sparse_dim = input axis.
     x: [..., K] -> y: [..., N] in x.dtype.  Decode-shaped x takes the GEMV
-    kernel, whose epilogue writes x.dtype in [M, N] order directly; the
-    prefill path casts the f32 SpMM output, then transposes."""
+    kernel and prefill-shaped x the SpMM kernel; both epilogues cast the
+    f32 sum to x.dtype and write [M, N] order directly (one launch)."""
     if w.sparse_dim % 2 != 0:
         raise ValueError("n:m:g linear expects the weight sparse along its "
                          "input axis (sparse_dim=0)")
@@ -173,8 +177,8 @@ def nmg_linear(x: torch.Tensor, w: GroupedNMTensor) -> torch.Tensor:
         y = nmg_gemv(w, x2.T, out_dtype=x.dtype, transpose_out=True)
         return y.reshape(*lead, -1)
     _KERNEL_COUNTS[("nmg_linear", "spmm[default]")] += 1
-    yt = nmg_spmm(w, x2.T)                     # f32 [N, M]
-    return yt.to(x.dtype).T.reshape(*lead, -1)
+    y = nmg_spmm(w, x2.T, out_dtype=x.dtype, transpose_out=True)
+    return y.reshape(*lead, -1)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,12 @@ its plain version: bitwise (the same comparisons on the same values).
 scaled so y ~ N(0, 1), the mask equal except where |y| lies within 1e-5
 of the threshold (another summation order than cuBLAS), and its backward
 equal to the reference's cotangent formula on the kernel's own mask.
+The tensor-core bodies (bf16 SpMM and ``matmul_threshold``) keep these
+tolerances: bf16 products are exact in f32 and the mma sums them in f32,
+so again only the order of the sums differs.  Each redesigned kernel is
+also held bitwise against a second launch on the same inputs (its
+summation order is fixed by the shape), and the SpMM's cast and
+transposed epilogue bitwise against ``.to(dtype).T`` of its f32 output.
 The fused gated FFN against the GEMV followed by PyTorch's own
 activation and multiply: bitwise for silu (the kernel's epilogue replays
 PyTorch's CUDA silu); for gelu's tanh approximation within one rounding
@@ -89,6 +95,90 @@ def test_spmm_matches_plain(dtype, K, R, N):
     assert got.dtype == torch.float32 and got.shape == (R, N)
     torch.testing.assert_close(got, nmg_spmm.nmg_spmm_plain(w, x.T),
                                **TOL)
+
+
+#: qwen1.5-4b's n:m:g projections as [K, R] weights: the packed gated
+#: ``wi``, ``mlp.wo`` and ``attn.wq``
+QWEN = {"wi": (2560, 13824), "wo": (6912, 2560), "wq": (2560, 2560)}
+_QWEN_CACHE: dict = {}
+
+
+def _qwen_weight(name, gr, dtype):
+    """A qwen1.5-4b projection at 1:4:8, converted on the card from a
+    seeded fan-in-scaled draw (outputs ~ N(0, 1), the scale the stated
+    tolerances assume), cached across cases."""
+    key = (name, gr, dtype)
+    if key not in _QWEN_CACHE:
+        K, R = QWEN[name]
+        g = torch.Generator(device="cuda").manual_seed(len(_QWEN_CACHE))
+        dense = torch.randn(K, R, generator=g, device="cuda") / K ** 0.5
+        _QWEN_CACHE[key] = dense_to_grouped_nm(
+            dense.to(dtype), 1, 4, 8, gr=gr, sparse_dim=0)
+    return _QWEN_CACHE[key]
+
+
+@pytest.mark.parametrize("N", [17, 24, 32, 64, 130])
+@pytest.mark.parametrize("gr", [64, 128])
+@pytest.mark.parametrize("name", sorted(QWEN))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_qwen_shapes(dtype, name, gr, N):
+    """At qwen1.5-4b's widths: against the plain version, bitwise against
+    a second launch, and the cast / transposed epilogue bitwise against
+    ``.to(dtype).T`` of the f32 output."""
+    _require_cuda()
+    w = _qwen_weight(name, gr, dtype)
+    K, R = QWEN[name]
+    g = torch.Generator(device="cuda").manual_seed(N)
+    x = torch.randn(N, K, generator=g, device="cuda").to(dtype)
+    got = nmg_spmm.nmg_spmm(w, x.T)
+    assert got.dtype == torch.float32 and got.shape == (R, N)
+    torch.testing.assert_close(got, nmg_spmm.nmg_spmm_plain(w, x.T), **TOL)
+    assert torch.equal(got, nmg_spmm.nmg_spmm(w, x.T))
+    yt = nmg_spmm.nmg_spmm(w, x.T, out_dtype=dtype, transpose_out=True)
+    assert yt.dtype == dtype and yt.shape == (N, R) and yt.is_contiguous()
+    assert torch.equal(yt, got.to(dtype).T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_reads_contiguous_b(dtype):
+    """B as a contiguous [K, N] takes the generic strided gather."""
+    _require_cuda()
+    (w,) = _weights(768, 768, dtype)
+    b = torch.randn(768, 40, device="cuda").to(dtype)
+    torch.testing.assert_close(nmg_spmm.nmg_spmm(w, b),
+                               nmg_spmm.nmg_spmm_plain(w, b), **TOL)
+
+
+@pytest.mark.parametrize("K,n,m,kn", [(100, 2, 4, 60), (18, 1, 3, 6),
+                                      (27, 1, 3, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_val_rows_not_16_byte_aligned(dtype, K, n, m, kn):
+    """Rows of ``val`` of 60, 6 and 9 stored values (8-, 4- and 2-byte
+    copies in the bf16 body), each a single ragged slab."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(K)
+    w = dense_to_grouped_nm(torch.randn(K, 192, generator=g), n, m, 1,
+                            gr=64, sparse_dim=0).to("cuda", dtype)
+    assert w.val.shape[1] * w.val.shape[2] == kn
+    x = torch.randn(33, K, device="cuda").to(dtype)
+    torch.testing.assert_close(nmg_spmm.nmg_spmm(w, x.T),
+                               nmg_spmm.nmg_spmm_plain(w, x.T), **TOL)
+
+
+@pytest.mark.parametrize("K,n,m,g", [(1024, 1, 8, 4), (96, 2, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_staged_window_and_the_cols_outside_it(dtype, K, n, m, g):
+    """B = x.T with 16-byte aligned rows (the bf16 body's staged window):
+    at 1:8:4 a 64-value slab spans two 256-row chunks, so half of its
+    cols fall outside the window and are read from device memory; at
+    2:4:2 the slabs start inside a chunk."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(K)
+    w = dense_to_grouped_nm(torch.randn(K, 192, generator=gen), n, m, g,
+                            gr=64, sparse_dim=0).to("cuda", dtype)
+    x = torch.randn(40, K, device="cuda").to(dtype)
+    torch.testing.assert_close(nmg_spmm.nmg_spmm(w, x.T),
+                               nmg_spmm.nmg_spmm_plain(w, x.T), **TOL)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -228,6 +318,32 @@ def test_matmul_threshold_reads_strided_operands():
     got = fused_sparse_matmul.matmul_threshold(a, bt, 0.5)
     want = fused_sparse_matmul.matmul_threshold(a, b, 0.5)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shape", [(129, 71, 193), (1000, 770, 3000),
+                                   (1023, 767, 3071)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_threshold_off_tile_and_unaligned_rows(dtype, shape):
+    """M, N and K off every tile multiple (128 x 192 x 32 and 128 x 128 x
+    16), then operands whose rows are not 16 bytes apart nor 16-byte
+    aligned (column slices of wider tensors): against the plain version
+    as above, and bitwise against a second launch."""
+    _require_cuda()
+    M, K, N = shape
+    a, b = _mt_operands(M, K, N, dtype)
+    a_odd = torch.empty(M, K + 5, device="cuda", dtype=dtype)[:, 3:K + 3]
+    b_odd = torch.empty(K, N + 3, device="cuda", dtype=dtype)[:, 1:N + 1]
+    a_odd.copy_(a)
+    b_odd.copy_(b)
+    assert a_odd.stride(0) % 8 != 0 and b_odd.stride(0) % 8 != 0
+    for x, y in ((a, b), (a_odd, b_odd)):
+        val, mask = fused_sparse_matmul.matmul_threshold(x, y, 0.5)
+        pv, pm = fused_sparse_matmul.matmul_threshold_plain(x, y, 0.5)
+        diff = _check_mask(mask, pm, a, b, 0.5)
+        torch.testing.assert_close(val[~diff], pv[~diff], rtol=1e-5,
+                                   atol=1e-5)
+        again = fused_sparse_matmul.matmul_threshold(x, y, 0.5)
+        assert torch.equal(val, again[0]) and torch.equal(mask, again[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -153,6 +153,25 @@ def test_bf16_gemv_and_spmm_match_reference():
                                    tn=32)), **BF16_F32OUT_TOL)
 
 
+@pytest.mark.parametrize("fmt", FORMATS, ids=FMT_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_plain_cast_and_transpose_epilogue(dtype, fmt):
+    """``out_dtype`` / ``transpose_out`` are one cast of the f32 sum and
+    the [N, R] orientation: bitwise ``.to(dtype).T`` of the f32 output,
+    written contiguous."""
+    _, (port,) = _weights(fmt)
+    port = port.to(dtype=dtype)
+    _, tb = _b(fmt[5], 20)
+    tb = tb.to(dtype)
+    f32 = nmg_spmm.nmg_spmm(port, tb)
+    assert f32.dtype == torch.float32 and f32.shape == (fmt[4], 20)
+    got = nmg_spmm.nmg_spmm(port, tb, out_dtype=dtype, transpose_out=True)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, f32.to(dtype).T)
+    assert torch.equal(nmg_spmm.nmg_spmm(port, tb, transpose_out=True),
+                       f32.T)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_qkv_bitwise_equals_sequential(dtype):
     """One fused call over q/k/v equals three single calls bit for bit."""
