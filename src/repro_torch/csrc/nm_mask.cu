@@ -15,11 +15,14 @@
 // rate.  At the training path's shapes ([L * D, F] stacked weights, tens
 // of MB) the floor is HBM bandwidth.
 //
-// Design: one thread per (row, m-block): it loads the block's m values
-// into registers as f32 (exact for bf16), computes the O(m^2) rank and
-// writes m bytes.  Neighbouring threads own neighbouring blocks, so a
-// warp's loads cover 32 * m contiguous elements of a row.  Still simple:
-// no vector loads or shared-memory staging.
+// Design: one thread per (row, m-block).  For m <= 16 it loads the
+// block's m values into registers as f32 (exact for bf16), computes the
+// O(m^2) rank and writes m bytes.  For wider blocks (any m, as the
+// reference takes) the register array gives way to a loop over the block
+// that reads each comparand from memory (L1 serves the repeats); the same
+// rule, so the same bits.  Neighbouring threads own neighbouring blocks,
+// so a warp's loads cover 32 * m contiguous elements of a row.  Still
+// simple: no vector loads or shared-memory staging.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +65,39 @@ nm_mask_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
   }
 }
 
+// m > kMaxM: the rank of each element by a loop over its block, the
+// values re-read from memory
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+nm_mask_wide_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
+                    long long R, int K, int nb, int n, int m) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= R * nb) return;
+  const long long r = t / nb;
+  const int k0 = (int)(t % nb) * m;
+  const T* __restrict__ row = x + r * K;
+  uint8_t* __restrict__ dst = out + r * K;
+  const int end = min(m, K - k0);     // past it the block reads zeros
+  for (int i = 0; i < end; ++i) {
+    const float ai = fabsf(to_f32(row[k0 + i]));
+    int rank = 0;
+    for (int j = 0; j < m; ++j) {
+      const float aj = j < end ? fabsf(to_f32(row[k0 + j])) : 0.f;
+      rank += (aj > ai) || (aj == ai && j < i);
+    }
+    dst[k0 + i] = rank < n;
+  }
+}
+
+template <typename T>
+void launch(const T* x, uint8_t* o, long long R, int K, int nb, int n, int m,
+            unsigned grid, cudaStream_t s) {
+  if (m <= kMaxM)
+    nm_mask_kernel<T><<<grid, kThreads, 0, s>>>(x, o, R, K, nb, n, m);
+  else
+    nm_mask_wide_kernel<T><<<grid, kThreads, 0, s>>>(x, o, R, K, nb, n, m);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x is [R, K] row-major, out is uint8
@@ -70,7 +106,7 @@ nm_mask_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
 extern "C" int nm_mask_launch(int dtype, const void* x, void* out,
                               long long R, int K, int n, int m,
                               void* stream) {
-  if (m < 1 || m > kMaxM || n < 0 || n > m || R < 0 || K < 0) return -1;
+  if (m < 1 || n < 0 || n > m || R < 0 || K < 0) return -1;
   const int nb = (K + m - 1) / m;
   const long long total = R * nb;
   if (total == 0) return 0;
@@ -79,11 +115,11 @@ extern "C" int nm_mask_launch(int dtype, const void* x, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (dtype == 0)
-    nm_mask_kernel<float><<<(unsigned)grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), o, R, K, nb, n, m);
+    launch(static_cast<const float*>(x), o, R, K, nb, n, m, (unsigned)grid,
+           s);
   else if (dtype == 1)
-    nm_mask_kernel<__nv_bfloat16><<<(unsigned)grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), o, R, K, nb, n, m);
+    launch(static_cast<const __nv_bfloat16*>(x), o, R, K, nb, n, m,
+           (unsigned)grid, s);
   else
     return -1;
   return static_cast<int>(cudaGetLastError());

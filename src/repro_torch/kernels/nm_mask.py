@@ -18,10 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-__all__ = ["nm_mask", "nm_mask_plain", "MAX_M"]
-
-#: widest block the kernel takes (its register array)
-MAX_M = 16
+__all__ = ["nm_mask", "nm_mask_plain"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,9 +42,8 @@ def _launch(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
 
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"nm_mask takes float32/bfloat16, got {x.dtype}")
-    if not (1 <= m <= MAX_M and 0 <= n <= m):
-        raise ValueError(f"nm_mask takes 0 <= n <= m <= {MAX_M}, "
-                         f"got {n}:{m}")
+    if not (m >= 1 and 0 <= n <= m):
+        raise ValueError(f"nm_mask takes 0 <= n <= m, m >= 1, got {n}:{m}")
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     out = torch.empty(x2.shape, dtype=torch.bool, device=x.device)

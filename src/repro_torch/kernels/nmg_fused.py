@@ -11,7 +11,9 @@ alone, so the fused launch is bitwise equal to three single launches.
 
 Gated FFN: the gated MLP packs ``w1`` and the gate into one [D, 2F]
 weight.  :func:`nmg_ffn` launches ``csrc/nmg_ffn.cu``, which computes
-each u row (< F) and its partner v row at +F in the GEMV's own order, then
+each u row (< F) and its partner v row at +F in the GEMV's own order (the
+body :func:`~repro_torch.kernels.nmg_gemv.row_plan` gives the GEMV at the
+same gr, M, K and dtype), then
 in its epilogue casts both to ``out_dtype`` and writes ``act(u) * v``:
 the op order of the sequential path (projection with the decode epilogue,
 split, act, multiply), so fused and sequential agree bitwise for silu.
@@ -27,7 +29,7 @@ import torch.nn.functional as nnf
 
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels.nmg_gemv import MAX_M, _DTYPE_CODE, _pad_rows, \
-    check_operands, gemv_launch, nmg_gemv_plain
+    check_operands, chunk_geometry, gemv_launch, nmg_gemv_plain, row_plan
 
 __all__ = ["act_fn", "fusable_qkv", "fusable_ffn", "fused_segments",
            "nmg_qkv", "nmg_qkv_plain", "nmg_ffn", "nmg_ffn_plain"]
@@ -171,17 +173,19 @@ def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
     KN = w.val.shape[1] * w.val.shape[2]
     out = torch.empty((M, F) if transpose_out else (F, M),
                       dtype=out_dtype, device=b.device)
+    plan = row_plan(w.gr, M, KN, b.dtype)
     fn = _build.load("nmg_ffn").nmg_ffn_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_longlong] + [ctypes.c_int] * 5
+                          ctypes.c_longlong] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    err = fn(_DTYPE_CODE[b.dtype], int(out_dtype == torch.float32),
-             _ACT_CODE[act], w.val.data_ptr(), w.gather_plan().cols.data_ptr(),
+    err = fn(*plan.args(), _DTYPE_CODE[b.dtype],
+             int(out_dtype == torch.float32), _ACT_CODE[act],
+             w.val.data_ptr(), w.gather_plan().cols.data_ptr(),
              out.data_ptr(), F, b.data_ptr(), b.stride(0), b.stride(1), K,
-             KN, M, w.gr, int(transpose_out),
+             KN, M, w.gr, *chunk_geometry(w), int(transpose_out),
              torch.cuda.current_stream(b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nmg_ffn launch failed: error {err}")

@@ -10,25 +10,103 @@ is no fallback: a kernel that fails to build or launch raises.
 f32 accumulation, one cast to ``out_dtype`` (default f32) in the epilogue;
 ``transpose_out=True`` writes [M, R] directly, the orientation
 ``nmg_linear`` wants.
+
+The kernel has three bodies (``csrc/nmg_rows.cuh``); :func:`row_plan`
+picks one from (gr, M, KN, dtype) alone, so the GEMV, the fused QKV launch
+and the fused FFN (``nmg_fused.py``) run the same body at the same gr,
+which keeps their bitwise contracts at every gr:
+
+  ``tc``       bf16 with gr a multiple of 16 (the serving format): a block
+               per 16/32/64-row tile of one fiber group and K part, the
+               group's B gathered once into shared memory, ``val``
+               streamed by 16-byte ``cp.async``, ``mma.sync`` products,
+               the K parts of a tile one thread-block cluster;
+  ``rows``     f32 with gr a multiple of 4: four rows of one group a block;
+  ``general``  any other gr: each row reads its own group's plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layouts import GroupedNMTensor
 
-__all__ = ["nmg_gemv", "nmg_gemv_plain", "gemv_launch", "MAX_M"]
+__all__ = ["nmg_gemv", "nmg_gemv_plain", "gemv_launch", "MAX_M",
+           "RowPlan", "row_plan", "chunk_geometry"]
 
 #: widest right operand the kernel takes (its register tile)
 MAX_M = 16
-#: output rows per CUDA block; gr must be a multiple
-_ROWS_PER_BLOCK = 4
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: body codes of the C interfaces of ``csrc/nmg_gemv.cu`` / ``nmg_ffn.cu``
+_BODY_CODE = {"rows": 0, "general": 1, "tc": 2}
+#: stored values per slab of the ``tc`` body, and its cluster limit
+_SLAB = 64
+_MAX_PARTS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """A decode body and its shape: ``rows`` output rows per block (per
+    row set), ``nt8`` n8 tiles of B columns, ``per`` slabs of 64 stored
+    values per K part and ``parts`` K parts (the blocks of one cluster);
+    the last three only for ``tc``."""
+
+    body: str
+    rows: int
+    nt8: int = 0
+    per: int = 0
+    parts: int = 1
+
+    def grid(self, R_pad: int, nseg: int = 1, N: int = 1) -> tuple:
+        """The launch grid for ``R_pad`` rows (the longest segment), ``nseg``
+        segments and ``N`` columns of B (taken 16 at a time)."""
+        return (math.ceil(R_pad / self.rows) * self.parts, nseg,
+                math.ceil(N / MAX_M))
+
+    def args(self) -> tuple:
+        return (_BODY_CODE[self.body], self.rows, self.nt8, self.per,
+                self.parts)
+
+
+def row_plan(gr: int, M: int, KN: int, dtype) -> RowPlan:
+    """The decode body for weights of row group ``gr`` with ``KN`` stored
+    values a row, against ``M`` columns of B (more than 16 are taken 16 at
+    a time), in ``dtype``.  A function of these four alone, never of the
+    row count: the GEMV, the fused QKV launch and the FFN get the same
+    body, and so the same per-row summation order, at the same shape,
+    which keeps their bitwise contracts at every gr.
+
+    bf16 at gr a multiple of 16 takes ``tc``: 64-, 32- or 16-row tiles
+    (the largest that divides gr, so a tile never spans two groups), one
+    or two n8 tiles for M, and K cut into up to eight parts (one cluster)
+    of about two slabs each, so that even bert-base-sten's few fiber
+    groups put blocks on most SMs and a part's ring and gathered B stay
+    small enough for several blocks an SM; f32 at gr a multiple of 4
+    takes ``rows``; any other gr takes ``general``."""
+    if gr < 1 or M < 1 or KN < 1:
+        raise ValueError(f"no decode body for gr={gr}, M={M}, KN={KN}")
+    if dtype == torch.bfloat16 and gr % 16 == 0:
+        nslab = math.ceil(KN / _SLAB)
+        per = math.ceil(nslab / min(_MAX_PARTS, math.ceil(nslab / 2)))
+        return RowPlan("tc", next(r for r in (64, 32, 16) if gr % r == 0),
+                       nt8=1 if min(M, MAX_M) <= 8 else 2, per=per,
+                       parts=math.ceil(nslab / per))
+    if dtype == torch.float32 and gr % 4 == 0:
+        return RowPlan("rows", 4)
+    return RowPlan("general", 4)
+
+
+def chunk_geometry(w: GroupedNMTensor) -> tuple:
+    """(cs, cx): a chunk's cs stored values of a row cover cx consecutive
+    rows of B (the K axis), for every chunk and fiber group."""
+    cg = math.comb(w.m, w.n) * w.g
+    return w.n * cg, w.m * cg
 
 
 def _pad_rows(b: torch.Tensor, K_pad: int) -> torch.Tensor:
@@ -80,18 +158,17 @@ def check_operands(ws, b: torch.Tensor, *, max_m=None) -> None:
         K = w.dense_shape[w.sparse_dim % 2]
         if K != b.shape[0]:
             raise ValueError(f"B has {b.shape[0]} rows, weight K is {K}")
-        if w.gr % _ROWS_PER_BLOCK:
-            raise ValueError(f"gr={w.gr} is not a multiple of "
-                             f"{_ROWS_PER_BLOCK}")
 
 
 def gemv_launch(ws, b: torch.Tensor, *, out_dtype=None,
-                transpose_out: bool = False) -> tuple:
+                transpose_out: bool = False, max_m=MAX_M) -> tuple:
     """One CUDA launch over up to three weights sharing B (one segment
-    each); returns one output per weight.  Callers count the launch."""
+    each); returns one output per weight.  B's columns are taken 16 at a
+    time, so ``max_m=None`` lets the SpMM route any width through the same
+    bodies.  Callers count the launch."""
     from repro_torch.kernels import _build
 
-    check_operands(ws, b, max_m=MAX_M)
+    check_operands(ws, b, max_m=max_m)
     if not 1 <= len(ws) <= 3:
         raise ValueError(f"the GEMV kernel takes 1..3 segments, got {len(ws)}")
     w0 = ws[0]
@@ -105,6 +182,7 @@ def gemv_launch(ws, b: torch.Tensor, *, out_dtype=None,
         raise ValueError(f"output dtype {out_dtype} not taken for "
                          f"{b.dtype} inputs")
     K, M = b.shape
+    plan = row_plan(w0.gr, M, KN, b.dtype)
     outs, segs = [], []
     for w in ws:
         R = w.canonical_rows()
@@ -119,16 +197,17 @@ def gemv_launch(ws, b: torch.Tensor, *, out_dtype=None,
     fn = lib.nmg_gemv_launch
     if fn.argtypes is None:
         seg_t = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-        fn.argtypes = ([ctypes.c_int] * 3 + seg_t * 3
+        fn.argtypes = ([ctypes.c_int] * 8 + seg_t * 3
                        + [ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_longlong] + [ctypes.c_int] * 5
+                          ctypes.c_longlong] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     flat = [v for s in segs for v in s]
     stream = torch.cuda.current_stream(b.device).cuda_stream
-    err = fn(_DTYPE_CODE[b.dtype], int(out_dtype == torch.float32), len(ws),
+    err = fn(*plan.args(), _DTYPE_CODE[b.dtype],
+             int(out_dtype == torch.float32), len(ws),
              *flat, b.data_ptr(), b.stride(0), b.stride(1), K, KN, M, w0.gr,
-             int(transpose_out), stream)
+             *chunk_geometry(w0), int(transpose_out), stream)
     if err != 0:
         raise RuntimeError(f"nmg_gemv launch failed: error {err}")
     return tuple(outs)

@@ -12,6 +12,20 @@ f32 accumulation; as :func:`~repro_torch.kernels.nmg_gemv.nmg_gemv` does,
 ``out_dtype`` casts the f32 sum once (round to nearest even, as
 ``.to(dtype)``) and ``transpose_out=True`` writes [N, R], the orientation
 ``nmg_linear``'s prefill wants.  The default stays f32 [R, N].
+
+Any gr.  The SpMM kernel's blocks own 64 rows (128 where gr allows) that
+share one fiber group's plan, so it takes gr a multiple of 64.  Weights
+of any other gr (the reference takes every gr; its own docstring calls
+gr=1 "still correct") go through the decode GEMV kernel instead, run over
+16-column chunks of B as a third grid dimension in one launch, writing
+the same f32 [R, N] or cast [N, R] output.  That route was chosen over
+giving each 16-row tile of the tensor-core body its own group's gather
+because it serves every gr with code that already exists and is held to
+the reference: its ``tc`` body (bf16, gr a multiple of 16, as at the
+gr16 of the CPU parity models) gathers each group's B once per 16-column
+chunk and runs the same ``mma.sync`` products, and its ``general`` body
+takes the rest.  The price is one B gather per chunk where the SpMM
+body stages B windows for up to 64 columns at once.
 """
 
 from __future__ import annotations
@@ -23,12 +37,12 @@ import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels.nmg_gemv import _DTYPE_CODE, _pad_rows, \
-    check_operands
+    check_operands, gemv_launch
 from repro_torch.tune import routing
 
 __all__ = ["nmg_spmm", "nmg_spmm_plain"]
 
-#: output rows per CUDA block; gr must be a multiple
+#: output rows per block of the SpMM kernel; other gr take the GEMV route
 _ROWS_PER_BLOCK = 64
 
 
@@ -72,10 +86,12 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
                               transpose_out=transpose_out)
     from repro_torch.kernels import _build
 
-    check_operands([a], b)
     if a.gr % _ROWS_PER_BLOCK:
-        raise ValueError(f"the SpMM kernel takes gr a multiple of "
-                         f"{_ROWS_PER_BLOCK}, got {a.gr}")
+        (out,) = gemv_launch([a], b, out_dtype=out_dtype,
+                             transpose_out=transpose_out, max_m=None)
+        nmg_spmm.launches += 1
+        return out
+    check_operands([a], b)
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in (torch.float32, b.dtype):
         raise ValueError(f"output dtype {out_dtype} not taken for "

@@ -26,7 +26,11 @@ The fused gated FFN against the GEMV followed by PyTorch's own
 activation and multiply: bitwise for silu (the kernel's epilogue replays
 PyTorch's CUDA silu); for gelu's tanh approximation within one rounding
 step of the output type (``tanhf`` and the polynomial may round
-differently from PyTorch's kernel)."""
+differently from PyTorch's kernel).  The decode bodies (``tc`` for bf16
+at gr a multiple of 16, ``rows`` for f32 at gr a multiple of 4,
+``general`` otherwise) keep these tolerances and contracts at every gr,
+and the SpMM takes every gr (gr not a multiple of 64 through the GEMV
+kernel over 16-column chunks)."""
 
 import pytest
 import torch
@@ -34,6 +38,7 @@ import torch
 from repro_torch.core.nmg import dense_to_grouped_nm
 from repro_torch.kernels import fused_sparse_matmul, nm_mask, nmg_fused, \
     nmg_gemv, nmg_spmm
+from repro_torch.kernels.nmg_gemv import row_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -48,10 +53,10 @@ def _require_cuda():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _weights(K, R, dtype, count=1, seed=0):
+def _weights(K, R, dtype, count=1, seed=0, gr=64):
     g = torch.Generator().manual_seed(seed)
     return [dense_to_grouped_nm(torch.randn(K, R, generator=g), 1, 4, 8,
-                                gr=64, sparse_dim=0).to("cuda", dtype)
+                                gr=gr, sparse_dim=0).to("cuda", dtype)
             for _ in range(count)]
 
 
@@ -189,11 +194,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                          dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         nmg_gemv.nmg_gemv(w, torch.randn(768, 4, device="cuda"))  # f32 B
+    # gr16 (a multiple of 16, not of 64) is computed: test_spmm_any_gr
     w16 = dense_to_grouped_nm(torch.randn(768, 64), 1, 4, 8, gr=16,
                               sparse_dim=0).to("cuda", torch.bfloat16)
-    with pytest.raises(ValueError):
-        nmg_spmm.nmg_spmm(w16, torch.randn(768, 32, device="cuda",
-                                           dtype=torch.bfloat16))
+    b = torch.randn(768, 32, device="cuda", dtype=torch.bfloat16)
+    torch.testing.assert_close(nmg_spmm.nmg_spmm(w16, b),
+                               nmg_spmm.nmg_spmm_plain(w16, b), **TOL)
 
 
 def _packed(K, F, dtype, seed=0):
@@ -365,8 +371,11 @@ def test_matmul_threshold_backward_on_the_card(dtype):
 def test_training_kernel_wrappers_reject_what_they_do_not_take():
     _require_cuda()
     x = torch.randn(8, 32, device="cuda")
+    # m = 17 is computed: test_nm_mask_wide_blocks
+    assert torch.equal(nm_mask.nm_mask(x, 2, 17),
+                       nm_mask.nm_mask_plain(x, 2, 17))
     with pytest.raises(ValueError):
-        nm_mask.nm_mask(x, 2, 17)
+        nm_mask.nm_mask(x, 3, 2)
     with pytest.raises(ValueError):
         nm_mask.nm_mask(x.half(), 2, 4)
     with pytest.raises(ValueError):
@@ -377,3 +386,158 @@ def test_training_kernel_wrappers_reject_what_they_do_not_take():
                                                             device="cuda"), 0.5)
     with pytest.raises(ValueError):
         fused_sparse_matmul.matmul_threshold(x, torch.randn(32, 4), 0.5)
+
+
+# ---------------------------------------------------------------------------
+# every gr and every m the reference takes
+# ---------------------------------------------------------------------------
+
+#: tc body (16, 32, 64, 128), general body (1, 3, 24 for bf16; all of
+#: 1, 3 in f32), rows body (f32 at 16..128 and 24)
+ANY_GR = [1, 3, 16, 24, 32, 64, 128]
+
+
+@pytest.mark.parametrize("M", [1, 4, 9, 16])
+@pytest.mark.parametrize("gr", ANY_GR)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_bodies_at_any_gr(dtype, gr, M):
+    """The GEMV, fused QKV and FFN at every gr: against the plain versions,
+    fused QKV bitwise three GEMV launches, the FFN bitwise the GEMV
+    followed by silu and multiply, and each bitwise on a relaunch.  K = 520
+    leaves a ragged last slab; F = 384 is a multiple of every gr here."""
+    _require_cuda()
+    K, F = 520, 384
+    (w,) = _weights(K, 2 * F, dtype, gr=gr, seed=gr)
+    qkv = _weights(K, 200, dtype, count=3, gr=gr, seed=gr + 1)
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+    KN = w.val.shape[1] * w.val.shape[2]
+    body = row_plan(gr, M, KN, dtype).body
+    assert body == ("tc" if dtype == torch.bfloat16 and gr % 16 == 0 else
+                    "rows" if dtype == torch.float32 and gr % 4 == 0 else
+                    "general")
+    for t in (False, True):
+        torch.testing.assert_close(
+            nmg_gemv.nmg_gemv(w, x.T, transpose_out=t),
+            nmg_gemv.nmg_gemv_plain(w, x.T, transpose_out=t), **TOL)
+        torch.testing.assert_close(
+            nmg_fused.nmg_ffn(w, x.T, transpose_out=t),
+            nmg_fused.nmg_ffn_plain(w, x.T, transpose_out=t), **TOL)
+    for got, want in zip(nmg_fused.nmg_qkv(qkv, x.T, transpose_out=True),
+                         nmg_fused.nmg_qkv_plain(qkv, x.T,
+                                                 transpose_out=True)):
+        torch.testing.assert_close(got, want, **TOL)
+    y = nmg_gemv.nmg_gemv(w, x.T, out_dtype=dtype, transpose_out=True)
+    assert torch.equal(y, nmg_gemv.nmg_gemv(w, x.T, out_dtype=dtype,
+                                            transpose_out=True))
+    fused = nmg_fused.nmg_qkv(qkv, x.T, out_dtype=dtype, transpose_out=True)
+    for f, wq in zip(fused, qkv):
+        assert torch.equal(f, nmg_gemv.nmg_gemv(wq, x.T, out_dtype=dtype,
+                                                transpose_out=True))
+    again = nmg_fused.nmg_qkv(qkv, x.T, out_dtype=dtype, transpose_out=True)
+    assert all(torch.equal(a, f) for a, f in zip(again, fused))
+    ffn = nmg_fused.nmg_ffn(w, x.T, out_dtype=dtype, transpose_out=True)
+    u, v = y.chunk(2, dim=-1)
+    assert torch.equal(ffn, torch.nn.functional.silu(u) * v)
+    assert torch.equal(ffn, nmg_fused.nmg_ffn(w, x.T, out_dtype=dtype,
+                                              transpose_out=True))
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16])
+@pytest.mark.parametrize("gr", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", ["wi", "wo", "wq"])
+def test_tc_body_at_qwen_shapes(name, gr, M):
+    """The bf16 ``tc`` body at qwen1.5-4b's widths (the packed ``wi`` also
+    through the FFN): against the plain versions, the bitwise contracts
+    and a relaunch."""
+    _require_cuda()
+    bf16 = torch.bfloat16
+    w = _qwen_weight(name, gr, bf16)
+    K, R = QWEN[name]
+    assert row_plan(gr, M, w.val.shape[1] * w.val.shape[2], bf16).body == "tc"
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn(M, K, generator=g, device="cuda").to(bf16)
+    torch.testing.assert_close(
+        nmg_gemv.nmg_gemv(w, x.T, transpose_out=True),
+        nmg_gemv.nmg_gemv_plain(w, x.T, transpose_out=True), **TOL)
+    y = nmg_gemv.nmg_gemv(w, x.T, out_dtype=bf16, transpose_out=True)
+    assert torch.equal(y, nmg_gemv.nmg_gemv(w, x.T, out_dtype=bf16,
+                                            transpose_out=True))
+    if name == "wq":
+        qkv = [w, _qwen_weight("wq", gr, torch.float32).to(dtype=bf16), w]
+        fused = nmg_fused.nmg_qkv(qkv, x.T, out_dtype=bf16,
+                                  transpose_out=True)
+        for f, wq in zip(fused, qkv):
+            assert torch.equal(f, nmg_gemv.nmg_gemv(
+                wq, x.T, out_dtype=bf16, transpose_out=True))
+    if name == "wi":
+        torch.testing.assert_close(
+            nmg_fused.nmg_ffn(w, x.T, transpose_out=True),
+            nmg_fused.nmg_ffn_plain(w, x.T, transpose_out=True), **TOL)
+        ffn = nmg_fused.nmg_ffn(w, x.T, out_dtype=bf16, transpose_out=True)
+        u, v = y.chunk(2, dim=-1)
+        assert torch.equal(ffn, torch.nn.functional.silu(u) * v)
+        assert torch.equal(ffn, nmg_fused.nmg_ffn(w, x.T, out_dtype=bf16,
+                                                  transpose_out=True))
+
+
+@pytest.mark.parametrize("N", [17, 32, 40])
+@pytest.mark.parametrize("gr", [1, 3, 16, 24, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_any_gr(dtype, gr, N):
+    """gr not a multiple of 64 goes through the GEMV kernel over 16-column
+    chunks: against the plain version, bitwise on a relaunch, and the cast
+    [N, R] epilogue bitwise ``.to(dtype).T`` of the f32 output."""
+    _require_cuda()
+    (w,) = _weights(768, 768, dtype, gr=gr, seed=gr)
+    g = torch.Generator(device="cuda").manual_seed(N)
+    x = torch.randn(N, 768, generator=g, device="cuda").to(dtype)
+    before = nmg_spmm.nmg_spmm.launches
+    got = nmg_spmm.nmg_spmm(w, x.T)
+    assert nmg_spmm.nmg_spmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (768, N)
+    torch.testing.assert_close(got, nmg_spmm.nmg_spmm_plain(w, x.T), **TOL)
+    assert torch.equal(got, nmg_spmm.nmg_spmm(w, x.T))
+    yt = nmg_spmm.nmg_spmm(w, x.T, out_dtype=dtype, transpose_out=True)
+    assert yt.shape == (N, 768) and yt.is_contiguous()
+    assert torch.equal(yt, got.to(dtype).T)
+
+
+@pytest.mark.parametrize("n,m", [(2, 17), (5, 20), (16, 32), (1, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_wide_blocks(dtype, n, m):
+    """m above the register array: bitwise against the plain version on
+    the stacked bert-base-sten ``mlp.wo`` (ragged where m does not divide
+    768) and on small integers full of ties."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(12 * 3072, 768, generator=g, device="cuda").to(dtype)
+    assert torch.equal(nm_mask.nm_mask(x, n, m),
+                       nm_mask.nm_mask_plain(x, n, m))
+    t = torch.randint(-2, 3, (3, 16, 131), generator=g,
+                      device="cuda").to(dtype)
+    t[1, 2, -7:] = 0
+    assert torch.equal(nm_mask.nm_mask(t, n, m),
+                       nm_mask.nm_mask_plain(t, n, m))
+
+
+def test_nmg_linear_prefill_at_gr16_on_the_card():
+    """The path the gr16 refusal broke: a prefill-shaped x through
+    ``nmg_linear`` with a gr16 weight, against the plain version."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+
+    (w,) = _weights(768, 768, torch.bfloat16, gr=16)
+    x = torch.randn(2, 20, 768, device="cuda").to(torch.bfloat16)
+    ops.reset_kernel_counters()
+    y = ops.nmg_linear(x, w)
+    assert ops.kernel_counters()[("nmg_spmm", "cuda")] == 1
+    want = nmg_spmm.nmg_spmm_plain(w, x.reshape(-1, 768).T,
+                                   out_dtype=torch.bfloat16,
+                                   transpose_out=True)
+    # the same body and cast as the direct call, so the same bits
+    assert torch.equal(y.reshape(-1, 768), nmg_spmm.nmg_spmm(
+        w, x.reshape(-1, 768).T, out_dtype=torch.bfloat16,
+        transpose_out=True))
+    torch.testing.assert_close(y.reshape(-1, 768).float(), want.float(),
+                               rtol=2 ** -7, atol=1e-3)

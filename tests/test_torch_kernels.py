@@ -38,6 +38,14 @@ BF16_F32OUT_TOL = dict(rtol=1e-4, atol=1e-4)
 # and a 2:4 format with padded R
 FORMATS = [(1, 4, 8, 16, 32, 128), (1, 4, 8, 16, 48, 64), (2, 4, 2, 4, 10, 96)]
 FMT_IDS = ["{}:{}:{}gr{}_{}x{}".format(*f) for f in FORMATS]
+# every gr the reference takes, beyond the CUDA tiles: the paper's
+# per-fiber gr 1, an odd gr 3 with padded R, and gr 24 (not a multiple of
+# the 16-row tile); R = 48 is also a packed gated weight with F = 24
+ANY_GR = [(1, 4, 8, 1, 48, 128), (1, 4, 8, 3, 46, 128),
+          (1, 4, 8, 24, 48, 128)]
+ANY_GR_IDS = ["gr{}_{}x{}".format(*f[3:]) for f in ANY_GR]
+# packed gated weights [128, 48] (F = 24, no padded rows) at those gr
+FFN_ANY_GR = [(1, 4, 8, gr, 48, 128) for gr in (1, 3, 24)]
 # a packed gated-MLP weight [K, 2F] = [128, 64]: F = 32 = 2 fiber groups
 FFN_FMT = (1, 4, 8, 16, 64, 128)
 
@@ -63,9 +71,11 @@ def _b(K, M, dtype=np.float32, seed=1):
 
 @pytest.mark.pallas_interpret
 @pytest.mark.parametrize("fmt,M", [(FORMATS[0], 1), (FORMATS[0], 16),
-                                   (FORMATS[2], 3)],
+                                   (FORMATS[2], 3), (ANY_GR[0], 4),
+                                   (ANY_GR[1], 5), (ANY_GR[2], 16)],
                          ids=[f"{FMT_IDS[0]}-1", f"{FMT_IDS[0]}-16",
-                              f"{FMT_IDS[2]}-3"])
+                              f"{FMT_IDS[2]}-3", f"{ANY_GR_IDS[0]}-4",
+                              f"{ANY_GR_IDS[1]}-5", f"{ANY_GR_IDS[2]}-16"])
 def test_gemv_plain_matches_reference(fmt, M):
     (ref,), (port,) = _weights(fmt)
     jb, tb = _b(fmt[5], M)
@@ -84,9 +94,14 @@ def test_gemv_plain_matches_reference(fmt, M):
 @pytest.mark.pallas_interpret
 @pytest.mark.parametrize("fmt,stream", [(FORMATS[1], True),
                                         (FORMATS[1], False),
-                                        (FORMATS[2], True)],
+                                        (FORMATS[2], True),
+                                        (ANY_GR[0], True), (ANY_GR[1], True),
+                                        (ANY_GR[2], False)],
                          ids=[f"{FMT_IDS[1]}-stream", f"{FMT_IDS[1]}-grid",
-                              f"{FMT_IDS[2]}-stream"])
+                              f"{FMT_IDS[2]}-stream",
+                              f"{ANY_GR_IDS[0]}-stream",
+                              f"{ANY_GR_IDS[1]}-stream",
+                              f"{ANY_GR_IDS[2]}-grid"])
 def test_spmm_plain_matches_reference(fmt, stream):
     N = 17
     (ref,), (port,) = _weights(fmt)
@@ -322,3 +337,87 @@ def test_ffn_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="not CUDA"):
         nmg_fused.nmg_ffn(port, torch.empty((128, 4), device="meta"))
     assert nmg_fused.nmg_ffn.launches == before
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("fmt", ANY_GR, ids=ANY_GR_IDS)
+def test_qkv_plain_matches_reference_at_any_gr(fmt):
+    """The fused QKV's plain version at gr 1, 3 and 24 against the
+    reference's Pallas launch (interpret mode) and its XLA twin, and
+    bitwise against three single GEMV calls."""
+    M = 5
+    refs, ports = _weights(fmt, count=3)
+    jb, tb = _b(fmt[5], M)
+    got = nmg_fused.nmg_qkv(ports, tb, transpose_out=True)
+    want_p = nmg_qkv_pallas(tuple(refs), jb, interpret=True)
+    want_x = jops.nmg_qkv_xla(tuple(refs), jb, transpose_out=True)
+    for g_, wp, wx, port in zip(got, want_p, want_x, ports):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(wp).T, **F32_TOL)
+        np.testing.assert_allclose(g_.numpy(), np.asarray(wx), **F32_TOL)
+        np.testing.assert_allclose(
+            g_.numpy(), nmg_gemv.nmg_gemv(port, tb, transpose_out=True),
+            **F32_TOL)
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("fmt", FFN_ANY_GR, ids=["gr1", "gr3", "gr24"])
+def test_ffn_plain_matches_reference_at_any_gr(fmt, M):
+    """The fused gated FFN's plain version at gr 1, 3 and 24 (the packed
+    [128, 48] weight, F = 24 a multiple of each gr) against the
+    reference's Pallas kernel (interpret mode) and its XLA twin."""
+    (ref,), (port,) = _weights(fmt)
+    jb, tb = _b(fmt[5], M)
+    assert nmg_fused.fusable_ffn(port, 24)
+    got = nmg_fused.nmg_ffn(port, tb)
+    assert got.shape == (24, M)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        nmg_ffn_pallas(ref, jb, interpret=True)), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jops.nmg_ffn_xla(ref, jb)), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gr", [1, 2, 3, 4, 8, 12, 16, 24, 32, 48, 64, 96,
+                                128, 130])
+def test_row_plan_takes_every_gr(gr, dtype):
+    """The CUDA decode bodies' plan: every gr >= 1 gets a body, chosen by
+    (gr, M, KN, dtype) alone, so the GEMV, the fused QKV launch and the FFN
+    (which call this one function) run the same body at the same gr; the
+    ``tc`` body's tile never spans two fiber groups, its K parts are one
+    cluster (at most eight) and cover K; the grid covers every row."""
+    assert nmg_fused.row_plan is nmg_gemv.row_plan
+    for M in (1, 4, 8, 9, 16, 40):
+        for KN in (1, 60, 192, 640, 1728, 6144):
+            p = nmg_gemv.row_plan(gr, M, KN, dtype)
+            assert p == nmg_gemv.row_plan(gr, M, KN, dtype)
+            want = ("tc" if dtype == torch.bfloat16 and gr % 16 == 0 else
+                    "rows" if dtype == torch.float32 and gr % 4 == 0 else
+                    "general")
+            assert p.body == want
+            if p.body == "tc":
+                assert gr % p.rows == 0 and p.rows in (16, 32, 64)
+                assert p.nt8 == (1 if min(M, 16) <= 8 else 2)
+                nslab = -(-KN // 64)
+                assert 1 <= p.parts <= 8 and -(-nslab // p.per) == p.parts
+                assert (p.parts - 1) * p.per < nslab <= p.parts * p.per
+            else:
+                assert p.rows == 4 and p.parts == 1
+            for R in (gr, 3 * gr + 1, 2560):
+                gx, gy, gz = p.grid(R, nseg=3, N=M)
+                assert gx * p.rows >= R * p.parts and (gy, gz) == (
+                    3, -(-M // 16))
+    with pytest.raises(ValueError):
+        nmg_gemv.row_plan(0, 4, 64, dtype)
+
+
+def test_chunk_geometry():
+    """cs stored values of a row lie in cx consecutive rows of B: the
+    window the ``tc`` body stages for each K part."""
+    _, (port,) = _weights(FORMATS[0])
+    cs, cx = nmg_gemv.chunk_geometry(port)
+    assert (cs, cx) == (32, 128)
+    cols = port.gather_plan().cols.reshape(port.gather_plan().cols.shape[0],
+                                           -1, cs)
+    lo = torch.arange(cols.shape[1])[None, :, None] * cx
+    assert bool(((cols >= lo) & (cols < lo + cx)).all())

@@ -41,7 +41,9 @@ from repro_torch.kernels import fused_sparse_matmul, nm_mask
 from repro_torch.kernels import ops as tops
 from repro_torch.models.common import mm
 
-NM = [(1, 4), (2, 4), (2, 8), (3, 6), (1, 10)]
+# the last two are wider than the CUDA kernel's register array (m > 16),
+# which takes them through its loop
+NM = [(1, 4), (2, 4), (2, 8), (3, 6), (1, 10), (5, 20), (16, 32)]
 SHAPES = [(32, 64), (7, 130), (256, 520)]
 MT_SHAPES = [(32, 48, 40), (64, 64, 64), (33, 70, 9)]
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
