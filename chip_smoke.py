@@ -8,7 +8,9 @@
    per source, started together).
 2. Kernel phase, bf16 at the shapes of both served models (bert-base-sten
    and qwen1.5-4b, 1:4:8 gr64) and of the training path (``nm_mask`` 2:4
-   on the stacked ``mlp.wo`` / ``attn.wo``, bitwise; ``matmul_threshold``
+   on the stacked and per-layer ``mlp.wo`` / ``attn.wo``, 16:32, 5:20,
+   special values and a misaligned view, bitwise, each naming the body it
+   took; ``matmul_threshold``
    at 1024 tokens x 768 x 3072): each kernel's wrapper against its plain
    PyTorch version on the same inputs (fused QKV bitwise against three
    GEMV launches, the fused gated FFN bitwise against the GEMV followed by
@@ -26,9 +28,7 @@
    a. Every gr the reference takes, at bert-base-sten's ``wi`` / ``wq``:
       the GEMV, fused QKV, FFN and SpMM at gr 1, 16 and 24 (the ``tc``
       decode body at 16, the ``general`` one at 1 and 24; the SpMM through
-      the GEMV kernel over 16-column chunks) with the same checks, and
-      ``nm_mask`` at m = 32 and 20 (its loop past the register array),
-      bitwise.
+      the GEMV kernel over 16-column chunks) with the same checks.
 3. Main paths, each with the launch counts zeroed right before its run
    and read right after:
    a. full-width bert-base-sten (12 layers, d_model 768, d_ff 3072, vocab
@@ -557,13 +557,57 @@ TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 THRESHOLD = 0.5
 
 
+def nm_mask_resources(x, n: int, m: int) -> dict:
+    """The ``nm_mask`` body, grid and threads a launch on x takes (and the
+    staged body's network slots), its entry's registers a thread (ptxas)
+    and shared memory a block (static and dynamic)."""
+    import torch
+
+    from repro_torch.kernels import nm_mask as nmk
+
+    plan = nmk.nm_mask_plan(x, n, m)
+    t = "f" if x.dtype == torch.float32 else "13__nv_bfloat16"
+    entry = {"vector": f"nm_mask_vec_kernelI{t}Li{m}E",
+             "staged": f"nm_mask_staged_kernelI{t}Li{plan['slots']}E",
+             "long": f"nm_mask_long_kernelI{t}E"}[plan["body"]]
+    res = _ptxas_entry("nm_mask", entry)
+    return {"body": plan["body"], "grid": plan["grid"],
+            "threads": plan["threads"], "slots": plan["slots"],
+            "registers": res["registers"],
+            "smem_bytes": res["static_smem_bytes"] + plan["smem_bytes"]}
+
+
+#: magnitudes at the edges of nm_mask's rank rule
+SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 2e-39, -2e-39, 1.1754943508222875e-38,
+           float("inf"), float("-inf"), float("nan"), 1.0, -0.5, 2.0)
+
+
+def special_values(shape):
+    """bf16 values drawn from SPECIAL, mostly zeros and subnormals, so that
+    blocks hold ties among them."""
+    import torch
+
+    g = torch.Generator().manual_seed(17)
+    p = torch.ones(len(SPECIAL))
+    p[:6] = 4.0
+    idx = torch.multinomial(p, shape[0] * shape[1], replacement=True,
+                            generator=g)
+    return torch.tensor(SPECIAL)[idx].reshape(shape).to("cuda",
+                                                        torch.bfloat16)
+
+
 def train_kernel_phase(gen) -> list:
     """The training kernels at run (b)'s shapes, bf16, L2 flushed.
     ``nm_mask`` 2:4 on the stacked leaves run (b) masks along their last
-    axis ([12 * 3072, 768] ``mlp.wo``, [12 * 768, 768] ``attn.wo``),
-    bitwise against its plain version; no single PyTorch call computes
-    the n:m mask, so its library time is None (``topk`` + ``scatter_`` is
-    timed beside it for reference only).  ``matmul_threshold`` at
+    axis at its recomputes ([12 * 3072, 768] ``mlp.wo``, [12 * 768, 768]
+    ``attn.wo``) and on one layer of each (the per-layer build), 16:32 and
+    5:20 on the stacked ``mlp.wo``, 2:4 on special values (subnormals,
+    NaN, +-0, +-inf) and on the stacked ``mlp.wo`` one element into its
+    storage (a misaligned view), each bitwise against its plain version
+    and reporting the body it took (``vector``, ``staged`` or ``long``);
+    no single PyTorch call computes the n:m mask, so its library time is
+    None (``topk`` + ``scatter_`` is timed beside the 2:4 cases for
+    reference only).  ``matmul_threshold`` at
     ``mlp.wi``'s shape (1024 tokens x 768 x 3072, t = 0.5, unit-RMS
     activations against the fan-in init): values within 1e-5 of the
     largest, the mask equal except where |y| lies within 1e-5 of t; the
@@ -577,12 +621,32 @@ def train_kernel_phase(gen) -> list:
     bf16 = torch.bfloat16
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     cases = []
-    for wname, (R, K) in (("mlp.wo", (12 * 3072, 768)),
-                          ("attn.wo", (12 * 768, 768))):
-        x = (torch.randn(R, K, generator=gen, device="cuda")
-             / math.sqrt(R // 12)).to(bf16)
-        assert torch.equal(nmk.nm_mask(x, 2, 4), nmk.nm_mask_plain(x, 2, 4)), \
-            f"nm_mask differs from its plain version on {wname}"
+
+    def nm_case(wname, x, n, m, **extra):
+        """``nm_mask`` on x bitwise against its plain version, the body it
+        took, timed; each element read once, its mask byte written once,
+        m compares and adds per element on the CUDA cores."""
+        assert torch.equal(nmk.nm_mask(x, n, m), nmk.nm_mask_plain(x, n, m)), \
+            f"nm_mask {n}:{m} differs from its plain version on {wname}"
+        b, by = bound(x.numel() * (x.element_size() + 1), 2 * m * x.numel(),
+                      F32_FLOPS)
+        cases.append(dict(
+            kernel="nm_mask", model="bert-train", weight=wname,
+            K=x.shape[-1], N=x.numel() // x.shape[-1], M=0, n_m=f"{n}:{m}",
+            max_abs_err=0.0, tol=0.0, bitwise=True,
+            **nm_mask_resources(x, n, m), **extra,
+            **timings(lambda: nmk.nm_mask(x, n, m),
+                      lambda: nmk.nm_mask_plain(x, n, m), None, flush),
+            bound_ms=b, bound_by=by))
+
+    # 2:4 on the stacked leaves (the recomputes) and on one layer of each
+    # (the per-layer build: 24 of run (b)'s 30 launches)
+    for wname, R, fan_in in (("mlp.wo", 12 * 3072, 3072),
+                             ("attn.wo", 12 * 768, 768),
+                             ("mlp.wo[layer]", 3072, 3072),
+                             ("attn.wo[layer]", 768, 768)):
+        x = (torch.randn(R, 768, generator=gen, device="cuda")
+             / math.sqrt(fan_in)).to(bf16)
 
         def topk_scatter(x=x):
             blocks = x.abs().reshape(-1, 4)
@@ -590,39 +654,28 @@ def train_kernel_phase(gen) -> list:
             return torch.zeros(blocks.shape, dtype=torch.bool,
                                device="cuda").scatter_(-1, idx, True)
 
-        # each element read once (2 bytes), its mask byte written once;
-        # m compares and adds per element on the CUDA cores
-        b, by = bound(x.numel() * 3, 2 * 4 * x.numel(), F32_FLOPS)
-        cases.append(dict(
-            kernel="nm_mask", model="bert-train", weight=wname, K=K, N=R,
-            M=0, n_m="2:4", max_abs_err=0.0, tol=0.0, bitwise=True,
-            **timings(lambda x=x: nmk.nm_mask(x, 2, 4),
-                      lambda x=x: nmk.nm_mask_plain(x, 2, 4), None, flush),
-            topk_scatter_ms=time_ms(topk_scatter, flush),
-            bound_ms=b, bound_by=by))
+        nm_case(wname, x, 2, 4, topk_scatter_ms=time_ms(topk_scatter, flush))
 
-    # blocks wider than the register array (m > 16), as the reference takes
-    # any m: bitwise on the stacked mlp.wo (768 = 24 x 32; 20 leaves a
-    # ragged last block) and on small integers full of ties
+    # 16:32 (the vector body's widest block) and 5:20 (the staged body;
+    # 768 = 38 x 20 + 8 leaves a ragged last block): bitwise on the stacked
+    # mlp.wo and on small integers full of ties
     wo = (torch.randn(12 * 3072, 768, generator=gen, device="cuda")
           / math.sqrt(3072)).to(bf16)
     ties = torch.randint(-2, 3, (3, 16, 131), generator=gen,
                          device="cuda").to(bf16)
     for n, m in ((16, 32), (5, 20)):
-        for x in (wo, ties):
-            assert torch.equal(nmk.nm_mask(x, n, m),
-                               nmk.nm_mask_plain(x, n, m)), \
-                f"nm_mask {n}:{m} differs from its plain version"
-        b, by = bound(wo.numel() * 3, 2 * m * wo.numel(), F32_FLOPS)
-        cases.append(dict(
-            kernel="nm_mask", model="bert-train", weight="mlp.wo", K=768,
-            N=wo.shape[0], M=0, n_m=f"{n}:{m}", max_abs_err=0.0, tol=0.0,
-            bitwise=True,
-            **timings(lambda n=n, m=m: nmk.nm_mask(wo, n, m),
-                      lambda n=n, m=m: nmk.nm_mask_plain(wo, n, m), None,
-                      flush),
-            bound_ms=b, bound_by=by))
-    del wo, ties
+        assert torch.equal(nmk.nm_mask(ties, n, m),
+                           nmk.nm_mask_plain(ties, n, m)), \
+            f"nm_mask {n}:{m} differs from its plain version on ties"
+        nm_case("mlp.wo", wo, n, m)
+    # the special values (subnormals rank as 0, NaN kept and never counted,
+    # +-0, +-inf, the smallest normal) at one layer's mlp.wo, and the
+    # stacked mlp.wo one element into its storage (the staged body)
+    nm_case("special", special_values((3072, 768)), 2, 4)
+    flat = torch.empty(wo.numel() + 1, dtype=bf16, device="cuda")
+    flat[1:] = wo.reshape(-1)
+    nm_case("mlp.wo+1", flat[1:].view(wo.shape), 2, 4)
+    del wo, ties, flat
 
     M, K, N = TRAIN_TOKENS, 768, 3072
     a = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
@@ -1179,8 +1232,8 @@ def report_profiles(profiles, card) -> None:
             print(f"    {k['device_us']:9.1f} us x{k['count']:4d} {k['name']}")
 
 
-#: the body of the training kernels, which have one each
-BODY_OF = {"nm_mask": "registers (m <= 16)", "matmul_threshold": "tc"}
+#: the body of the kernels whose cases do not name one
+BODY_OF = {"matmul_threshold": "tc"}
 
 
 def kernels_line(cases, counts, train_counts) -> list:

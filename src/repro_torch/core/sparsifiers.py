@@ -8,7 +8,9 @@ ported yet.
 
 Every sparsifier exposes its semantic core as ``mask(x)``.  The n:m mask
 runs the ``nm_mask`` kernel (``kernels/ops.py``), which equals the
-reference's ``lax.top_k`` selection bit for bit.
+reference's Pallas kernel bit for bit, and its ``lax.top_k`` selection
+wherever the two reference routes agree (they differ on NaN, and on f32
+subnormals).
 """
 
 from __future__ import annotations
@@ -66,7 +68,10 @@ class ScalarThresholdSparsifier(Sparsifier):
 @dataclasses.dataclass(frozen=True)
 class NMSparsifier(Sparsifier):
     """Per-block fraction: keep the top-n of each m-block along the last
-    axis (plain n:m sparsity), through the ``nm_mask`` kernel."""
+    axis (plain n:m sparsity), through the ``nm_mask`` kernel.  Its rule is
+    the reference Pallas kernel's: magnitudes below the smallest normal
+    f32 rank as 0, a NaN is kept (when n > 0) and never counted against
+    the others, and the lowest index wins ties."""
 
     n: int = 2
     m: int = 4

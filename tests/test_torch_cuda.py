@@ -11,7 +11,9 @@ inputs an output sums up to 768 stored products into partial sums of
 size ~30, so a reordering moves it by a few units of 2**-24 * 30 per
 term: atol = 2e-4, rtol = 1e-5 (the card showed 3.5e-5 at K = 3072).
 Fused QKV against three single launches: bitwise.  ``nm_mask`` against
-its plain version: bitwise (the same comparisons on the same values).
+its plain version: bitwise (the same rank rule on the same values), through
+each of its three bodies (``vector``, ``staged``, ``long``), whose choice
+is asserted where a test means one.
 ``matmul_threshold``: f32 values within rtol = atol = 1e-5 on inputs
 scaled so y ~ N(0, 1), the mask equal except where |y| lies within 1e-5
 of the threshold (another summation order than cuBLAS), and its backward
@@ -519,6 +521,117 @@ def test_nm_mask_wide_blocks(dtype, n, m):
     t[1, 2, -7:] = 0
     assert torch.equal(nm_mask.nm_mask(t, n, m),
                        nm_mask.nm_mask_plain(t, n, m))
+
+
+#: the templated m of nm_mask's vector body
+VECTOR_M = (2, 4, 8, 16, 32)
+#: magnitudes at the edges of the rank rule: signed zeros, subnormals (rank
+#: as 0), the smallest normal, infinities, NaN and a few ordinary values
+SPECIAL = (0.0, -0.0, 1e-40, -1e-40, 2e-39, -2e-39, 1.1754943508222875e-38,
+           float("inf"), float("-inf"), float("nan"), 1.0, -0.5, 2.0)
+
+
+def _special(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.tensor(SPECIAL)
+    p = torch.ones(len(SPECIAL))
+    p[:6] = 4.0                          # mostly zeros and subnormals
+    idx = torch.multinomial(p, shape[0] * shape[1], replacement=True,
+                            generator=g)
+    return vals[idx].reshape(shape).to("cuda", dtype)
+
+
+def _check_nm(x, n, m, body=None):
+    if body is not None:
+        assert nm_mask.nm_mask_plan(x, n, m)["body"] == body
+    got = nm_mask.nm_mask(x, n, m)
+    assert got.dtype == torch.bool and got.shape == x.shape
+    assert torch.equal(got, nm_mask.nm_mask_plain(x, n, m)), (n, m, x.shape)
+
+
+@pytest.mark.parametrize("M", VECTOR_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_vector_body_every_n(dtype, M):
+    """Every n in 0..M through the vector body (whole, aligned rows), on
+    normal values and on small integers full of ties, bitwise."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn(257, 256, generator=g, device="cuda").to(dtype)
+    t = torch.randint(-2, 3, (65, 256), generator=g, device="cuda").to(dtype)
+    for n in range(M + 1):
+        _check_nm(x, n, M, "vector")
+        _check_nm(t, n, M, "vector")
+
+
+@pytest.mark.parametrize("n,m", [(1, 4), (2, 4), (2, 8), (3, 6), (1, 10),
+                                 (5, 20), (16, 32), (0, 4), (4, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_special_values(dtype, n, m):
+    """The CPU test's special-value blocks (subnormals rank as 0, NaN kept
+    and never counted, ties to the lowest index) through every body that
+    takes them: whole aligned rows, a ragged last block, a misaligned
+    view."""
+    _require_cuda()
+    x = _special((64, 256), dtype, 7 * m + n)
+    _check_nm(x, n, m, "vector" if m in VECTOR_M else "staged")
+    _check_nm(_special((16, 2 * m + 3), dtype, m), n, m, "staged")
+    flat = _special((1, 64 * 256 + 1), dtype, n).reshape(-1)
+    _check_nm(flat[1:].view(64, 256), n, m, "staged")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_unaligned_rows_and_views(dtype):
+    """Rows whose pitch is not a multiple of 16 bytes (K % 8 != 0: K = 100
+    in bf16, K = 6 in both), a view that starts one element into its
+    storage (``big[1:]`` of [R, 7], and the stacked ``mlp.wo`` shape one
+    element off), all through the staged body, bitwise; f32 rows of 100
+    (400 bytes) are aligned and take the vector body."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = torch.randn(300, 100, generator=g, device="cuda").to(dtype)
+    _check_nm(rows, 2, 4, "staged" if dtype == torch.bfloat16 else "vector")
+    _check_nm(torch.randn(300, 6, generator=g, device="cuda").to(dtype), 1,
+              2, "staged")
+    big = torch.randn(4097, 7, generator=g, device="cuda").to(dtype)
+    _check_nm(big[1:], 2, 4, "staged")
+    _check_nm(big[1:], 3, 7, "staged")
+    flat = torch.randn(12 * 3072 * 768 + 1, generator=g,
+                       device="cuda").to(dtype)
+    for n, m in ((2, 4), (16, 32), (5, 20)):
+        _check_nm(flat[1:].view(12 * 3072, 768), n, m, "staged")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_mask_long_blocks(dtype):
+    """m past the staged tile (the long body): whole and ragged blocks,
+    bitwise."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(2, 6000, generator=g, device="cuda").to(dtype)
+    _check_nm(x, 100, 6000, "long")
+    x = torch.randint(-3, 4, (3, 9000), generator=g, device="cuda").to(dtype)
+    _check_nm(x, 3000, 6000, "long")
+
+
+def test_nm_mask_past_2_31_elements():
+    """One operand of more than 2**31 elements ([2**21 + 3, 1024] bf16,
+    ~4.3 GB) through the vector (2:4) and staged (5:20, ragged) bodies,
+    held against the plain version in row chunks."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    R = 2 ** 21 + 3
+    x = torch.empty(R, 1024, device="cuda", dtype=torch.bfloat16)
+    for r0 in range(0, R, 2 ** 18):
+        x[r0:r0 + 2 ** 18] = torch.randn(x[r0:r0 + 2 ** 18].shape,
+                                         generator=g, device="cuda")
+    assert x.numel() > 2 ** 31
+    for (n, m), body in (((2, 4), "vector"), ((5, 20), "staged")):
+        assert nm_mask.nm_mask_plan(x, n, m)["body"] == body
+        got = nm_mask.nm_mask(x, n, m)
+        for r0 in range(0, R, 2 ** 16):
+            assert torch.equal(got[r0:r0 + 2 ** 16], nm_mask.nm_mask_plain(
+                x[r0:r0 + 2 ** 16], n, m)), (n, m, r0)
+        del got
 
 
 def test_nmg_linear_prefill_at_gr16_on_the_card():

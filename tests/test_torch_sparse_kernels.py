@@ -101,6 +101,48 @@ def test_nm_mask_ties_and_ragged_blocks(n, m, dtype):
         np.asarray(jops.nm_mask(x2, n, m, use_pallas=True)))
 
 
+#: magnitudes at the edges of the rank rule: signed zeros, subnormals
+#: (ranked as 0), the smallest normal, infinities, and a few ordinary values
+SPECIAL = np.array([0.0, -0.0, 1e-40, -1e-40, 2e-39, -2e-39,
+                    np.finfo(np.float32).tiny, np.inf, -np.inf, 1.0, -0.5,
+                    2.0], np.float32)
+
+
+def special_blocks(m: int, seed: int, nan: bool) -> np.ndarray:
+    """[16, 2m + 3] (a ragged last block) of values drawn from SPECIAL, each
+    row biased toward zeros and subnormals so blocks hold ties among them;
+    with ``nan`` a few NaNs too."""
+    rng = np.random.default_rng(seed)
+    p = np.full(SPECIAL.size, 1.0)
+    p[:6] = 4.0
+    x = rng.choice(SPECIAL, size=(16, 2 * m + 3), p=p / p.sum())
+    if nan:
+        x[rng.random(x.shape) < 0.1] = np.nan
+    return x.astype(np.float32)
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,m", NM)
+def test_nm_mask_special_values_equal_reference(n, m, dtype):
+    """The reference ranks a subnormal |x| as 0 (its Pallas kernel in both
+    dtypes, its ``lax.top_k`` route in bf16), keeps a NaN whenever n > 0
+    without counting it against the others (Pallas), and breaks ties
+    toward the lowest index.  The port equals the Pallas route bitwise in
+    both dtypes, with and without NaN, and the ``top_k`` route in bf16
+    without NaN (the two reference routes disagree on NaN, and on f32
+    subnormals)."""
+    for nan in (False, True):
+        xj, xt = _both(special_blocks(m, 7 * m + n, nan), dtype)
+        got = tops.nm_mask(xt, n, m).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jops.nm_mask(xj, n, m, use_pallas=True)))
+        if dtype == jnp.bfloat16 and not nan:
+            np.testing.assert_array_equal(
+                got, np.asarray(jref.nm_mask_ref(xj, n, m)))
+
+
 def _boundary_ok(got_mask, want_mask, y_ref, t):
     """Mask entries that differ lie on the threshold boundary; returns
     how many differ."""
