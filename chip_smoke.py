@@ -40,10 +40,16 @@
       6912 gated, QKV bias, vocab 151936, bf16, seeded random weights)
       serves the same trace dense and n:m:g 1:4:8 gr64 with ``attn=True``;
       every decode-shaped FFN goes through the fused FFN kernel.
-   Each ``attn=True`` model's prefill and decode logits through the
-   kernels are then held against the same steps through the plain
-   versions (bert at gr64 and gr16), and one 8-step decode chunk is
-   profiled dense and sparse.
+   Each configuration is served twice: replaying the engine's decode
+   programs as CUDA graphs (the default) and with ``graphs=False``
+   (eager); token streams and launch counts (replays included) must be
+   equal.  Each ``attn=True`` model's prefill and decode logits through
+   the kernels are then held against the same steps through the plain
+   versions (bert at gr64 and gr16).  The graph phase then holds, in all
+   six configurations, the replayed 8-step chunk and single step bitwise
+   against the eager programs across an admission, and reports the
+   chunk's wall and device time eager and replayed, the capture and
+   instantiation cost and the graph pool's size.
    c. full-width bert-base-sten trains (bf16, batch 8 x 128 tokens,
       AdamW, GMP): (a) the CLI's default masked path through
       ``repro_torch.launch.train`` (``--sparsity 0.75 --gmp iterative``,
@@ -61,6 +67,8 @@
    launches from its n:m:g run, training kernels at bert-base-sten
    training shapes with launches from run (b)),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   Every ``torch.profiler`` session runs after all unprofiled timing
+   (one session slows every later launch of the process).
    Details go to ``chiprun_out/chip_smoke.json``.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 2
@@ -722,35 +730,20 @@ KERNELS = ("nmg_gemv", "nmg_qkv", "nmg_spmm", "nmg_ffn")
 TRAIN_KERNELS = ("nm_mask", "matmul_threshold")
 
 
-def _wrappers():
-    """{kernel name: (module, wrapper attribute, plain attribute)}."""
-    from repro_torch.kernels import fused_sparse_matmul, nm_mask, nmg_fused, \
-        nmg_gemv, nmg_spmm
-
-    return {"nmg_gemv": (nmg_gemv, "nmg_gemv", "nmg_gemv_plain"),
-            "nmg_qkv": (nmg_fused, "nmg_qkv", "nmg_qkv_plain"),
-            "nmg_spmm": (nmg_spmm, "nmg_spmm", "nmg_spmm_plain"),
-            "nmg_ffn": (nmg_fused, "nmg_ffn", "nmg_ffn_plain"),
-            "nm_mask": (nm_mask, "nm_mask", "nm_mask_plain"),
-            "matmul_threshold": (fused_sparse_matmul, "matmul_threshold",
-                                 "matmul_threshold_plain")}
-
-
 def reset_counts() -> None:
     from repro_torch.kernels import ops
 
     ops.reset_kernel_counters()
-    for mod, attr, _ in _wrappers().values():
-        getattr(mod, attr).launches = 0
 
 
 def read_counts() -> dict:
+    """Launches per kernel wrapper, and the routes, from one snapshot of
+    both accounts (which count graph replays too)."""
     from repro_torch.kernels import ops
 
-    counts = {k: getattr(mod, attr).launches
-              for k, (mod, attr, _) in _wrappers().items()}
-    counts["routes"] = {f"{k}/{p}": v
-                        for (k, p), v in ops.kernel_counters().items()}
+    snap = ops.counter_snapshot()
+    counts = dict(snap["launches"])
+    counts["routes"] = {f"{k}/{p}": v for (k, p), v in snap["routes"].items()}
     return counts
 
 
@@ -759,9 +752,11 @@ def plain_versions():
     """Run the model with every kernel wrapper swapped for its plain
     version (on the same CUDA tensors) — the reference side of the
     logit parity check."""
+    from repro_torch.kernels.ops import KERNEL_WRAPPERS
+
     saved = [(mod, attr, getattr(mod, attr))
-             for mod, attr, _ in _wrappers().values()]
-    for mod, attr, plain in _wrappers().values():
+             for mod, attr, _ in KERNEL_WRAPPERS.values()]
+    for mod, attr, plain in KERNEL_WRAPPERS.values():
         setattr(mod, attr, getattr(mod, plain))
     try:
         yield
@@ -789,27 +784,44 @@ ENGINE_KW = dict(max_slots=4, max_seq_len=max(PROMPT_LENS) + 32,
 
 
 def serve_phase(cfg, params, label) -> dict:
+    """The trace through the engine twice: replaying its decode programs
+    as CUDA graphs (the default) and with ``graphs=False`` (eager), each
+    after its own warm-up engine, with the counts zeroed right before each
+    run and read right after.  The token streams must be equal, and so
+    must the counts (a replay counts the launches it runs)."""
     import torch
 
     from repro_torch.serve import ServeEngine, warmup_engine
 
-    warmup_engine(params, cfg, requests_for(cfg), engine_kwargs=ENGINE_KW)
-    torch.cuda.synchronize()
-    reset_counts()
-    eng = ServeEngine(params, cfg, **ENGINE_KW)
-    outs = eng.run(requests_for(cfg))
-    torch.cuda.synchronize()
-    counts = read_counts()
-    assert len(outs) == 8, f"{label}: {len(outs)} of 8 requests finished"
-    for o in outs:
-        assert o.finish_reason == "length" and len(o.tokens) == 32, (
-            label, o.uid, o.finish_reason, len(o.tokens))
-        assert all(0 <= t < cfg.vocab for t in o.tokens)
-    assert not any(k.endswith("/plain") for k in counts["routes"]), counts
-    met = eng.metrics(label=label)
-    return {"label": label, "metrics": met.to_dict(), "counts": counts,
-            "decode_steps": eng.stats["decode_steps"],
-            "first_tokens": [o.tokens[:4] for o in outs]}
+    runs = {}
+    for mode, graphs in (("graph", True), ("eager", False)):
+        kw = dict(ENGINE_KW, graphs=graphs)
+        warmup_engine(params, cfg, requests_for(cfg), engine_kwargs=kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        eng = ServeEngine(params, cfg, **kw)
+        outs = eng.run(requests_for(cfg))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        assert len(outs) == 8, f"{label}: {len(outs)} of 8 requests finished"
+        for o in outs:
+            assert o.finish_reason == "length" and len(o.tokens) == 32, (
+                label, mode, o.uid, o.finish_reason, len(o.tokens))
+            assert all(0 <= t < cfg.vocab for t in o.tokens)
+        assert not any(k.endswith("/plain") for k in counts["routes"]), counts
+        assert eng._decode_chunk.info["captured"] == graphs
+        runs[mode] = {"metrics": eng.metrics(label=label).to_dict(),
+                      "counts": counts, "tokens": [o.tokens for o in outs],
+                      "decode_steps": eng.stats["decode_steps"],
+                      "chunk_graph": dict(eng._decode_chunk.info)}
+    g, e = runs["graph"], runs["eager"]
+    assert g["tokens"] == e["tokens"], f"{label}: graph and eager streams differ"
+    assert g["counts"] == e["counts"], (label, g["counts"], e["counts"])
+    return {"label": label, "metrics": g["metrics"],
+            "eager_metrics": e["metrics"], "counts": g["counts"],
+            "decode_steps": g["decode_steps"],
+            "chunk_graph": g["chunk_graph"],
+            "first_tokens": [t[:4] for t in g["tokens"]]}
 
 
 def logit_parity(cfg, params) -> dict:
@@ -868,40 +880,178 @@ def logit_parity(cfg, params) -> dict:
             "argmax_agree": f"{agree}/{total}", "top2_ties": ties}
 
 
-def profile_decode(cfg, params, label) -> dict:
-    """Where a decode step's time goes: one 8-step greedy chunk at 4 slots
-    (prompts of 32 tokens), timed plain and then under torch.profiler.
-    Device-busy time is the sum of the kernels' device times; the busy
-    share divides it by the unprofiled wall time of the same chunk."""
+def graph_phase(cfg, params, label) -> dict:
+    """The engine's decode programs (``serve/graphs.py``) replayed as CUDA
+    graphs against the same programs run eagerly, at 4 slots prefilled
+    with 32-token prompts (decode chunk 8):
+
+    - bitwise: three chunks with an admission (a 24-token prefill into
+      slot 1) after the first, then two single steps, each replayed on the
+      live cache and run eagerly on a clone: tokens, logits and caches
+      equal, and a replay's launch counts equal the eager run's;
+    - capture: host ms of capture and of instantiation, and the bytes the
+      capture added to the graph pool (both programs share one pool);
+    - where the time goes: the chunk's wall time (median of 5, ending in
+      the token block's host fetch) eager and replayed, the replay's
+      device span from CUDA events, and the host time to enqueue one
+      chunk eagerly and as one replay; each's device time from
+      ``torch.profiler`` (the sum of its kernels' device times), busy
+      shares and the eager host cost per launch come from
+      :func:`finish_graph` once :func:`run_profiles` has run the
+      sessions this phase queues."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.models import init_cache, prefill_into_slot
-    from repro_torch.serve.engine import decode_chunk
+    from repro_torch.serve.engine import _decode_chunk_fn, _decode_fn
+    from repro_torch.serve.graphs import DecodeGraph
 
+    B, T = 4, 8
     rng = np.random.default_rng(2)
-    cache = init_cache(cfg, 4, 96, device="cuda")
-    for slot in range(4):
-        prefill_into_slot(params, cfg, torch.as_tensor(
-            rng.integers(0, cfg.vocab, (1, 32)), device="cuda"), cache, slot)
-    tok = torch.zeros(4, 1, dtype=torch.int32, device="cuda")
-    pos = torch.full((4,), 32, dtype=torch.int32, device="cuda")
 
-    def chunk():
+    def prompt(n):
+        return torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
+                               dtype=torch.int32, device="cuda")
+
+    cache = init_cache(cfg, B, 96, device="cuda")
+    for slot in range(B):
+        prefill_into_slot(params, cfg, prompt(32), cache, slot)
+    ref = {k: v.clone() for k, v in cache.items()}
+    pool = torch.cuda.graph_pool_handle()
+    chunk_fn, step_fn = _decode_chunk_fn(cfg, T), _decode_fn(cfg)
+    chunk = DecodeGraph(chunk_fn, params, cache, B, pool=pool)
+    step = DecodeGraph(step_fn, params, cache, B, pool=pool)
+    tok = np.zeros(B, np.int32)
+    pos = np.full(B, 32, np.int32)
+
+    def eager(fn, c=ref):
+        ops.reset_kernel_counters()
+        out = fn(params, torch.as_tensor(tok[:, None], device="cuda"), c,
+                 torch.as_tensor(pos, device="cuda"))
+        return out, ops.counter_snapshot()
+
+    def held(graph, fn, what):
+        ops.reset_kernel_counters()
+        got = graph.run(tok, pos).clone()
+        replayed = ops.counter_snapshot()
+        want, counts = eager(fn)
+        assert torch.equal(got, want), f"{label}: replayed {what} differs"
+        for k in ("k", "v"):
+            assert torch.equal(cache[k], ref[k]), f"{label}: {what} cache"
+        assert replayed == counts, (label, what, replayed, counts)
+        return got, counts
+
+    for turn in range(3):
+        got, chunk_counts = held(chunk, chunk_fn, f"chunk {turn}")
+        tok, pos = got[-1].cpu().numpy().copy(), pos + T
+        if turn == 0:
+            p = prompt(24)
+            for c in (cache, ref):
+                prefill_into_slot(params, cfg, p, c, 1)
+            tok[1], pos[1] = int(got[-1, 1]), 24
+    for turn in range(2):
+        got, _ = held(step, step_fn, f"step {turn}")
+        tok, pos = got.argmax(-1).int().cpu().numpy(), pos + 1
+    assert chunk.info["replays"] == 2 and step.info["replays"] == 1
+
+    # timing at fixed inputs (each run rewrites the same cache rows)
+    tok, pos = np.zeros(B, np.int32), np.full(B, 40, np.int32)
+    tok_d = torch.as_tensor(tok[:, None], device="cuda")
+    pos_d = torch.as_tensor(pos, device="cuda")
+
+    def eager_chunk():
         t0 = time.perf_counter()
-        toks, _ = decode_chunk(params, cfg, tok, cache, pos, 8)
-        toks.cpu()
+        chunk_fn(params, tok_d, ref, pos_d).cpu()
         return time.perf_counter() - t0
 
-    chunk()
-    wall = statistics.median(chunk() for _ in range(5))
-    dev = device_profile(chunk, wall)
-    return {"label": label, "chunk_wall_ms": wall * 1e3,
-            "chunk_wall_profiled_ms": dev.pop("wall_profiled_ms"),
-            "device_busy_ms": dev["device_busy_ms"],
-            "device_busy_share": dev["device_busy_share"],
-            "kernel_launches_per_step": dev["launches"] / 8,
-            "top_kernels": dev["top_kernels"]}
+    def replay_chunk():
+        t0 = time.perf_counter()
+        chunk.run(tok, pos).cpu()
+        return time.perf_counter() - t0
+
+    eager_chunk()
+    replay_chunk()
+    eager_wall = statistics.median(eager_chunk() for _ in range(5))
+    replay_wall = statistics.median(replay_chunk() for _ in range(5))
+    # CUDA events around replays: the device span of one chunk, gaps
+    # between its kernels included
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for s_, e_ in zip(starts, ends):
+        torch.cuda.synchronize()
+        s_.record()
+        chunk.graph.replay()
+        e_.record()
+    torch.cuda.synchronize()
+    replay_span_ms = statistics.median(
+        s_.elapsed_time(e_) for s_, e_ in zip(starts, ends))
+    # host time to enqueue one chunk, no sync: eagerly (the device keeps
+    # up, so no launch waits for a full queue) and as one replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk_fn(params, tok_d, ref, pos_d)
+    eager_enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk.graph.replay()
+    replay_enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {
+        "label": label, "slots": B, "chunk": T,
+        "bitwise": "3 chunks (admission after the first), 2 steps",
+        "wrapper_launches_per_chunk": chunk_counts["launches"],
+        "chunk_graph": dict(chunk.info), "step_graph": dict(step.info),
+        "eager_wall_ms": eager_wall * 1e3,
+        "replay_wall_ms": replay_wall * 1e3,
+        "replay_event_span_ms": replay_span_ms,
+        "eager_enqueue_ms": eager_enqueue_ms,
+        "replay_enqueue_ms": replay_enqueue_ms,
+        "eager_profile": profile_later(eager_chunk, eager_wall),
+        "replay_profile": profile_later(replay_chunk, replay_wall)}
+
+
+def finish_graph(p: dict) -> dict:
+    """The numbers of a :func:`graph_phase` that read its profiles (after
+    :func:`run_profiles`): busy times and shares, launches, host cost per
+    launch."""
+    e, r = p["eager_profile"], p["replay_profile"]
+    busy, busy_from = r["device_busy_ms"], "profiler"
+    if not busy:
+        busy, busy_from = p["replay_event_span_ms"], "cuda events"
+    p.update(
+        eager_busy_ms=e["device_busy_ms"],
+        eager_busy_share=e["device_busy_share"],
+        replay_busy_ms=busy, replay_busy_from=busy_from,
+        replay_busy_share=busy / p["replay_wall_ms"],
+        replay_over_busy=p["replay_wall_ms"] / busy,
+        launches_per_step=e["launches"] / p["chunk"],
+        eager_host_us_per_launch=p["eager_enqueue_ms"] * 1e3 / e["launches"],
+        eager_top_kernels=e["top_kernels"],
+        replay_top_kernels=r["top_kernels"])
+    return p
+
+
+#: profiler sessions, run after every unprofiled timing of the script: one
+#: torch.profiler session leaves every later launch in the process slower
+#: (the host's enqueue of bert's replayed chunk 0.182 -> 4.323 ms, its
+#: wall 14.518 -> 18.744 ms on an H100 80GB HBM3 at 700 W, measured by
+#: scripts/graph_gaps.py)
+_PROFILES: list = []
+
+
+def profile_later(fn, wall_s: float, into: dict = None) -> dict:
+    """``into`` (a new dict by default), which :func:`run_profiles` fills
+    with :func:`device_profile` of ``fn``."""
+    into = {} if into is None else into
+    _PROFILES.append((fn, wall_s, into))
+    return into
+
+
+def run_profiles() -> None:
+    while _PROFILES:
+        fn, wall_s, into = _PROFILES.pop(0)
+        into.update(device_profile(fn, wall_s))
 
 
 def device_profile(fn, wall_s: float) -> dict:
@@ -984,8 +1134,8 @@ def train_summary(label, out, counts, peak_gb, prof) -> dict:
 
 def profile_train_step(step_fn, out, data, step: int) -> dict:
     """Where one training step's time goes: the step after the run, from
-    the run's final state, timed unprofiled (median of 3) and then under
-    torch.profiler."""
+    the run's final state, timed unprofiled (median of 3) now and under
+    torch.profiler by :func:`run_profiles`."""
     import torch
 
     batch = {k: torch.as_tensor(v, device="cuda")
@@ -999,8 +1149,7 @@ def profile_train_step(step_fn, out, data, step: int) -> dict:
 
     one()
     wall = statistics.median(one() for _ in range(3))
-    dev = device_profile(one, wall)
-    return {"step_wall_ms": wall * 1e3, **dev}
+    return profile_later(one, wall, {"step_wall_ms": wall * 1e3})
 
 
 def train_cli_run() -> dict:
@@ -1016,6 +1165,7 @@ def train_cli_run() -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     argv = ["--arch", "bert-base-sten", "--steps", "20", "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--sparsity", "0.75",
             "--gmp", "iterative", "--log-every", "5", "--device", "cuda"]
@@ -1024,7 +1174,7 @@ def train_cli_run() -> dict:
     out = ttrain.run(args)
     torch.cuda.synchronize()
     counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     assert all(counts[k] == 0 for k in KERNELS + TRAIN_KERNELS), counts
     assert out["recomputes"] == list(range(2, 17)), out["recomputes"]
     # the magnitude mask keeps |x| >= the k-th largest |x|: every bf16
@@ -1153,6 +1303,7 @@ def train_lib_run() -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     steps = 10
     torch.cuda.synchronize()
     reset_counts()
@@ -1166,7 +1317,7 @@ def train_lib_run() -> dict:
                             log_every=5)
     torch.cuda.synchronize()
     counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     assert out["recomputes"] == [2, 5, 8], out["recomputes"]
     want_mt = cfg.n_layers * steps                    # one per forward
     want_nm = 2 * cfg.n_layers + 2 * len(out["recomputes"])
@@ -1205,30 +1356,47 @@ def report_train(runs, card) -> None:
 
 
 def report_runs(runs, card) -> None:
-    dense_p50 = runs[0]["metrics"]["tok_latency_p50"]
-    for r in runs:
-        m = r["metrics"]
-        r["sparse_over_dense_tok_p50"] = m["tok_latency_p50"] / dense_p50
-        c = r["counts"]
-        print(f"serve[{r['label']}] on {card}: {m['num_requests']} requests "
-              f"{m['num_tokens']} tokens, {m['throughput_tok_s']:.1f} tok/s, "
-              f"per-token p50 {m['tok_latency_p50'] * 1e3:.3f} ms p99 "
-              f"{m['tok_latency_p99'] * 1e3:.3f} ms, ttft p50 "
-              f"{m['ttft_p50'] * 1e3:.3f} ms, sparse/dense p50 "
-              f"{r['sparse_over_dense_tok_p50']:.3f}, decode steps "
-              f"{r['decode_steps']}, launches "
-              + " ".join(f"{k[4:]} {c[k]}" for k in KERNELS))
+    for mode, key in (("graph", "metrics"), ("eager", "eager_metrics")):
+        dense_p50 = runs[0][key]["tok_latency_p50"]
+        for r in runs:
+            m = r[key]
+            over = m["tok_latency_p50"] / dense_p50
+            r.setdefault("sparse_over_dense_tok_p50", {})[mode] = over
+            c = r["counts"]
+            print(f"serve[{r['label']}, {mode}] on {card}: "
+                  f"{m['num_requests']} requests {m['num_tokens']} tokens, "
+                  f"{m['throughput_tok_s']:.1f} tok/s, per-token p50 "
+                  f"{m['tok_latency_p50'] * 1e3:.3f} ms p99 "
+                  f"{m['tok_latency_p99'] * 1e3:.3f} ms, ttft p50 "
+                  f"{m['ttft_p50'] * 1e3:.3f} ms, sparse/dense p50 "
+                  f"{over:.3f}, decode steps {r['decode_steps']}, launches "
+                  + " ".join(f"{k[4:]} {c[k]}" for k in KERNELS))
 
 
-def report_profiles(profiles, card) -> None:
-    for p in profiles:
-        busy = p["device_busy_share"]
-        print(f"decode chunk[{p['label']}] on {card}: 8 steps "
-              f"{p['chunk_wall_ms']:.2f} ms wall, device busy "
-              + ("not measured (profiler saw no device time)" if busy is None
-                 else f"{p['device_busy_ms']:.3f} ms ({busy * 100:.1f}%)")
-              + f", {p['kernel_launches_per_step']:.0f} launches/step")
-        for k in p["top_kernels"]:
+def report_graphs(graphs, card) -> None:
+    for p in graphs:
+        cg, sg = p["chunk_graph"], p["step_graph"]
+        eb = p["eager_busy_share"]
+        print(f"decode chunk[{p['label']}] on {card}: 8 steps at 4 slots, "
+              f"replay bitwise eager ({p['bitwise']}); eager "
+              f"{p['eager_wall_ms']:.2f} ms wall, busy "
+              + ("not measured" if eb is None else
+                 f"{p['eager_busy_ms']:.3f} ms ({eb * 100:.1f}%)")
+              + f"; replayed {p['replay_wall_ms']:.3f} ms wall, busy "
+              f"{p['replay_busy_ms']:.3f} ms ({p['replay_busy_from']}, "
+              f"{p['replay_busy_share'] * 100:.1f}%, wall/busy "
+              f"{p['replay_over_busy']:.3f}), event span "
+              f"{p['replay_event_span_ms']:.3f} ms; "
+              f"{p['launches_per_step']:.0f} launches/step, eager host "
+              f"{p['eager_host_us_per_launch']:.2f} us/launch "
+              f"({p['eager_enqueue_ms']:.2f} ms a chunk), replay enqueue "
+              f"{p['replay_enqueue_ms']:.3f} ms")
+        print(f"    capture: chunk {cg['capture_ms']:.1f} ms + instantiate "
+              f"{cg['instantiate_ms']:.1f} ms, pool "
+              f"{cg['pool_bytes'] / 2**20:.1f} MiB; step "
+              f"{sg['capture_ms']:.1f} + {sg['instantiate_ms']:.1f} ms, "
+              f"pool +{sg['pool_bytes'] / 2**20:.1f} MiB")
+        for k in p["replay_top_kernels"][:4]:
             print(f"    {k['device_us']:9.1f} us x{k['count']:4d} {k['name']}")
 
 
@@ -1362,14 +1530,15 @@ def main() -> int:
     parity16 = logit_parity(cfg, sparse_gr16)
     print(f"logit parity (bert attn=True gr16, kernels vs plain): "
           f"{parity16}")
-    profiles = [profile_decode(cfg, params, "dense"),
-                profile_decode(cfg, sparse_all, "sparse_attn")]
-    report_profiles(profiles, card)
+    # timed now, profiled at the end (their profiles hold the params)
+    graphs = [graph_phase(cfg, p, r["label"]) for p, r in zip(
+        (params, sparse_ffn, sparse_all, sparse_gr16), runs)]
     del params, sparse_ffn, sparse_all, sparse_gr16
 
     # (b) qwen1.5-4b at full width and depth: dense, sparse (attn=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # the bert graph phases' state
     qcfg = get_config("qwen1.5-4b")
     t0 = time.perf_counter()
     qparams = init_lm(qcfg, seed=0, device="cuda")
@@ -1381,7 +1550,7 @@ def main() -> int:
     q_convert_s = time.perf_counter() - t0
     # init draws each stacked [L, ...] leaf in f32 before the cast, so the
     # peak so far is init's; serving's own peak is read separately
-    q_setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    q_setup_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
     torch.cuda.reset_peak_memory_stats()
     qruns = [serve_phase(qcfg, qparams, "qwen_dense"),
              serve_phase(qcfg, qsparse, "qwen_sparse")]
@@ -1395,22 +1564,20 @@ def main() -> int:
         assert qc[k] > 0, f"{k} never launched on the qwen1.5-4b path"
     assert all(qruns[0]["counts"][k] == 0 for k in KERNELS)
     report_runs(qruns, card)
-    q_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    q_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
     print(f"qwen1.5-4b on {card}: init {q_init_s:.2f} s, n:m:g conversion "
           f"{q_convert_s:.2f} s, peak device memory {q_setup_peak_gb:.2f} GB "
           f"in init + conversion, {q_peak_gb:.2f} GB serving (dense and "
           f"n:m:g params resident)")
     q_parity = logit_parity(qcfg, qsparse)
     print(f"logit parity (qwen attn=True, kernels vs plain): {q_parity}")
-    q_profiles = [profile_decode(qcfg, qparams, "qwen_dense"),
-                  profile_decode(qcfg, qsparse, "qwen_sparse")]
-    report_profiles(q_profiles, card)
+    q_graphs = [graph_phase(qcfg, qparams, "qwen_dense"),
+                graph_phase(qcfg, qsparse, "qwen_sparse")]
     del qparams, qsparse
 
     # (c) bert-base-sten training at full width: the CLI's masked path,
     # then the library API through both training kernels
     train = [train_cli_run(), train_lib_run()]
-    report_train(train, card)
     print(f"train parity (b, kernels vs plain): {train[1]['parity']}")
     margins = [{"seed": 1, **train[1]["parity"],
                 "wi_grad_share_of_bound":
@@ -1421,6 +1588,11 @@ def main() -> int:
               f"{mg['loss_rel_err']:.3e} (bound 1e-3), mlp.wi gradient rel "
               f"err {mg['wi_grad_rel_err']:.5f} (bound 2**-6 = 0.015625, "
               f"{mg['wi_grad_share_of_bound'] * 100:.1f}% of it)")
+
+    # every profiler session last: one slows every later launch
+    run_profiles()
+    report_graphs([finish_graph(p) for p in graphs + q_graphs], card)
+    report_train(train, card)
 
     kernels = kernels_line(cases, qc, train[1]["counts"])
     out = ROOT / "chiprun_out"
@@ -1435,19 +1607,26 @@ def main() -> int:
         "logit_parity": {"bert": parity, "bert_gr16": parity16,
                          "qwen": q_parity},
         "train_margins": margins,
-        "profiles": profiles + q_profiles, "train": train,
+        "graphs": graphs + q_graphs, "train": train,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
         indent=1))
     print(json.dumps({"serve": {
-        r["label"]: {"tok_s": round(r["metrics"]["throughput_tok_s"], 2),
-                     "p50_ms": round(r["metrics"]["tok_latency_p50"] * 1e3, 4),
-                     "p99_ms": round(r["metrics"]["tok_latency_p99"] * 1e3, 4),
-                     "over_dense_p50": round(r["sparse_over_dense_tok_p50"],
-                                             4)} for r in runs + qruns},
-        "chunk_wall_ms": {p["label"]: round(p["chunk_wall_ms"], 3)
-                          for p in profiles + q_profiles},
-        "device_busy_share": {p["label"]: p["device_busy_share"]
-                              for p in profiles + q_profiles},
+        r["label"]: {mode: {
+            "tok_s": round(r[key]["throughput_tok_s"], 2),
+            "p50_ms": round(r[key]["tok_latency_p50"] * 1e3, 4),
+            "p99_ms": round(r[key]["tok_latency_p99"] * 1e3, 4),
+            "over_dense_p50": round(r["sparse_over_dense_tok_p50"][mode], 4)}
+            for mode, key in (("graph", "metrics"),
+                              ("eager", "eager_metrics"))}
+        for r in runs + qruns},
+        "chunk_wall_ms": {p["label"]: {
+            "eager": round(p["eager_wall_ms"], 3),
+            "replay": round(p["replay_wall_ms"], 3),
+            "replay_busy": round(p["replay_busy_ms"], 3)}
+            for p in graphs + q_graphs},
+        "device_busy_share": {p["label"]: {
+            "eager": p["eager_busy_share"], "replay": p["replay_busy_share"]}
+            for p in graphs + q_graphs},
         "logit_err": {"bert": parity["max_abs_err"],
                       "bert_gr16": parity16["max_abs_err"],
                       "qwen": q_parity["max_abs_err"]},

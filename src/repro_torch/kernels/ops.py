@@ -19,8 +19,12 @@ is the port's own plain dict of routing decisions and launches per
 "gemv[default]")`` for the router's choice, ``("nmg_gemv", "cuda")`` or
 ``("nmg_gemv", "plain")`` for where the work ran.  Routes read the shipped
 defaults of ``tune/routing.py`` (no tuning tables yet), hence
-``[default]``.  The reference counts traces; the port runs eagerly, so
-these count calls.
+``[default]``.  Each kernel wrapper (``KERNEL_WRAPPERS``) also counts its
+own launches in its ``.launches`` attribute.  The reference counts traces;
+the port counts calls executed: both accounts count on the host, so a CUDA
+graph (``serve/graphs.py``) takes a :func:`counter_snapshot` around its
+capture, puts the counters back (capture executes nothing) and adds the
+captured :func:`counter_delta` at every replay (:func:`add_counters`).
 """
 
 from __future__ import annotations
@@ -58,6 +62,11 @@ __all__ = [
     "matmul_threshold",
     "kernel_counters",
     "reset_kernel_counters",
+    "KERNEL_WRAPPERS",
+    "counter_snapshot",
+    "counter_delta",
+    "add_counters",
+    "restore_counters",
 ]
 
 DECODE_M_MAX = routing.DEFAULT_DECODE_M_MAX
@@ -71,7 +80,59 @@ def kernel_counters() -> dict:
 
 
 def reset_kernel_counters() -> None:
+    """Zero both accounts: the routes and every wrapper's ``.launches``."""
+    restore_counters({"routes": {}, "launches": {}})
+
+
+#: {kernel: (module, wrapper attribute, plain-version attribute)} of every
+#: CUDA kernel wrapper; the wrapper counts its launches in ``.launches``
+KERNEL_WRAPPERS = {
+    "nmg_gemv": (_gemv, "nmg_gemv", "nmg_gemv_plain"),
+    "nmg_qkv": (nmg_fused, "nmg_qkv", "nmg_qkv_plain"),
+    "nmg_spmm": (_spmm, "nmg_spmm", "nmg_spmm_plain"),
+    "nmg_ffn": (nmg_fused, "nmg_ffn", "nmg_ffn_plain"),
+    "nm_mask": (_nm_mask, "nm_mask", "nm_mask_plain"),
+    "matmul_threshold": (_fsm, "matmul_threshold", "matmul_threshold_plain"),
+}
+# the wrapper functions themselves, so the counts read right while a
+# caller has swapped a module attribute (e.g. for the plain version)
+_WRAPPER_FNS = {k: getattr(mod, attr)
+                for k, (mod, attr, _) in KERNEL_WRAPPERS.items()}
+
+
+def counter_snapshot() -> dict:
+    """Both accounts at once: {"routes": {(kernel, route): calls},
+    "launches": {kernel: wrapper launches}}."""
+    return {"routes": dict(_KERNEL_COUNTS),
+            "launches": {k: f.launches for k, f in _WRAPPER_FNS.items()}}
+
+
+def counter_delta(before: dict, after: dict) -> dict:
+    """What ran between two snapshots, in the snapshot's form (entries
+    that did not move are left out)."""
+    routes = {k: n - before["routes"].get(k, 0)
+              for k, n in after["routes"].items()}
+    launches = {k: n - before["launches"][k]
+                for k, n in after["launches"].items()}
+    return {"routes": {k: n for k, n in routes.items() if n},
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+def add_counters(delta: dict) -> None:
+    """Count ``delta`` (a :func:`counter_delta`) once more, as if the work
+    it describes had run again."""
+    for k, n in delta["routes"].items():
+        _KERNEL_COUNTS[k] += n
+    for k, n in delta["launches"].items():
+        _WRAPPER_FNS[k].launches += n
+
+
+def restore_counters(snap: dict) -> None:
+    """Set both accounts to ``snap`` (a :func:`counter_snapshot`)."""
     _KERNEL_COUNTS.clear()
+    _KERNEL_COUNTS.update({k: n for k, n in snap["routes"].items() if n})
+    for k, f in _WRAPPER_FNS.items():
+        f.launches = snap["launches"].get(k, 0)
 
 
 def _where(b: torch.Tensor) -> str:

@@ -14,7 +14,10 @@ autograd-safe (the training path); remat is not ported.
 The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
 array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
-cache for the reference's calling convention.  Decode writes past the
+cache for the reference's calling convention.  The serving engine's decode
+graphs (``serve/graphs.py``) replay against these very tensors, so no
+path may reallocate them, and the decode step reads nothing from the host
+(positions stay device tensors).  Decode writes past the
 cache end are clamped onto its last row where the reference drops them:
 only a slot that already finished writes there (its tokens are discarded
 on the host), and a later occupant rewrites every row before reading it.

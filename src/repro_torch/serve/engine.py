@@ -10,6 +10,13 @@ greedy, ``decode_chunk`` steps run back to back on the device with
 on-device argmax and the token block reaches the host in one sync per
 chunk; otherwise one step at a time with host-side sampling.
 
+The engine holds its two decode programs as the reference's holds its two
+jitted ones (``_jit_decode``, ``_jit_decode_chunk``): on the card each is
+a :class:`~repro_torch.serve.graphs.DecodeGraph`, run eagerly once and
+captured in the engine's first decode of its kind, then replayed on every
+later decode.  Admission and prefill stay eager.  ``graphs=False`` runs
+both programs eagerly on the card; a CPU engine always does.
+
 ``sparsify_for_serving`` converts weights to :class:`GroupedNMTensor`
 through the ordinary :class:`SparsityBuilder`; the engine serves dense and
 n:m:g params alike.
@@ -31,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import decode_step
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve.cache import PromptTooLongError, SlotKVCache
+from repro_torch.serve.graphs import DecodeGraph
 from repro_torch.serve.metrics import ServeMetrics, summarize
 from repro_torch.serve.queue import Request, RequestOutput, RequestQueue, \
     sample_token
@@ -73,6 +81,24 @@ def decode_chunk(params, cfg: ModelConfig, tok, cache, pos, n_steps: int):
     return torch.stack(toks), cache
 
 
+def _decode_fn(cfg: ModelConfig):
+    """The one-step program: logits [B, V], the cache updated in place."""
+
+    def step(p, tok, cache, pos):
+        return decode_step(p, cfg, tok, cache, pos)[0]
+
+    return step
+
+
+def _decode_chunk_fn(cfg: ModelConfig, n_steps: int):
+    """The chunk program: the [n_steps, B] greedy token block."""
+
+    def chunk(p, tok, cache, pos):
+        return decode_chunk(p, cfg, tok, cache, pos, n_steps)[0]
+
+    return chunk
+
+
 @dataclasses.dataclass
 class _SlotState:
     """Host-side bookkeeping for one occupied slot."""
@@ -95,13 +121,14 @@ class ServeEngine:
     ``params`` may hold dense or n:m:g weights and must lie on ``device``
     (default ``"cuda"``; pass ``device="cpu"`` for the plain versions).
     ``decode_chunk`` is the number of device-resident greedy steps per
-    host sync (1 = the per-token reference loop)."""
+    host sync (1 = the per-token reference loop).  ``graphs=False`` runs
+    the decode programs eagerly on the card instead of replaying them."""
 
     def __init__(self, params, cfg: ModelConfig, *,
                  max_slots: int = DEFAULT_MAX_SLOTS,
                  max_seq_len: int = 256, decode_chunk: int = 8,
                  clock: Callable[[], float] = time.perf_counter,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         cfg.check_ported()
         self.device = resolve_device(device)
         if _param_device(params).type != self.device.type:
@@ -115,6 +142,14 @@ class ServeEngine:
         self.queue = RequestQueue()
         self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
                               device=self.device)
+        capture = graphs and self.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        self._decode = DecodeGraph(_decode_fn(cfg), params, self.kv.data,
+                                   max_slots, capture=capture, pool=pool)
+        self._decode_chunk = DecodeGraph(
+            _decode_chunk_fn(cfg, self.decode_chunk), params, self.kv.data,
+            max_slots, capture=capture, pool=pool) \
+            if self.decode_chunk > 1 else None
         self.stats = {"rejected": 0, "peak_active": 0, "decode_steps": 0}
         self._slots: list[Optional[_SlotState]] = [None] * max_slots
         self._pos = np.zeros(max_slots, np.int32)   # next write position
@@ -225,10 +260,7 @@ class ServeEngine:
 
     def _step_single(self, active) -> int:
         """Per-token path: one decode step, host-side sampling."""
-        tok = torch.as_tensor(self._tok[:, None], device=self.device)
-        pos = torch.as_tensor(self._pos, device=self.device)
-        logits, self.kv.data = decode_step(self.params, self.cfg, tok,
-                                           self.kv.data, pos)
+        logits = self._decode.run(self._tok, self._pos)
         self.stats["decode_steps"] += 1
         logits_np = logits.float().cpu().numpy()
         t = self._now()
@@ -253,10 +285,7 @@ class ServeEngine:
         latency evenly over its tokens."""
         T = self.decode_chunk
         t0 = self._now()
-        toks, self.kv.data = decode_chunk(
-            self.params, self.cfg,
-            torch.as_tensor(self._tok[:, None], device=self.device),
-            self.kv.data, torch.as_tensor(self._pos, device=self.device), T)
+        toks = self._decode_chunk.run(self._tok, self._pos)
         self.stats["decode_steps"] += T
         toks_np = toks.cpu().numpy()        # the one host sync per chunk
         t1 = self._now()

@@ -654,3 +654,129 @@ def test_nmg_linear_prefill_at_gr16_on_the_card():
         transpose_out=True))
     torch.testing.assert_close(y.reshape(-1, 768).float(), want.float(),
                                rtol=2 ** -7, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode programs replayed as CUDA graphs (serve/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _served(arch):
+    """The SMOKE config of ``arch`` (bf16) with seeded weights on the card,
+    n:m:g 1:4:8 gr16 with ``attn=True`` (the ``tc`` decode body; qwen's
+    gated MLP through the fused FFN)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.serve import sparsify_for_serving
+
+    cfg = get_smoke(arch)
+    params = init_lm(cfg, seed=0, device="cuda")
+    return cfg, sparsify_for_serving(params, 1, 4, 8, gr=16, attn=True)
+
+
+@pytest.mark.parametrize("arch", ["bert-base-sten", "qwen1.5-4b"])
+def test_decode_graphs_replay_bitwise_eager(arch):
+    """Three chunks with an admission after the first (the first run is
+    eager, then captured; the others replay) and two single steps, each
+    against the eager program on a clone of the cache: tokens, logits and
+    caches bitwise equal, and the launch counters of a replay equal those
+    of the eager run."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, prefill_into_slot
+    from repro_torch.serve.engine import _decode_chunk_fn, _decode_fn
+    from repro_torch.serve.graphs import DecodeGraph
+
+    cfg, params = _served(arch)
+    B, T = 4, 4
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab, (1, n), device="cuda",
+                             generator=gen, dtype=torch.int32)
+
+    cache = init_cache(cfg, B, 40, device="cuda")
+    for slot, n in enumerate((9, 17, 5)):        # slot 3 stays free
+        prefill_into_slot(params, cfg, prompt(n), cache, slot)
+    ref = {k: v.clone() for k, v in cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    pool = torch.cuda.graph_pool_handle()
+    chunk = DecodeGraph(_decode_chunk_fn(cfg, T), params, cache, B,
+                        pool=pool)
+    step = DecodeGraph(_decode_fn(cfg), params, cache, B, pool=pool)
+    tok = np.array([3, 7, 11, 0], np.int32)
+    pos = np.array([9, 17, 5, 0], np.int32)
+
+    def eager(fn):
+        ops.reset_kernel_counters()
+        out = fn(params, torch.as_tensor(tok[:, None], device="cuda"), ref,
+                 torch.as_tensor(pos, device="cuda"))
+        return out, ops.counter_snapshot()
+
+    for turn in range(3):
+        ops.reset_kernel_counters()
+        got = chunk.run(tok, pos).clone()
+        replayed = ops.counter_snapshot()
+        want, counts = eager(_decode_chunk_fn(cfg, T))
+        assert torch.equal(got, want), turn
+        for k in ("k", "v"):
+            assert torch.equal(cache[k], ref[k]), (turn, k)
+        assert replayed == counts, turn
+        assert counts["launches"]["nmg_qkv"] == T * cfg.n_layers
+        tok, pos = got[-1].cpu().numpy().copy(), pos + T
+        if turn == 0:                           # admission into slot 3
+            p = prompt(6)
+            for c in (cache, ref):
+                prefill_into_slot(params, cfg, p, c, 3)
+            tok[3], pos[3] = 1, 6
+    assert chunk.info["captured"] and chunk.info["replays"] == 2
+    for turn in range(2):
+        ops.reset_kernel_counters()
+        got = step.run(tok, pos).clone()
+        replayed = ops.counter_snapshot()
+        want, counts = eager(_decode_fn(cfg))
+        assert torch.equal(got, want), turn
+        for k in ("k", "v"):
+            assert torch.equal(cache[k], ref[k]), (turn, k)
+        assert replayed == counts, turn
+        tok, pos = got.argmax(-1).int().cpu().numpy(), pos + 1
+    assert step.info["replays"] == 1
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+    if cfg.gated_mlp:
+        assert counts["launches"]["nmg_ffn"] == cfg.n_layers
+
+
+def test_capture_raises_on_a_host_sync(monkeypatch):
+    """A GEMV wrapper whose launch syncs the card cannot be captured: the
+    engine's first chunk raises, no request finishes, and nothing runs
+    the eager loop in its place."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, params = _served("bert-base-sten")
+    original = nmg_gemv.gemv_launch
+
+    def syncing(*args, **kwargs):
+        torch.cuda.synchronize()
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(nmg_gemv, "gemv_launch", syncing)
+    eng = ServeEngine(params, cfg, max_slots=2, max_seq_len=32,
+                      decode_chunk=4)
+    with pytest.raises(RuntimeError):
+        eng.run([Request(uid=0, prompt=np.arange(1, 6, dtype=np.int32),
+                         max_new_tokens=8)])
+    assert eng._outputs == []
+    assert eng._decode_chunk.graph is None
+    assert eng.stats["decode_steps"] == 0
+    monkeypatch.undo()
+    torch.cuda.synchronize()              # the card is usable afterwards
+    out = ServeEngine(params, cfg, max_slots=2, max_seq_len=32,
+                      decode_chunk=4).run([Request(
+                          uid=0, prompt=np.arange(1, 6, dtype=np.int32),
+                          max_new_tokens=8)])
+    assert len(out[0].tokens) == 8
