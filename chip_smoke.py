@@ -57,15 +57,26 @@
       with the inline threshold 0.5 on the dense ``mlp.wi`` (the fused
       matmul-threshold kernel in every forward) and NMSparsifier(2, 4)
       FixedMask leaves on ``mlp.wo`` / ``attn.wo`` (the nm_mask kernel at
-      the build and at every GMP recompute).  Run (b)'s first step is then
-      repeated from the same state through the plain versions (loss and
-      ``mlp.wi`` gradient compared), also from fresh models at three more
-      seeds, and one step of each run is profiled.
+      the build and at every GMP recompute), 10 steps.  Each run goes
+      through the graph trainer (the CLI's default: the step captured once
+      as a CUDA graph and replayed, recomputes eager between replays,
+      chunks of 5 steps) and through the host loop (``--host-loop``), and
+      the two must agree bit for bit (losses, gradient norms, params,
+      masks, moments, step counter); the graph run's launch counts are
+      the main path's.  After each run, chunks of 5 steps with no
+      recompute are timed replayed and eager (and profiled last).  Run
+      (b)'s first step is repeated from the same state through the plain
+      versions (loss and ``mlp.wi`` gradient compared), also from fresh
+      models at three more seeds.
+   d. checkpoint and resume at full width: run (a)'s model over 6 steps
+      with a checkpoint every 3, then a run resumed from a copy of its
+      step-3 checkpoint in a temporary directory must end bit for bit
+      where it ended.
 4. Summary: a compact ``{"serve": ..., "train": ...}`` line, a
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
    launches from its n:m:g run, training kernels at bert-base-sten
-   training shapes with launches from run (b)),
+   training shapes with launches from run (b)'s graph trainer),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Every ``torch.profiler`` session runs after all unprofiled timing
    (one session slows every later launch of the process).
@@ -1115,9 +1126,11 @@ def _kept(params) -> dict:
     return out
 
 
-def train_summary(label, out, counts, peak_gb, prof) -> dict:
-    """Step times after the first (warm-up) step, tokens/s, losses."""
-    steady = out["step_s"][1:]
+def train_summary(label, out, counts, peak_gb, warm: int) -> dict:
+    """Step times after the first ``warm`` steps (the first step, or the
+    graph trainer's first chunk, which runs the step eagerly and captures
+    it), tokens/s, losses."""
+    steady = out["step_s"][warm:]
     step_ms = statistics.median(steady) * 1e3
     losses = out["losses"]
     assert all(math.isfinite(x) for x in losses), (label, losses)
@@ -1129,67 +1142,147 @@ def train_summary(label, out, counts, peak_gb, prof) -> dict:
             "loss_first": losses[0], "loss_last": losses[-1],
             "losses": losses, "recomputes": out["recomputes"],
             "peak_gb": peak_gb, "counts": counts,
-            "kept": _kept(out["params"]), "profile": prof}
+            "kept": _kept(out["params"])}
 
 
-def profile_train_step(step_fn, out, data, step: int) -> dict:
-    """Where one training step's time goes: the step after the run, from
-    the run's final state, timed unprofiled (median of 3) now and under
-    torch.profiler by :func:`run_profiles`."""
+def assert_same_training(graph, host, what) -> None:
+    """The graph trainer's run and the host loop's, bit for bit: losses,
+    gradient norms, recomputes, and every param, mask, moment and the
+    step counter."""
     import torch
 
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in data.batch_at(step).items()}
+    from repro_torch.launch.graphs import state_tensors
+
+    assert graph["losses"] == host["losses"], (what, "losses")
+    assert graph["gnorms"] == host["gnorms"], (what, "gnorms")
+    assert graph["recomputes"] == host["recomputes"], (what, "recomputes")
+    a = state_tensors(graph["params"], graph["opt_state"])
+    b = state_tensors(host["params"], host["opt_state"])
+    assert len(a) == len(b), what
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y), (what, "state")
+
+
+TIMED_STEPS = 5
+
+
+def time_graph_steps(multi, out, data, step0: int) -> dict:
+    """Where a replayed step's time goes: chunks of ``TIMED_STEPS`` steps
+    after the run (no pattern recompute: the ramp has ended) from its
+    final state, each ending in its one host fetch; wall per step the
+    median of 3 chunks, timed now, and one more chunk under torch.profiler
+    by :func:`run_profiles`."""
+    import torch
+
+    from repro_torch.launch import train as ttrain
+
+    params, state = out["params"], out["opt_state"]
+    at = [step0]
 
     def one():
+        s = at[0]
+        at[0] += TIMED_STEPS
+        assert not multi.recomputes(s, TIMED_STEPS, s + TIMED_STEPS)
         t0 = time.perf_counter()
-        _, _, m = step_fn(out["params"], out["opt_state"], batch)
-        float(m["loss"])
+        _, _, m = multi(params, state, ttrain.stack_batches(
+            data, s, s + TIMED_STEPS), s, s + TIMED_STEPS)
+        torch.stack((m["loss"], m["gnorm"])).cpu()
         return time.perf_counter() - t0
 
     one()
     wall = statistics.median(one() for _ in range(3))
-    return profile_later(one, wall, {"step_wall_ms": wall * 1e3})
+    return profile_later(one, wall, {"step_wall_ms": wall / TIMED_STEPS
+                                     * 1e3, "steps": TIMED_STEPS})
+
+
+def time_eager_steps(step_fn, out, data, step0: int) -> dict:
+    """The host loop's steps timed as :func:`time_graph_steps` times the
+    graph's: ``TIMED_STEPS`` eager steps, each fetching its loss and
+    gradient norm as the host loop does."""
+    import torch
+
+    params, state = out["params"], out["opt_state"]
+    at = [step0]
+
+    def one():
+        s = at[0]
+        at[0] += TIMED_STEPS
+        t0 = time.perf_counter()
+        for k in range(s, s + TIMED_STEPS):
+            batch = {key: torch.as_tensor(v, device="cuda")
+                     for key, v in data.batch_at(k).items()}
+            _, _, m = step_fn(params, state, batch)
+            float(m["loss"])
+            float(m["gnorm"])
+        return time.perf_counter() - t0
+
+    one()
+    wall = statistics.median(one() for _ in range(3))
+    return profile_later(one, wall, {"step_wall_ms": wall / TIMED_STEPS
+                                     * 1e3, "steps": TIMED_STEPS})
+
+
+def _peak_since(held) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 1e9
+
+
+def _fresh_peak() -> int:
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def train_cli_run() -> dict:
     """(a) The CLI's default masked path at full width: ``--sparsity 0.75
     --gmp iterative`` over 20 steps (magnitude-pruned FixedMask leaves on
     ``mlp`` and ``attn.wo``, a pattern recompute before each step of the
-    ramp, steps 2..16).  Neither training kernel is on this path."""
-    import torch
-
+    ramp, steps 2..16), through the graph trainer (the default: chunks of
+    ``--log-every 5`` steps, the step captured once and replayed) and
+    through ``--host-loop``, held bit for bit.  Neither training kernel is
+    on this path."""
     from repro_torch.data import DataConfig, SyntheticLMPipeline
     from repro_torch.launch import train as ttrain
     from repro_torch.optim import AdamWConfig
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     argv = ["--arch", "bert-base-sten", "--steps", "20", "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--sparsity", "0.75",
             "--gmp", "iterative", "--log-every", "5", "--device", "cuda"]
-    args = ttrain.parse_args(argv)
-    reset_counts()
-    out = ttrain.run(args)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-    assert all(counts[k] == 0 for k in KERNELS + TRAIN_KERNELS), counts
-    assert out["recomputes"] == list(range(2, 17)), out["recomputes"]
-    # the magnitude mask keeps |x| >= the k-th largest |x|: every bf16
-    # value tied with it is kept too (one bf16 step holds up to ~0.3% of
-    # these weights near the threshold)
-    for name, kept in _kept(out["params"]).items():
-        assert 0.25 <= kept <= 0.255, (name, kept)
-    cfg = out["cfg"]
+    runs = {}
+    for mode, extra in (("graph", []), ("eager", ["--host-loop"])):
+        held = _fresh_peak()
+        args = ttrain.parse_args(argv + extra)
+        reset_counts()
+        out = ttrain.run(args)
+        counts = read_counts()
+        peak = _peak_since(held)
+        assert out["rc"] == 0
+        assert all(counts[k] == 0 for k in KERNELS + TRAIN_KERNELS), counts
+        assert out["recomputes"] == list(range(2, 17)), out["recomputes"]
+        # the magnitude mask keeps |x| >= the k-th largest |x|: every bf16
+        # value tied with it is kept too (one bf16 step holds up to ~0.3%
+        # of these weights near the threshold)
+        for name, kept in _kept(out["params"]).items():
+            assert 0.25 <= kept <= 0.255, (name, kept)
+        runs[mode] = (out, counts, peak)
+    (g, gc, gpeak), (h, hc, hpeak) = runs["graph"], runs["eager"]
+    assert_same_training(g, h, "run (a)")
+    assert g["trainer"].graph.info["captured"]
+    cfg = g["cfg"]
     data = SyntheticLMPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-        seed=args.seed))
-    prof = profile_train_step(
-        ttrain.make_train_step(cfg, AdamWConfig(lr=args.lr)), out, data,
-        args.steps)
-    return train_summary("a_cli_sparsity0.75", out, counts, peak, prof)
+        seed=0))
+    res = train_summary("a_cli_sparsity0.75", g, gc, gpeak, warm=5)
+    res["eager"] = train_summary("a_cli_sparsity0.75", h, hc, hpeak, warm=1)
+    res["graph"] = dict(g["trainer"].graph.info)
+    res["timed_graph"] = time_graph_steps(g["trainer"], g, data, 20)
+    res["timed_eager"] = time_eager_steps(
+        ttrain.make_train_step(cfg, AdamWConfig()), h, data, 20)
+    return res
 
 
 def parity_numbers(cfg, params, batch) -> dict:
@@ -1295,64 +1388,136 @@ def train_lib_run() -> dict:
     """(b) The library API at full width: ``mlp_inline_threshold=0.5`` on
     the dense ``mlp.wi`` and NMSparsifier(2, 4) FixedMask leaves on
     ``mlp.wo`` / ``attn.wo``, GMP iterative with recomputes before steps
-    2, 5 and 8 of 10.  The counts cover the build and the loop."""
-    import torch
-
+    2, 5 and 8 of 10, through ``make_multi_step`` (chunks of 5, the step
+    captured once: ``matmul_threshold`` runs inside the replayed step,
+    ``nm_mask`` at the build and eagerly between replays) and through the
+    host loop from a clone of the same start, held bit for bit.  The
+    graph run's counts cover the build and the loop."""
     from repro_torch.launch import train as ttrain
     from repro_torch.optim import AdamWConfig, GMPSchedule, adamw_init
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     steps = 10
-    torch.cuda.synchronize()
+    held = _fresh_peak()
     reset_counts()
     cfg, params, data = lib_model(1)
     gmp = GMPSchedule(mode="iterative", target_sparsity=0.5, begin_step=2,
                       end_step=8, recompute_every=3, num_layers=cfg.n_layers)
-    step_fn = ttrain.make_train_step(cfg, AdamWConfig())
     start = _clone(params)
-    out = ttrain.train_loop(params, adamw_init(params), step_fn, data,
-                            start=0, stop=steps, device="cuda", gmp=gmp,
-                            log_every=5)
-    torch.cuda.synchronize()
+    multi = ttrain.make_multi_step(cfg, AdamWConfig(), gmp, 5)
+    g = ttrain.fast_loop(params, adamw_init(params), multi, data, start=0,
+                         stop=steps, log_every=5)
     counts = read_counts()
-    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-    assert out["recomputes"] == [2, 5, 8], out["recomputes"]
+    peak = _peak_since(held)
+    held = _fresh_peak()
+    reset_counts()
+    step_fn = ttrain.make_train_step(cfg, AdamWConfig())
+    h = ttrain.train_loop(_clone(start), adamw_init(start), step_fn, data,
+                          start=0, stop=steps, device="cuda", gmp=gmp,
+                          log_every=5)
+    host_counts = read_counts()
+    host_peak = _peak_since(held)
+    assert_same_training(g, h, "run (b)")
+    assert g["recomputes"] == [2, 5, 8], g["recomputes"]
     want_mt = cfg.n_layers * steps                    # one per forward
-    want_nm = 2 * cfg.n_layers + 2 * len(out["recomputes"])
+    want_nm = 2 * cfg.n_layers + 2 * len(g["recomputes"])
     assert counts["matmul_threshold"] == want_mt, (counts, want_mt)
     assert counts["nm_mask"] == want_nm, (counts, want_nm)
     assert all(counts[k] == 0 for k in KERNELS), counts
-    for name, kept in _kept(out["params"]).items():
+    assert host_counts["matmul_threshold"] == want_mt, host_counts
+    assert host_counts["nm_mask"] == 2 * len(h["recomputes"]), host_counts
+    assert multi.graph.info["captured"]
+    for name, kept in _kept(g["params"]).items():
         assert kept == 0.5, (name, kept)
     parity = train_parity(cfg, start, data.batch_at(0))
     del start
-    prof = profile_train_step(step_fn, out, data, steps)
-    res = train_summary("b_lib_nm2:4_threshold0.5", out, counts, peak, prof)
+    res = train_summary("b_lib_nm2:4_threshold0.5", g, counts, peak, warm=5)
+    res["eager"] = train_summary("b_lib_nm2:4_threshold0.5", h, host_counts,
+                                 host_peak, warm=1)
     res["parity"] = parity
+    res["graph"] = dict(multi.graph.info)
+    res["timed_graph"] = time_graph_steps(multi, g, data, steps)
+    res["timed_eager"] = time_eager_steps(step_fn, h, data, steps)
     return res
+
+
+def ckpt_phase() -> dict:
+    """Checkpoint and resume at full width through the CLI: run (a)'s
+    model and schedule over 6 steps with a checkpoint every 3 (the graph
+    trainer), then a second run resumed from a copy of that run's step-3
+    checkpoint in another directory; its losses for steps 3..5 and its
+    final params, masks, moments and step counter must equal the first
+    run's bit for bit, and so must the two final checkpoints' hashes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as ttrain
+
+    def argv(d, *extra):
+        return ["--arch", "bert-base-sten", "--steps", "6", "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--sparsity",
+                "0.75", "--gmp", "iterative", "--log-every", "3",
+                "--ckpt-every", "3", "--ckpt-dir", str(d), "--device",
+                "cuda", *extra]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp) / "a", Path(tmp) / "b"
+        t0 = time.perf_counter()
+        full = ttrain.run(ttrain.parse_args(argv(a)))
+        full_s = time.perf_counter() - t0
+        b.mkdir()
+        shutil.copytree(a / "step_00000003", b / "step_00000003")
+        (b / "LATEST").write_text("3")
+        t0 = time.perf_counter()
+        res = ttrain.run(ttrain.parse_args(argv(b, "--resume")))
+        resumed_s = time.perf_counter() - t0
+        assert full["rc"] == res["rc"] == 0 and res["start_step"] == 3
+        assert res["losses"] == full["losses"][3:], (res["losses"],
+                                                     full["losses"])
+        tail = {"params": full["params"], "opt_state": full["opt_state"],
+                "losses": full["losses"][3:], "gnorms": full["gnorms"][3:],
+                "recomputes": [s for s in full["recomputes"] if s >= 3]}
+        assert_same_training(res, tail, "resume")
+        man = [json.loads((d / "step_00000006" / "MANIFEST.json")
+                          .read_text()) for d in (a, b)]
+        assert man[0]["index"] == man[1]["index"]
+        size = sum(f.stat().st_size for f in (a / "step_00000006").iterdir())
+    del full, res
+    return {"steps": 6, "resumed_at": 3, "bitwise": True,
+            "full_run_s": full_s, "resumed_run_s": resumed_s,
+            "ckpt_bytes": size, "leaves": man[0]["num_leaves"]}
 
 
 def report_train(runs, card) -> None:
     for r in runs:
-        p = r["profile"]
-        busy = p["device_busy_share"]
         c = r["counts"]
-        print(f"train[{r['label']}] on {card}: {r['steps']} steps, "
-              f"{r['step_ms_p50']:.2f} ms/step p50 ({r['step_ms_mean']:.2f} "
-              f"mean, first {r['first_step_ms']:.1f}), "
-              f"{r['tokens_per_s']:.0f} tok/s, loss {r['loss_first']:.4f} -> "
-              f"{r['loss_last']:.4f}, peak {r['peak_gb']:.2f} GB, "
-              f"recomputes {len(r['recomputes'])}, launches nm_mask "
-              f"{c['nm_mask']} matmul_threshold {c['matmul_threshold']}")
-        print(f"    profiled step: {p['step_wall_ms']:.2f} ms wall, device "
-              + ("not measured (profiler saw no device time)" if busy is None
-                 else f"busy {p['device_busy_ms']:.3f} ms "
-                 f"({busy * 100:.1f}%)")
-              + f", {p['launches']} launches")
-        for k in p["top_kernels"]:
-            print(f"    {k['device_us']:9.1f} us x{k['count']:4d} {k['name']}")
+        gi = r["graph"]
+        print(f"train[{r['label']}] on {card}: {r['steps']} steps, graph "
+              f"trainer bitwise the host loop; graph {r['step_ms_p50']:.2f} "
+              f"ms/step p50 after the first chunk ({r['step_ms_mean']:.2f} "
+              f"mean, first chunk {r['first_step_ms']:.1f} a step), host "
+              f"loop {r['eager']['step_ms_p50']:.2f} ms/step p50; "
+              f"{r['tokens_per_s']:.0f} tok/s, loss {r['loss_first']:.4f} "
+              f"-> {r['loss_last']:.4f}, peak {r['peak_gb']:.2f} GB "
+              f"(host loop {r['eager']['peak_gb']:.2f}), recomputes "
+              f"{len(r['recomputes'])}, launches nm_mask {c['nm_mask']} "
+              f"matmul_threshold {c['matmul_threshold']}")
+        print(f"    capture {gi['capture_ms']:.1f} ms + instantiate "
+              f"{gi['instantiate_ms']:.1f} ms, pool "
+              f"{gi['pool_bytes'] / 2**20:.1f} MiB, {gi['replays']} replays")
+        for mode in ("graph", "eager"):
+            p = r[f"timed_{mode}"]
+            busy = p["device_busy_share"]
+            n = p["steps"]
+            print(f"    {mode} steps (no recompute, {n} a call): "
+                  f"{p['step_wall_ms']:.3f} ms wall a step, device "
+                  + ("not measured (profiler saw no device time)"
+                     if busy is None else
+                     f"busy {p['device_busy_ms'] / n:.3f} ms a step "
+                     f"({busy * 100:.1f}%, wall/busy {1 / busy:.3f})")
+                  + f", {p['launches'] / n:.0f} launches a step")
+            for k in p["top_kernels"][:5]:
+                print(f"    {k['device_us']:9.1f} us x{k['count']:4d} "
+                      f"{k['name']}")
 
 
 def report_runs(runs, card) -> None:
@@ -1578,6 +1743,11 @@ def main() -> int:
     # (c) bert-base-sten training at full width: the CLI's masked path,
     # then the library API through both training kernels
     train = [train_cli_run(), train_lib_run()]
+    ckpt = ckpt_phase()
+    print(f"checkpoint/resume (a's model, 6 steps, resumed at step 3) on "
+          f"{card}: bitwise the uninterrupted run; {ckpt['leaves']} leaves, "
+          f"{ckpt['ckpt_bytes'] / 2**20:.1f} MiB a checkpoint; runs "
+          f"{ckpt['full_run_s']:.1f} s and {ckpt['resumed_run_s']:.1f} s")
     print(f"train parity (b, kernels vs plain): {train[1]['parity']}")
     margins = [{"seed": 1, **train[1]["parity"],
                 "wi_grad_share_of_bound":
@@ -1607,7 +1777,7 @@ def main() -> int:
         "logit_parity": {"bert": parity, "bert_gr16": parity16,
                          "qwen": q_parity},
         "train_margins": margins,
-        "graphs": graphs + q_graphs, "train": train,
+        "graphs": graphs + q_graphs, "train": train, "ckpt": ckpt,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
         indent=1))
     print(json.dumps({"serve": {
@@ -1642,8 +1812,18 @@ def main() -> int:
             "loss_first": round(r["loss_first"], 4),
             "loss_last": round(r["loss_last"], 4),
             "peak_gb": round(r["peak_gb"], 3),
-            "device_busy_share": r["profile"]["device_busy_share"],
-            "launches_per_step": r["profile"]["launches"]} for r in train},
+            "host_loop_step_ms_p50": round(r["eager"]["step_ms_p50"], 3),
+            **{f"{mode}_step": {
+                "wall_ms": round(r[f"timed_{mode}"]["step_wall_ms"], 3),
+                "device_busy_share": r[f"timed_{mode}"]["device_busy_share"],
+                "launches": r[f"timed_{mode}"]["launches"]
+                / r[f"timed_{mode}"]["steps"]}
+               for mode in ("graph", "eager")},
+            "capture_ms": round(r["graph"]["capture_ms"], 1),
+            "instantiate_ms": round(r["graph"]["instantiate_ms"], 1),
+            "pool_mib": round(r["graph"]["pool_bytes"] / 2**20, 1)}
+            for r in train},
+        "ckpt_resume_bitwise": ckpt["bitwise"],
         "wall_s": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(card)

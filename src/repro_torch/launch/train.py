@@ -6,39 +6,60 @@ pattern recomputes on the schedule's cadence (paper Figs 8-9).
     python -m repro_torch.launch.train --arch bert-base-sten --steps 20 \\
         --sparsity 0.75 --gmp iterative            # on the card
     python -m repro_torch.launch.train --arch bert-base-sten --smoke \\
-        --steps 6 --sparsity 0.5 --gmp iterative --device cpu
+        --steps 6 --sparsity 0.5 --gmp iterative --device cpu \\
+        --ckpt-dir DIR --ckpt-every 3 [--resume] [--host-loop]
 
-The loop is the reference's host loop (``--host-loop``), eager: before
-step ``s`` it retargets the pattern when ``recompute_at(s)``, then runs
-one forward, backward and update; the reference pins its ``lax.scan``
-fast path bitwise to that loop.  With ``ModelConfig.mlp_inline_threshold``
-the MLP up-projection runs the fused ``matmul_threshold`` kernel, and an
-``NMSparsifier`` origin builds and recomputes its masks with the
-``nm_mask`` kernel (the library API; the CLI prunes by magnitude).
-Checkpoints (``--ckpt-dir``/``--resume``), ``--tuning-table``, ``--check``
-and ``--trace`` are not ported yet.
+Two loops over one step (forward, backward, clip, AdamW and the
+fixed-pattern re-sparsification, all writing the params and the optimizer
+state in place):
+
+- the default, :func:`fast_loop` over :func:`make_multi_step`: the step
+  is captured once as a CUDA graph (``launch/graphs.py:TrainGraph``) and
+  replayed for every step of a chunk of up to ``--log-every`` steps; the
+  chunk's batches go to the card in one copy, the GMP recompute runs
+  eagerly and in place between two replays when the schedule says so (a
+  host decision that needs no sync), and the losses and gradient norms
+  reach the host once a chunk;
+- ``--host-loop``, :func:`train_loop`: the same step run eagerly, one
+  host sync per step (the reference's equivalence oracle).
+
+The two give the same bits.  With ``ModelConfig.mlp_inline_threshold``
+the MLP up-projection runs the fused ``matmul_threshold`` kernel (inside
+the captured step), and an ``NMSparsifier`` origin builds and recomputes
+its masks with the ``nm_mask`` kernel (the library API; the CLI prunes by
+magnitude).  Checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--resume``)
+are the reference's format; SIGTERM saves the steps completed and exits
+1.  ``--tuning-table``, ``--check`` and ``--trace`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
+import threading
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.builder import SparsityBuilder
 from repro_torch.core.layouts import FixedMaskTensor
 from repro_torch.core.sparsifiers import ScalarFractionSparsifier
 from repro_torch.data import DataConfig, SyntheticLMPipeline
 from repro_torch.device import resolve_device
+from repro_torch.dist import StragglerWatchdog
+from repro_torch.launch.graphs import TrainGraph
 from repro_torch.models import init_lm, loss_fn
 from repro_torch.optim import AdamWConfig, GMPSchedule, adamw_init, \
-    adamw_update, resparsify_params, sparse_aware_update
+    adamw_update, resparsify_params_, sparse_aware_update
 from repro_torch.optim.optimizers import trainable, tree_map
 
 __all__ = ["build_sparse_params", "retarget_sparsity", "loss_and_grads",
-           "make_train_step", "train_loop", "parse_args", "run", "main"]
+           "make_train_step", "make_multi_step", "stack_batches",
+           "train_loop", "fast_loop", "ckpt_tree", "parse_args", "run",
+           "main"]
 
 
 def build_sparse_params(params, sparsity: float, targets=("mlp", "attn.wo")):
@@ -52,11 +73,12 @@ def build_sparse_params(params, sparsity: float, targets=("mlp", "attn.wo")):
 
 
 def retarget_sparsity(params, sparsity: float):
-    """Recompute every pattern: magnitude-pruned leaves at the new global
-    ``sparsity`` (over the whole stacked leaf), every other origin by its
-    native sparsifier."""
-    return resparsify_params(params, recompute_pattern=True,
-                             target_sparsity=float(sparsity))
+    """Recompute every pattern in place: magnitude-pruned leaves at the
+    new global ``sparsity`` (over the whole stacked leaf), every other
+    origin by its native sparsifier.  The leaves keep their tensors (what
+    a captured step reads); returns ``params``."""
+    return resparsify_params_(params, recompute_pattern=True,
+                              target_sparsity=float(sparsity))
 
 
 def _batch_on(batch: dict, device) -> dict:
@@ -88,17 +110,88 @@ def loss_and_grads(params, cfg, batch):
 
 def make_train_step(cfg, opt_cfg: AdamWConfig):
     """One step: forward and backward, AdamW, fixed-pattern
-    re-sparsification.  Returns ``train_step(params, opt_state, batch) ->
-    (params, opt_state, {"loss", "gnorm"})``."""
+    re-sparsification, all in place.  Returns ``train_step(params,
+    opt_state, batch) -> (params, opt_state, {"loss", "gnorm"})``, the
+    trees it was given, updated."""
 
     def train_step(params, opt_state, batch):
         loss, _, grads = loss_and_grads(params, cfg, batch)
-        new_p, new_s, m = sparse_aware_update(
+        params, opt_state, m = sparse_aware_update(
             lambda g, s, p: adamw_update(g, s, p, opt_cfg), grads,
             opt_state, params)
-        return new_p, new_s, {"loss": loss, "gnorm": m["gnorm"]}
+        return params, opt_state, {"loss": loss, "gnorm": m["gnorm"]}
 
     return train_step
+
+
+class MultiStep:
+    """``multi_step(params, opt_state, batches, step0, stop) -> (params,
+    opt_state, {"loss", "gnorm"})``: the steps ``step0 .. step0 + n - 1``
+    for ``batches`` of [n, ...] tensors (host or device, n at most
+    ``n_inner``), the loss and gradient norm of each in a device [n]
+    tensor.  Before step ``s`` it recomputes the patterns in place when
+    ``gmp.recompute_at(s)`` and ``s < stop``, as the host loop does.  The
+    reference recomputes at the end of step ``s - 1`` inside its scan and
+    leaves the run's first step to its caller; here the decision is the
+    host's, before the replay, so the first step of a run needs nothing
+    from the caller, and no step ``stop`` is ever prepared.
+
+    The first call builds a :class:`TrainGraph` on the trees it is given
+    and every later call replays it; a call with other trees (a restored
+    checkpoint) builds a new one."""
+
+    def __init__(self, cfg, opt_cfg: AdamWConfig, gmp, n_inner: int):
+        self.step_fn = make_train_step(cfg, opt_cfg)
+        self.gmp = gmp
+        self.n_inner = n_inner
+        self.graph = None
+
+    def recomputes(self, step0: int, n: int, stop: int) -> list:
+        """The steps of [step0, step0 + n) that recompute the patterns."""
+        gmp = self.gmp
+        return [] if gmp is None else [
+            s for s in range(step0, step0 + n)
+            if gmp.recompute_at(s) and s < stop]
+
+    def __call__(self, params, opt_state, batches: dict, step0: int,
+                 stop: int):
+        n = len(next(iter(batches.values())))
+        if n > self.n_inner:
+            raise ValueError(f"{n} steps in a chunk of at most "
+                             f"{self.n_inner}")
+        dev = opt_state["step"].device
+        batches = {k: torch.as_tensor(v).to(dev) for k, v in batches.items()}
+        if self.graph is None or not self.graph.holds(params, opt_state):
+            self.graph = None        # frees the old graph's pool first
+            self.graph = TrainGraph(
+                self.step_fn, params, opt_state,
+                {k: v[0] for k, v in batches.items()})
+        todo = set(self.recomputes(step0, n, stop))
+        out = torch.empty((2, n), dtype=torch.float32, device=dev)
+        for i in range(n):
+            s = step0 + i
+            if s in todo:
+                retarget_sparsity(params, self.gmp.sparsity_at(s))
+            out[:, i].copy_(self.graph.run({k: v[i]
+                                            for k, v in batches.items()}))
+        return params, opt_state, {"loss": out[0], "gnorm": out[1]}
+
+
+def make_multi_step(cfg, opt_cfg: AdamWConfig, gmp,
+                    n_inner: int) -> MultiStep:
+    """The device-resident trainer: up to ``n_inner`` steps a call (see
+    :class:`MultiStep`), one CUDA graph of the step for every chunk length
+    on the card, the same steps eagerly on the CPU."""
+    return MultiStep(cfg, opt_cfg, gmp, n_inner)
+
+
+def stack_batches(data, lo: int, hi: int) -> dict:
+    """The index-addressed batches of steps [lo, hi), stacked on the host
+    as [hi - lo, ...] tensors."""
+    per_step = [data.batch_at(s) for s in range(lo, hi)]
+    return {k: torch.from_numpy(np.stack([np.asarray(b[k])
+                                          for b in per_step]))
+            for k in per_step[0]}
 
 
 def _log_line(step, loss, gnorm, dt):
@@ -106,26 +199,108 @@ def _log_line(step, loss, gnorm, dt):
           f"({dt:.2f}s/step)", flush=True)
 
 
+def ckpt_tree(params, opt_state) -> dict:
+    """``{"params", "opt"}`` in the reference's checkpoint structure: the
+    moments of a ``FixedMaskTensor`` leaf as a one-tuple (the reference's
+    moment mirrors the layout, ``FixedMaskTensor(moment, None)``, whose
+    one leaf is named ``.0``)."""
+    def like(p, m):
+        return (m,) if isinstance(p, FixedMaskTensor) else m
+
+    return {"params": params, "opt": {
+        "mu": tree_map(like, params, opt_state["mu"]),
+        "nu": tree_map(like, params, opt_state["nu"]),
+        "step": opt_state["step"]}}
+
+
+def _from_ckpt_tree(tree) -> tuple:
+    """(params, opt_state) of a :func:`ckpt_tree` structure."""
+    def unwrap(m):
+        return m[0] if isinstance(m, tuple) else m
+
+    opt = tree["opt"]
+    return tree["params"], {"mu": tree_map(unwrap, opt["mu"]),
+                            "nu": tree_map(unwrap, opt["nu"]),
+                            "step": opt["step"]}
+
+
+def _result(params, opt_state, step, interrupted, **lists) -> dict:
+    return {"params": params, "opt_state": opt_state, "step": step,
+            "interrupted": bool(interrupted), **lists}
+
+
 def train_loop(params, opt_state, train_step, data, *, start: int,
-               stop: int, device, gmp=None, log_every: int = 10) -> dict:
-    """Steps [start, stop) of the host loop.  Returns {"params",
-    "opt_state", "losses", "gnorms", "step_s", "recomputes"}; a step's
-    time ends when its loss reaches the host."""
+               stop: int, device, gmp=None, log_every: int = 10, mgr=None,
+               ckpt_every: int = 50, interrupted=(), watchdog=None) -> dict:
+    """Steps [start, stop) of the host loop, eager, one host sync a step.
+    Saves a checkpoint (async) after every ``ckpt_every``-th step and
+    stops after the step in which ``interrupted`` became true.  Returns
+    {"params", "opt_state", "step" (steps completed), "interrupted",
+    "losses", "gnorms", "step_s", "recomputes"}; a step's time ends when
+    its loss reaches the host."""
     losses, gnorms, step_s, recomputes = [], [], [], []
-    for step in range(start, stop):
+    step = start
+    while step < stop:
         t0 = time.perf_counter()
         batch = _batch_on(data.batch_at(step), device)
         if gmp is not None and gmp.recompute_at(step):
-            params = retarget_sparsity(params, gmp.sparsity_at(step))
+            retarget_sparsity(params, gmp.sparsity_at(step))
             recomputes.append(step)
         params, opt_state, m = train_step(params, opt_state, batch)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
         step_s.append(time.perf_counter() - t0)
+        if watchdog is not None:
+            watchdog.observe(0, step_s[-1])
         if step % log_every == 0 or step == stop - 1:
             _log_line(step, losses[-1], gnorms[-1], step_s[-1])
-    return {"params": params, "opt_state": opt_state, "losses": losses,
-            "gnorms": gnorms, "step_s": step_s, "recomputes": recomputes}
+        step += 1
+        if mgr is not None and step % ckpt_every == 0:
+            mgr.save(step, ckpt_tree(params, opt_state))
+        if interrupted:
+            break
+    return _result(params, opt_state, step, interrupted, losses=losses,
+                   gnorms=gnorms, step_s=step_s, recomputes=recomputes)
+
+
+def fast_loop(params, opt_state, multi_step: MultiStep, data, *,
+              start: int, stop: int, log_every: int = 10, mgr=None,
+              ckpt_every: int = 50, interrupted=(), watchdog=None) -> dict:
+    """Steps [start, stop) in chunks of ``multi_step``: a chunk ends at
+    ``min(stop, next checkpoint, step + log_every)``, and its losses and
+    gradient norms reach the host once, at its end.  Checkpoints and
+    interruption as in :func:`train_loop`, at chunk ends.  Returns what
+    :func:`train_loop` returns; ``step_s`` holds each step's share of its
+    chunk's wall time."""
+    losses, gnorms, step_s, recomputes = [], [], [], []
+    step = start
+    while step < stop:
+        next_ckpt = (step // ckpt_every + 1) * ckpt_every \
+            if mgr is not None else stop
+        end = min(stop, next_ckpt, step + log_every)
+        n = end - step
+        t0 = time.perf_counter()
+        params, opt_state, m = multi_step(
+            params, opt_state, stack_batches(data, step, end), step, stop)
+        # the chunk's one host sync
+        host = torch.stack((m["loss"], m["gnorm"])).cpu().numpy()
+        dt = (time.perf_counter() - t0) / n
+        recomputes += multi_step.recomputes(step, n, stop)
+        losses += host[0].tolist()
+        gnorms += host[1].tolist()
+        step_s += [dt] * n
+        if watchdog is not None:
+            watchdog.observe(0, dt)
+        for s in range(step, end):
+            if s % log_every == 0 or s == stop - 1:
+                _log_line(s, losses[s - start], gnorms[s - start], dt)
+        step = end
+        if mgr is not None and step % ckpt_every == 0:
+            mgr.save(step, ckpt_tree(params, opt_state))
+        if interrupted:
+            break
+    return _result(params, opt_state, step, interrupted, losses=losses,
+                   gnorms=gnorms, step_s=step_s, recomputes=recomputes)
 
 
 def parse_args(argv=None):
@@ -140,18 +315,32 @@ def parse_args(argv=None):
     ap.add_argument("--sparsity", type=float, default=0.0)
     ap.add_argument("--gmp", choices=["one_shot", "iterative", "layer_wise"],
                     default=None)
+    ap.add_argument("--host-loop", action="store_true",
+                    help="per-step host-driven loop (eager, one host sync "
+                         "a step) instead of the replayed CUDA graph")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint in --ckpt-dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args(argv)
+    # the fast path chunks by --log-every: a non-positive value would spin
+    # on zero-step chunks
     args.log_every = max(1, args.log_every)
+    args.ckpt_every = max(1, args.ckpt_every)
     return args
 
 
 def run(args) -> dict:
-    """Build the model, its masks and the schedule from ``args`` and
-    train; returns :func:`train_loop`'s result plus "cfg" and "gmp"."""
+    """Build the model, its masks and the schedule from ``args``, restore
+    the newest checkpoint with ``--resume``, train to ``--steps`` and make
+    the final (or, after SIGTERM, the interrupted) blocking checkpoint.
+    Returns the loop's result plus "rc" (0, or 1 after SIGTERM),
+    "start_step", "cfg", "gmp" and "trainer" (the :class:`MultiStep`, or
+    None for the host loop)."""
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = init_lm(cfg, seed=args.seed, device=dev)
@@ -166,23 +355,61 @@ def run(args) -> dict:
             num_layers=cfg.n_layers)
         params = build_sparse_params(params, gmp.sparsity_at(0))
     opt_cfg = AdamWConfig(lr=args.lr)
+    opt_state = adamw_init(params)
     data = SyntheticLMPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
         seed=args.seed))
-    out = train_loop(params, adamw_init(params), make_train_step(cfg, opt_cfg),
-                     data, start=0, stop=args.steps, device=dev, gmp=gmp,
-                     log_every=args.log_every)
-    return {**out, "cfg": cfg, "gmp": gmp}
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start = 0
+    if mgr is not None and args.resume:
+        got, tree, _ = mgr.restore_latest(ckpt_tree(params, opt_state))
+        if got is not None:
+            start = got
+            params, opt_state = _from_ckpt_tree(tree)
+            print(f"resumed from step {start}")
+
+    interrupted = []
+    main_thread = threading.current_thread() is threading.main_thread()
+    if main_thread:        # signal handlers can only be set there
+        prev = signal.signal(signal.SIGTERM,
+                             lambda *a: interrupted.append(1))
+    loop_kw = dict(start=start, stop=args.steps, log_every=args.log_every,
+                   mgr=mgr, ckpt_every=args.ckpt_every,
+                   interrupted=interrupted,
+                   watchdog=StragglerWatchdog(n_hosts=1))
+    multi = None
+    try:
+        if args.host_loop:
+            out = train_loop(params, opt_state,
+                             make_train_step(cfg, opt_cfg), data,
+                             device=dev, gmp=gmp, **loop_kw)
+        else:
+            multi = make_multi_step(cfg, opt_cfg, gmp, args.log_every)
+            out = fast_loop(params, opt_state, multi, data, **loop_kw)
+    finally:
+        if main_thread:
+            signal.signal(signal.SIGTERM, prev)
+    rc = 0
+    if out["interrupted"]:
+        print("SIGTERM: checkpointing and exiting")
+        rc = 1
+    if mgr is not None:
+        mgr.save(out["step"] if rc else args.steps,
+                 ckpt_tree(out["params"], out["opt_state"]), blocking=True)
+    return {**out, "rc": rc, "start_step": start, "cfg": cfg, "gmp": gmp,
+            "trainer": multi}
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     t0 = time.perf_counter()
     out = run(args)
-    final = f"; final loss {out['losses'][-1]:.4f}" if out["losses"] else ""
-    print(f"done: {args.steps} steps in {time.perf_counter() - t0:.1f}s"
-          f"{final}")
-    return 0
+    if out["rc"] == 0:
+        final = f"; final loss {out['losses'][-1]:.4f}" \
+            if out["losses"] else ""
+        print(f"done: {args.steps - out['start_step']} steps in "
+              f"{time.perf_counter() - t0:.1f}s{final}")
+    return out["rc"]
 
 
 if __name__ == "__main__":

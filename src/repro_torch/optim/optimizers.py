@@ -1,18 +1,27 @@
 """AdamW over params trees that may hold ``FixedMaskTensor`` leaves (port
 of ``repro/optim/optimizers.py``).
 
-Functions over nested dicts, run under ``torch.no_grad()``, returning new
-trees as the reference does.  Moments are f32 and mirror each trainable
-leaf: a floating tensor, or a ``FixedMaskTensor``'s ``val`` (never its
-mask); other leaves carry no moments and pass through.  A gradients tree
-has the params tree's dicts with one tensor (or None) per leaf — for a
-``FixedMaskTensor``, the gradient of its ``val``.
+Functions over nested dicts, run under ``torch.no_grad()``.  Moments are
+f32 and mirror each trainable leaf: a floating tensor, or a
+``FixedMaskTensor``'s ``val`` (never its mask); other leaves carry no
+moments and pass through.  A gradients tree has the params tree's dicts
+with one tensor (or None) per leaf — for a ``FixedMaskTensor``, the
+gradient of its ``val``.
 
 This is the reference's update, not ``torch.optim.AdamW``: decay is added
 to the Adam direction before the learning rate (``p - lr * (m_hat /
 (sqrt(v_hat) + eps) + wd * p)``) in f32, only for tensors of at least
 ``decay_min_ndim`` dimensions, and the result is cast back to the
 parameter's dtype with no master copy.
+
+Deliberate difference from the reference (beside ROADMAP C2's): the
+update writes the moments, the step counter and every trainable tensor
+(a ``FixedMaskTensor``'s ``val``) **in place** and returns the same
+objects, the port's counterpart of the reference's donated buffers.  A
+captured training step (``launch/graphs.py``) replays on that storage,
+so the step counter is a 0-dim int32 tensor on the parameters' device and
+the bias corrections are computed there from it, never from a host int.
+A caller that needs the initial params after an update clones them first.
 """
 
 from __future__ import annotations
@@ -63,14 +72,18 @@ def tree_leaves(tree) -> list:
 
 
 def adamw_init(params) -> dict:
-    """f32 zero moments for every trainable leaf; step 0."""
+    """f32 zero moments for every trainable leaf; the step counter a 0-dim
+    int32 zero on the parameters' device."""
     def zeros(p):
         t = trainable(p)
         return None if t is None else torch.zeros(
             t.shape, dtype=torch.float32, device=t.device)
 
+    devices = [t.device for t in map(trainable, tree_leaves(params))
+               if t is not None]
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
-            "step": 0}
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=devices[0] if devices else "cpu")}
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -78,40 +91,73 @@ def clip_by_global_norm(grads, max_norm: float):
     (clipped grads, norm).  Leaf sums are added in tree order."""
     leaves = [g for g in tree_leaves(grads) if g is not None]
     with torch.no_grad():
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves))
-        scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        gnorm, scale = _clip_scale(leaves, max_norm)
         clipped = tree_map(
             lambda g: None if g is None else g * scale.to(g.dtype), grads)
     return clipped, gnorm
 
 
-def adamw_update(grads, state, params, cfg: AdamWConfig):
-    """Returns (updated params, new state, {"gnorm"}).  Re-sparsification
-    of layout leaves is the caller's (``optim/sparse_update.py``)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    step = state["step"] + 1
-    stepf = torch.tensor(float(step), dtype=torch.float32)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), stepf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), stepf)
+def _clip_scale(leaves, max_norm: float) -> tuple:
+    """(f32 global norm, clip scale) of gradient tensors, the leaf sums
+    added in list order."""
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return gnorm, scale
 
-    def upd(p, g, mu, nu):
-        t = trainable(p)
-        if g is None or mu is None or t is None:
-            return p, mu, nu
-        gf = g.float()
-        mu2 = cfg.b1 * mu + (1 - cfg.b1) * gf
-        nu2 = cfg.b2 * nu + (1 - cfg.b2) * gf.square()
-        delta = (mu2 / b1c) / (torch.sqrt(nu2 / b2c) + cfg.eps)
-        if cfg.weight_decay and t.ndim >= cfg.decay_min_ndim:
-            delta = delta + cfg.weight_decay * t.float()
-        t2 = (t.float() - cfg.lr * delta).to(t.dtype)
-        if isinstance(p, FixedMaskTensor):
-            t2 = FixedMaskTensor(t2, p.mask, p.origin)
-        return t2, mu2, nu2
 
+def adamw_update(grads, state, params, cfg: AdamWConfig,
+                 lr_scale: float | torch.Tensor = 1.0):
+    """One AdamW step over every trainable leaf at once, in place; returns
+    (params, state, {"gnorm"}) — the objects it was given.
+    ``lr_scale`` (a float, or a 0-dim device tensor that a captured step
+    reads at every replay) multiplies ``cfg.lr``.  Re-sparsification of
+    layout leaves is the caller's (``optim/sparse_update.py``).
+
+    Multi-tensor arithmetic (``torch._foreach_*``) in the per-leaf order
+    of operations, one rounding each (no fused ``addcmul``/``addcdiv``),
+    so every element equals the per-leaf expression's given the same
+    gradient norm."""
     with torch.no_grad():
-        out = tree_map(lambda p, g, mu, nu: upd(p, g, mu, nu), params,
-                       grads, state["mu"], state["nu"])
-    pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
-    return pick(0), {"mu": pick(1), "nu": pick(2), "step": step}, \
-        {"gnorm": gnorm}
+        quads = []
+        tree_map(lambda p, g, mu, nu: quads.append((trainable(p), g, mu, nu)),
+                 params, grads, state["mu"], state["nu"])
+        quads = [q for q in quads if all(x is not None for x in q)]
+        ts = [x[0] for x in quads]
+        gnorm, scale = _clip_scale([x[1] for x in quads], cfg.grad_clip)
+        gfs = [(g * scale.to(g.dtype)).float() for _, g, _, _ in quads]
+        mus = [x[2] for x in quads]
+        nus = [x[3] for x in quads]
+        step = state["step"]
+        step.add_(1)
+        stepf = step.float()
+        b1c = 1.0 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32,
+                                         device=step.device), stepf)
+        b2c = 1.0 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32,
+                                         device=step.device), stepf)
+        lr = cfg.lr * lr_scale
+        # mu = b1 * mu + (1 - b1) * g;  nu = b2 * nu + (1 - b2) * g**2
+        torch._foreach_mul_(mus, cfg.b1)
+        torch._foreach_add_(mus, torch._foreach_mul(gfs, 1 - cfg.b1))
+        sq = torch._foreach_mul(gfs, gfs)
+        torch._foreach_mul_(sq, 1 - cfg.b2)
+        torch._foreach_mul_(nus, cfg.b2)
+        torch._foreach_add_(nus, sq)
+        del sq, gfs
+        # delta = (mu / b1c) / (sqrt(nu / b2c) + eps) [+ wd * p]
+        den = torch._foreach_div(nus, b2c)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, cfg.eps)
+        delta = torch._foreach_div(mus, b1c)
+        torch._foreach_div_(delta, den)
+        del den
+        tfs = [t.float() for t in ts]
+        decay = [i for i, t in enumerate(ts) if t.ndim >= cfg.decay_min_ndim]
+        if cfg.weight_decay and decay:
+            torch._foreach_add_(
+                [delta[i] for i in decay],
+                torch._foreach_mul([tfs[i] for i in decay],
+                                   cfg.weight_decay))
+        # p = (p - lr * delta), cast back to the parameter's dtype
+        torch._foreach_mul_(delta, lr)
+        torch._foreach_copy_(ts, torch._foreach_sub(tfs, delta))
+    return params, state, {"gnorm": gnorm}

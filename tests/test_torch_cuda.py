@@ -780,3 +780,122 @@ def test_capture_raises_on_a_host_sync(monkeypatch):
                           uid=0, prompt=np.arange(1, 6, dtype=np.int32),
                           max_new_tokens=8)])
     assert len(out[0].tokens) == 8
+
+
+# ---------------------------------------------------------------------------
+# the training step replayed as a CUDA graph (launch/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _trained(how):
+    """The SMOKE config of bert-base-sten (bf16) with seeded weights on
+    the card: magnitude-pruned FixedMask leaves, or NMSparsifier(2, 4)
+    leaves on ``mlp.wo`` / ``attn.wo`` with the inline threshold 0.5 on
+    ``mlp.wi`` (``matmul_threshold`` inside the captured step, ``nm_mask``
+    at the recomputes between replays)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.builder import SparsityBuilder
+    from repro_torch.core.layouts import FixedMaskTensor
+    from repro_torch.core.sparsifiers import NMSparsifier
+    from repro_torch.launch.train import build_sparse_params
+    from repro_torch.models import init_lm
+
+    cfg = get_smoke("bert-base-sten")
+    if how == "nm_inline":
+        cfg = dataclasses.replace(cfg, mlp_inline_threshold=0.5)
+    params = init_lm(cfg, seed=0, device="cuda")
+    if how == "scalar_fraction":
+        return cfg, build_sparse_params(params, 0.3)
+    sb = SparsityBuilder()
+    for pat in ("*mlp.wo*", "*attn.wo*"):
+        sb.set_weight(pat, NMSparsifier(2, 4), FixedMaskTensor)
+    return cfg, sb.sparsify_params(params)
+
+
+def _train_state(params, opt_state):
+    from repro_torch.launch.graphs import state_tensors
+
+    return state_tensors(params, opt_state)
+
+
+@pytest.mark.parametrize("how", ["scalar_fraction", "nm_inline"])
+def test_train_graph_replay_bitwise_eager(how):
+    """Seven steps in chunks of 3 through the graph trainer (step 0 eager
+    and captured, steps 1..6 replayed, pattern recomputes before steps 2,
+    4 and 6, between replays) against the host loop from a clone of the
+    same state: losses, gradient norms, params, masks, moments and step
+    counter bit for bit, and equal launch counts."""
+    _require_cuda()
+    from repro_torch.core.layouts import FixedMaskTensor
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.optim import AdamWConfig, GMPSchedule, adamw_init
+    from repro_torch.optim.optimizers import tree_map
+
+    cfg, params = _trained(how)
+    start = tree_map(lambda p: FixedMaskTensor(p.val.clone(), p.mask.clone(),
+                                               p.origin)
+                     if isinstance(p, FixedMaskTensor) else p.clone(),
+                     params)
+    gmp = GMPSchedule(mode="iterative", target_sparsity=0.6, begin_step=0,
+                      end_step=7, recompute_every=2, num_layers=cfg.n_layers)
+    data = SyntheticLMPipeline(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                          global_batch=2, seed=3))
+    ops.reset_kernel_counters()
+    multi = ttrain.make_multi_step(cfg, AdamWConfig(), gmp, 3)
+    state, losses, gnorms = adamw_init(params), [], []
+    for lo in (0, 3, 6):
+        hi = min(7, lo + 3)
+        params, state, m = multi(params, state,
+                                 ttrain.stack_batches(data, lo, hi), lo, 7)
+        losses += m["loss"].tolist()
+        gnorms += m["gnorm"].tolist()
+    replayed = ops.counter_snapshot()
+    assert multi.graph.info["captured"] and multi.graph.info["replays"] == 6
+    ops.reset_kernel_counters()
+    host = ttrain.train_loop(start, adamw_init(start),
+                             ttrain.make_train_step(cfg, AdamWConfig()),
+                             data, start=0, stop=7, device="cuda", gmp=gmp)
+    assert host["recomputes"] == [0, 2, 4, 6]
+    assert losses == host["losses"] and gnorms == host["gnorms"]
+    for a, b in zip(_train_state(params, state),
+                    _train_state(host["params"], host["opt_state"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert replayed == ops.counter_snapshot()
+    if how == "nm_inline":
+        assert replayed["launches"]["matmul_threshold"] == 7 * cfg.n_layers
+        assert replayed["launches"]["nm_mask"] == 2 * 4
+
+
+def test_train_capture_raises_and_leaves_no_graph():
+    """A step that syncs with the host cannot be captured: the first run
+    (eager, then the capture) raises, leaves no graph, and the card is
+    usable afterwards; nothing runs the eager step in its place."""
+    _require_cuda()
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.graphs import TrainGraph
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg, params = _trained("scalar_fraction")
+    step = ttrain.make_train_step(cfg, AdamWConfig())
+
+    def syncing(p, s, b):
+        out = step(p, s, b)
+        float(out[2]["loss"])
+        return out
+
+    state = adamw_init(params)
+    batch = {k: torch.ones((2, 16), dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+    graph = TrainGraph(syncing, params, state, batch)
+    with pytest.raises(RuntimeError):
+        graph.run(batch)
+    assert graph.graph is None and not graph.info["captured"]
+    torch.cuda.synchronize()
+    assert int(state["step"]) == 1         # the eager run, nothing more
+    eager = TrainGraph(step, params, state, batch, capture=False)
+    assert torch.isfinite(eager.run(batch)).all()
+    assert int(state["step"]) == 2
