@@ -72,6 +72,17 @@
       with a checkpoint every 3, then a run resumed from a copy of its
       step-3 checkpoint in a temporary directory must end bit for bit
       where it ended.
+   e. the programming model (``repro_torch.sten``): (s1) the library at
+      the model's shapes, bf16 — ``NMTensor.from_dense`` through
+      ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
+      through the GEMV and SpMM routes, the fused ``sparsified_op``
+      through ``matmul_threshold``, each held to its plain version, and
+      the CSR/COO products against dense; (s2) full-width bert-base-sten
+      under a plan (masked-dense n:m:g ``mlp.wi``, 2:4 ``mlp.wo``, 2:4 on
+      the ``mlp.act`` intermediate, a gradient format on ``attn.wo``):
+      five library-API training steps and an eval forward with ``mlp.wo``
+      an NMTensor (the lossless NMTensor -> FixedMaskTensor route), held
+      to the same run through the plain versions.
 4. Summary: a compact ``{"serve": ..., "train": ...}`` line, a
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
@@ -90,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib
 import json
 import math
 import re
@@ -1566,15 +1578,454 @@ def report_graphs(graphs, card) -> None:
 
 
 #: the body of the kernels whose cases do not name one
+# ---------------------------------------------------------------------------
+# phase 3e: the programming model (layouts, dispatch, sparse operators,
+# intermediate and gradient plans)
+# ---------------------------------------------------------------------------
+
+STEN_STEPS = 5
+LOSS_RTOL = 1e-3
+
+
+def _launches(counts: dict) -> dict:
+    return {k: counts[k] for k in KERNELS + TRAIN_KERNELS if counts.get(k)}
+
+
+def sten_library_phase(gen) -> list:
+    """(s1) The library at the model's published shapes, bf16: each case
+    run through the kernels (the counts zeroed right before, read right
+    after) and again under :func:`plain_versions`, held to the plain
+    result by the kernel phase's rule, then timed (L2 flushed).
+
+    - ``NMTensor.from_dense`` of ``mlp.wo`` [3072, 768] at 2:4 and 16:32
+      (one ``nm_mask`` launch): offsets and values bitwise;
+    - ``sten.linear`` with ``mlp.wi`` [768, 3072] as GroupedNMTensor 1:4:8
+      gr64 (sparse_dim 0), x of 4 rows (the GEMV route) and of 1024 rows
+      (the SpMM route): f32 error within 1e-4 of the largest output plus
+      one bf16 rounding step;
+    - ``sten.matmul`` on a sparse_dim=1 GroupedNMTensor of ``mlp.wo``'s
+      transpose [768, 3072] against 8 and 1024 columns (``nmg_matmul``'s
+      GEMV and SpMM routes, f32 out): within 1e-4 of the largest output;
+    - ``sparsified_op(torch.matmul, (ScalarThreshold(0.5), FixedMask,
+      KeepAll, FixedMask))`` on DenseTensor [1024, 768] x [768, 3072]: one
+      fused ``matmul_threshold`` launch, no post-sparsifier; values within
+      1e-5 of the largest, the mask equal except within 1e-5 of t;
+    - CSR @ dense, dense @ CSR and COO + COO at [3072, 768], 70% sparse,
+      f32 (no kernel: plain torch ops): allclose to the dense result."""
+    import warnings
+
+    import torch
+
+    from repro_torch import sten
+    from repro_torch.core.layouts import CooTensor, CsrTensor, DenseTensor, \
+        FixedMaskTensor, NMTensor
+    from repro_torch.core.nmg import dense_to_grouped_nm
+    from repro_torch.core.sparsifiers import KeepAll, ScalarThresholdSparsifier
+
+    bf16 = torch.bfloat16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    cases = []
+
+    def run(label, fn, plain_check, kernels, timed=True):
+        reset_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", sten.SparseFallbackWarning)
+            got = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k in kernels:
+            assert counts[k] == 1, (label, k, counts)
+        with plain_versions():
+            want = fn()
+        err, tol = plain_check(got, want)
+        assert err <= tol, (label, err, tol)
+        c = {"case": label, "launches": _launches(counts),
+             "routes": {k: v for k, v in counts["routes"].items()
+                        if not k.endswith("/cuda")},
+             "max_abs_err": err, "tol": tol}
+        if timed:
+            c["ms"] = time_ms(fn, flush)
+            with plain_versions():
+                c["plain_ms"] = time_ms(fn, flush)
+        cases.append(c)
+        return got
+
+    def bitwise(got, want):
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        return (0.0 if same else float("inf")), 0.0
+
+    wo = (torch.randn(3072, 768, generator=gen, device="cuda")
+          / math.sqrt(3072)).to(bf16)
+    for n, m in ((2, 4), (16, 32)):
+        run(f"NMTensor.from_dense mlp.wo {n}:{m}",
+            lambda n=n, m=m: (lambda t: (t.idx, t.val))(
+                NMTensor.from_dense(wo, n, m)), bitwise, ("nm_mask",))
+
+    def f32_rule(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        tol = 1e-4 * max(1.0, top)
+        if got.dtype == bf16:
+            tol += 2 ** -8 * top
+        return err, tol
+
+    wi = dense_to_grouped_nm((torch.randn(768, 3072, generator=gen,
+                                          device="cuda") / math.sqrt(768))
+                             .to(bf16), 1, 4, 8, gr=64, sparse_dim=0)
+    for rows, kernel in ((4, "nmg_gemv"), (1024, "nmg_spmm")):
+        x = torch.randn(rows, 768, generator=gen, device="cuda").to(bf16)
+        run(f"sten.linear mlp.wi 1:4:8 gr64 x[{rows}]",
+            lambda x=x: sten.linear(x, wi), f32_rule, (kernel,))
+    wo_t = dense_to_grouped_nm(wo.T.contiguous(), 1, 4, 8, gr=64,
+                               sparse_dim=1)
+    for cols, kernel in ((8, "nmg_gemv"), (1024, "nmg_spmm")):
+        b = torch.randn(3072, cols, generator=gen, device="cuda").to(bf16)
+        run(f"sten.matmul sparse_dim=1 [768, 3072] x [3072, {cols}]",
+            lambda b=b: sten.matmul(wo_t, b), f32_rule, (kernel,))
+    del wo, wi, wo_t
+
+    a = torch.randn(TRAIN_TOKENS, 768, generator=gen, device="cuda").to(bf16)
+    w = (torch.randn(768, 3072, generator=gen, device="cuda")
+         / math.sqrt(768)).to(bf16)
+    op = sten.sparsified_op(torch.matmul, sten.OutFormat(
+        ScalarThresholdSparsifier(THRESHOLD), FixedMaskTensor, KeepAll(),
+        FixedMaskTensor))
+    y = a.double() @ w.double()
+    near = (y.abs() - THRESHOLD).abs() <= 1e-5 * max(1.0, THRESHOLD)
+    del y
+
+    def threshold_rule(got, want):
+        assert isinstance(got, FixedMaskTensor), type(got)
+        diff = got.mask != want.mask
+        assert not bool((diff & ~near).any()), "threshold mask differs"
+        err = (got.val - want.val)[~diff].abs().max().item()
+        return err, 1e-5 * max(1.0, want.val.abs().max().item())
+
+    run("sparsified_op matmul + ScalarThreshold(0.5) [1024, 768] x "
+        "[768, 3072]", lambda: op(DenseTensor(a), DenseTensor(w)),
+        threshold_rule, ("matmul_threshold",))
+    del a, w, near
+
+    sp = sten.ScalarFractionSparsifier(0.7)
+    wd = torch.randn(3072, 768, generator=gen, device="cuda")
+    vd = torch.randn(3072, 768, generator=gen, device="cuda")
+    csr = sten.apply_sparsifier(sp, wd, CsrTensor)
+    b = torch.randn(768, 256, generator=gen, device="cuda")
+    left = torch.randn(256, 3072, generator=gen, device="cuda")
+    coo_a = sten.apply_sparsifier(sp, wd, CooTensor)
+    coo_b = sten.apply_sparsifier(sp, vd, CooTensor)
+
+    def allclose(got, want):
+        got = got.to_dense() if hasattr(got, "to_dense") else got
+        err = (got - want).abs().max().item()
+        return err, 1e-4 * max(1.0, want.abs().max().item())
+
+    dense = csr.to_dense()
+    for label, fn, want in (
+            ("CSR @ dense [3072, 768] x [768, 256]",
+             lambda: sten.matmul(csr, b), dense @ b),
+            ("dense @ CSR [256, 3072] x [3072, 768]",
+             lambda: sten.matmul(left, csr), left @ dense),
+            ("COO + COO [3072, 768]", lambda: sten.add(coo_a, coo_b),
+             coo_a.to_dense() + coo_b.to_dense())):
+        err, tol = allclose(fn(), want)
+        assert err <= tol, (label, err, tol)
+        cases.append({"case": label, "launches": {}, "max_abs_err": err,
+                      "tol": tol, "ms": time_ms(fn, flush),
+                      "density": csr.density()})
+    del flush
+    return cases
+
+
+class _MaskRecorder:
+    """Records every ``nm_mask`` result (through ``kernels/ops.py``, so
+    the kernel or its plain version, whichever runs) while on."""
+
+    def __init__(self):
+        self.masks, self.on = [], False
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+
+        self._orig = kops.nm_mask
+
+        def wrapped(x, n, m):
+            out = self._orig(x, n, m)
+            if self.on:
+                self.masks.append(out.clone())
+            return out
+
+        kops.nm_mask = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops as kops
+
+        kops.nm_mask = self._orig
+
+
+def sten_plan():
+    """(s2)'s plan: ``mlp.wi`` masked-dense n:m:g 1:4:8 gr64 (the default
+    FixedMaskTensor), ``mlp.wo`` NMSparsifier(2, 4) FixedMask (nm_mask per
+    layer), ``mlp.act`` NMSparsifier(2, 4) in every forward, and a
+    magnitude gradient format on ``attn.wo``."""
+    from repro_torch import sten
+
+    sb = sten.SparsityBuilder()
+    sb.set_weight("*mlp.wi", sten.GroupedNMSparsifier(1, 4, 8, gr=64,
+                                                      sparse_dim=0))
+    sb.set_weight("*mlp.wo", sten.NMSparsifier(2, 4))
+    sb.set_interm("mlp.act", sten.NMSparsifier(2, 4))
+    sb.set_weight_grad("*attn.wo", sten.OutFormat(
+        external=sten.ScalarFractionSparsifier(0.5)))
+    return sb
+
+
+def sten_model_run(params, data, n_layers) -> dict:
+    """Build the plan's params, train ``STEN_STEPS`` library-API steps
+    (``loss_and_grads`` under the plan, then ``sparse_aware_update`` with
+    the builder's gradient formats), recording the last step's
+    ``mlp.act`` masks, then rebuild ``mlp.wo`` as a stacked NMTensor and
+    run one eval forward under the plan.  Returns the losses, masks,
+    counts per stage and times."""
+    import warnings
+
+    import torch
+
+    from repro_torch import sten
+    from repro_torch.configs import get_config
+    from repro_torch.core.layouts import DenseTensor, NMTensor
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.sparse_update import sparse_aware_update
+
+    cfg = get_config("bert-base-sten")
+    sb = sten_plan()
+    plan = sb.plan()
+    out = {"counts": {}}
+    reset_counts()
+    t0 = time.perf_counter()
+    p = sb.sparsify_params(params)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["counts"]["build"] = read_counts()
+    state = adamw_init(p)
+    opt = AdamWConfig()
+    losses, step_s = [], []
+    with _MaskRecorder() as rec, warnings.catch_warnings():
+        warnings.simplefilter("error", sten.SparseFallbackWarning)
+        for s in range(STEN_STEPS):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in data.batch_at(s).items()}
+            rec.on = s == STEN_STEPS - 1
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with plan:
+                loss, _, grads = ttrain.loss_and_grads(p, cfg, batch)
+            rec.on = False
+            p, state, _ = sparse_aware_update(
+                lambda g, st, pp: adamw_update(g, st, pp, opt), grads, state,
+                p, grad_formats=sb.grad_formats())
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            out["counts"][f"step{s}"] = read_counts()
+        out["act_masks"] = rec.masks
+        assert len(rec.masks) == n_layers, len(rec.masks)
+        out["losses"], out["step_s"] = losses, step_s
+        out["weight_masks"] = {k: p["layers"]["mlp"][k].mask.clone()
+                               for k in ("wi", "wo")}
+        # eval: mlp.wo as a stacked NMTensor through the n:m sparsifier
+        reset_counts()
+        wo = sten.SparsityBuilder().set_weight(
+            "*mlp.wo", sten.NMSparsifier(2, 4), NMTensor).sparsify_params(
+            {"mlp": {"wo": p["layers"]["mlp"]["wo"].to_dense()}})
+        out["counts"]["eval_build"] = read_counts()
+        ev = dict(p, layers=dict(p["layers"], mlp=dict(
+            p["layers"]["mlp"], wo=wo["mlp"]["wo"])))
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch_at(STEN_STEPS).items()}
+        disp = importlib.import_module("repro_torch.core.dispatch")
+        conv = importlib.import_module("repro_torch.core.convert")
+        disp.reset_dispatch_counters()
+        conv.reset_conversion_log()
+        reset_counts()
+        with plan, torch.no_grad():
+            ev_loss, _ = loss_fn(ev, cfg, batch)
+        out["eval_loss"] = float(ev_loss)
+        out["counts"]["eval"] = read_counts()
+        out["eval_routes"] = sorted(
+            (o, op, list(sig)) for (o, op, sig) in disp.dispatch_counters())
+        out["eval_conversions"] = sorted({c[:2]
+                                          for c in conv.conversion_log()})
+        out["predict_route"] = disp.predict_route(
+            "linear", (DenseTensor, NMTensor))
+    out["params"], out["state"], out["eval_params"] = p, state, ev
+    out["eval_batch"], out["cfg"], out["plan"] = batch, cfg, plan
+    return out
+
+
+def sten_model_phase(card) -> dict:
+    """(s2) Full-width bert-base-sten (12 layers, d_model 768, d_ff 3072,
+    vocab 30522, bf16, seeded random weights, batch 8 x 128 of the
+    synthetic stream) under :func:`sten_plan`: the build, five library-API
+    training steps and an eval forward with ``mlp.wo`` a stacked NMTensor,
+    whose ``linear`` goes through the lossless NMTensor -> FixedMaskTensor
+    conversion (the reference's route) with no fallback warning.  Run
+    through the kernels, then from a clone of the same weights through
+    the plain versions: each step's loss within 1e-3 (relative), the
+    weight masks and the last step's ``mlp.act`` masks equal, and
+    ``nm_mask`` launched once a layer at each build and in each forward.
+    Reports ms a step (eager wall; device busy share by a profile run
+    last), the conversions' share of the eval forward, and peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMPipeline
+    from repro_torch.models import init_lm, loss_fn
+
+    cfg = get_config("bert-base-sten")
+    L = cfg.n_layers
+    params = init_lm(cfg, seed=5, device="cuda")
+    start = _clone(params)
+    data = SyntheticLMPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH, seed=5))
+    held = _fresh_peak()
+    k = sten_model_run(params, data, L)
+    peak = _peak_since(held)
+    del params
+    with plain_versions():
+        pl = sten_model_run(start, data, L)
+    del start
+    c = k["counts"]
+    assert c["build"]["nm_mask"] == L, c["build"]
+    for s in range(STEN_STEPS):
+        assert c[f"step{s}"]["nm_mask"] == L, (s, c[f"step{s}"])
+    assert c["eval_build"]["nm_mask"] == L and c["eval"]["nm_mask"] == L, c
+    for stage in c.values():
+        assert all(stage.get(x, 0) == 0 for x in KERNELS
+                   + ("matmul_threshold",)), stage
+    for a, b in zip(k["losses"], pl["losses"]):
+        assert math.isfinite(a) and abs(a - b) <= LOSS_RTOL * abs(b), \
+            (k["losses"], pl["losses"])
+    assert abs(k["eval_loss"] - pl["eval_loss"]) <= LOSS_RTOL * abs(
+        pl["eval_loss"]), (k["eval_loss"], pl["eval_loss"])
+    for name in ("wi", "wo"):
+        assert torch.equal(k["weight_masks"][name], pl["weight_masks"][name])
+    assert all(torch.equal(a, b) for a, b in zip(k["act_masks"],
+                                                 pl["act_masks"]))
+    want_routes = {("impl", "linear", ("DenseTensor", "NMTensor")),
+                   ("impl", "linear", ("DenseTensor", "FixedMaskTensor")),
+                   ("impl", "linear", ("DenseTensor", "DenseTensor"))}
+    assert {(o, op, tuple(sig)) for o, op, sig in k["eval_routes"]} == \
+        want_routes, k["eval_routes"]
+    assert set(k["eval_conversions"]) == {
+        ("NMTensor", "FixedMaskTensor"), ("DenseTensor", "FixedMaskTensor")}
+    pr = k["predict_route"]
+    assert pr["target_sig"] == ("DenseTensor", "FixedMaskTensor") and \
+        pr["conversions"] == (("NMTensor", "FixedMaskTensor"),), pr
+    kept_wo = k["weight_masks"]["wo"].float().mean().item()
+    kept_wi = k["weight_masks"]["wi"].float().mean().item()
+    assert kept_wo == 0.5 and kept_wi == 0.25, (kept_wo, kept_wi)
+
+    # times: the eval forward and its conversions (CUDA events), one
+    # training step eager (wall, and device busy by a profile run last)
+    from repro_torch.core.layouts import FixedMaskTensor
+    from repro_torch.launch import train as ttrain
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.optim.sparse_update import sparse_aware_update
+
+    conv = importlib.import_module("repro_torch.core.convert")
+    ev, plan, batch = k["eval_params"], k["plan"], k["eval_batch"]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def forward():
+        with plan, torch.no_grad():
+            loss_fn(ev, cfg, batch)
+
+    def conversions():
+        for w in (ev["layers"]["mlp"]["wo"], ev["layers"]["attn"]["wo"]):
+            for one in w.unbind(0):
+                conv.convert(one, FixedMaskTensor)
+
+    fwd_ms, conv_ms = time_ms(forward, flush), time_ms(conversions, flush)
+    del flush
+    sb = sten_plan()
+    p, state = k["params"], k["state"]
+
+    def step():
+        b = {kk: torch.as_tensor(v, device="cuda")
+             for kk, v in data.batch_at(STEN_STEPS + 1).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plan:
+            loss, _, grads = ttrain.loss_and_grads(p, cfg, b)
+        sparse_aware_update(lambda g, st, pp: adamw_update(
+            g, st, pp, AdamWConfig()), grads, state, p,
+            grad_formats=sb.grad_formats())
+        float(loss)
+        return time.perf_counter() - t0
+
+    step()
+    wall = statistics.median(step() for _ in range(3))
+    res = {"card": card, "losses": k["losses"],
+           "plain_losses": pl["losses"],
+           "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                   zip(k["losses"], pl["losses"])),
+           "eval_loss": k["eval_loss"], "plain_eval_loss": pl["eval_loss"],
+           "eval_routes": k["eval_routes"],
+           "eval_conversions": k["eval_conversions"],
+           "predict_route": {kk: v for kk, v in k["predict_route"].items()},
+           "counts": {st: _launches(v) for st, v in c.items()},
+           "nm_mask_launches": sum(v.get("nm_mask", 0) for v in c.values()),
+           "build_s": k["build_s"], "plain_build_s": pl["build_s"],
+           "step_wall_ms_first": k["step_s"][0] * 1e3,
+           "step_wall_ms": wall * 1e3,
+           "plain_step_wall_ms_median": statistics.median(
+               pl["step_s"][1:]) * 1e3,
+           "eval_forward_ms": fwd_ms, "conversions_ms": conv_ms,
+           "conversion_share": conv_ms / fwd_ms, "peak_gb": peak,
+           "kept": {"mlp.wi": kept_wi, "mlp.wo": kept_wo}}
+    res["profile"] = profile_later(step, wall)
+    return res
+
+
+def report_sten(lib, model) -> None:
+    card = model["card"]
+    print(f"sten library cases (bf16, L2 flushed, device ms) on {card}:")
+    for c in lib:
+        t = "" if "ms" not in c else f" | {c['ms']:.4f} ms" + (
+            f" (plain {c['plain_ms']:.4f} ms)" if "plain_ms" in c else "")
+        print(f"  sten {c['case']}: err {c['max_abs_err']:.2e} "
+              f"(tol {c['tol']:.2e}) launches {c['launches']}{t}")
+    print(f"sten model (bert-base-sten full width, plan: mlp.wi n:m:g "
+          f"FixedMask, mlp.wo 2:4, mlp.act 2:4, attn.wo grad 50%) on "
+          f"{card}: losses {[round(x, 4) for x in model['losses']]} "
+          f"(plain max rel err {model['loss_max_rel_err']:.2e}), eval loss "
+          f"{model['eval_loss']:.4f}; step {model['step_wall_ms']:.1f} ms "
+          f"eager wall, device busy "
+          f"{model['profile'].get('device_busy_ms') or 0:.1f} ms "
+          f"({(model['profile'].get('device_busy_share') or 0) * 100:.1f}%, "
+          f"{model['profile'].get('launches')} launches); eval forward "
+          f"{model['eval_forward_ms']:.2f} ms, "
+          f"conversions {model['conversions_ms']:.2f} ms "
+          f"({model['conversion_share'] * 100:.1f}%); peak "
+          f"{model['peak_gb']:.2f} GB; nm_mask launches "
+          f"{model['nm_mask_launches']}")
+
+
 BODY_OF = {"matmul_threshold": "tc"}
 
 
-def kernels_line(cases, counts, train_counts) -> list:
+def kernels_line(cases, counts, train_counts, sten_counts) -> list:
     """One entry per TPU kernel (every ``pl.pallas_call`` body): the
     serving kernels at qwen1.5-4b shapes (decode M = 4, prompt N = 32)
     with the launches of its n:m:g run; the SpMM's two schedules (rows 3
     and 4) are one CUDA kernel, listed once for each; the training kernels
-    at run (b)'s shapes with the launches of run (b)."""
+    at run (b)'s shapes with the launches of run (b).  ``sten_launches``
+    is each kernel's launches on the programming-model path (phase 3e:
+    its library cases and its full-width model run)."""
     rows = [  # name, kernel, source, replaces, (model, weight, M)
         ("nmg_gemv", "nmg_gemv", "nmg_gemv.cu", "nmg_gemv.py:45",
          ("qwen", "wo_ffn", 4)),
@@ -1603,6 +2054,7 @@ def kernels_line(cases, counts, train_counts) -> list:
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches[kernel],
+            "sten_launches": sten_counts[kernel],
             "max_abs_err": max(x["max_abs_err"] for x in cases
                                if x["kernel"] == kernel),
             "ms": c["ms"], "plain_ms": c["plain_ms"],
@@ -1759,12 +2211,23 @@ def main() -> int:
               f"err {mg['wi_grad_rel_err']:.5f} (bound 2**-6 = 0.015625, "
               f"{mg['wi_grad_share_of_bound'] * 100:.1f}% of it)")
 
+    # (e) the programming model: the library at the model's shapes, then
+    # full-width bert-base-sten under an intermediate and gradient plan
+    sten_lib = sten_library_phase(gen)
+    sten_model = sten_model_phase(card)
+    sten_counts = {kk: sum(c["launches"].get(kk, 0) for c in sten_lib)
+                   + sum(v.get(kk, 0) for v in sten_model["counts"].values())
+                   for kk in KERNELS + TRAIN_KERNELS}
+    for kk in ("nmg_gemv", "nmg_spmm", "nm_mask", "matmul_threshold"):
+        assert sten_counts[kk] > 0, f"{kk} never launched on the sten path"
+
     # every profiler session last: one slows every later launch
     run_profiles()
     report_graphs([finish_graph(p) for p in graphs + q_graphs], card)
     report_train(train, card)
+    report_sten(sten_lib, sten_model)
 
-    kernels = kernels_line(cases, qc, train[1]["counts"])
+    kernels = kernels_line(cases, qc, train[1]["counts"], sten_counts)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
@@ -1778,6 +2241,7 @@ def main() -> int:
                          "qwen": q_parity},
         "train_margins": margins,
         "graphs": graphs + q_graphs, "train": train, "ckpt": ckpt,
+        "sten": {"library": sten_lib, "model": sten_model},
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
         indent=1))
     print(json.dumps({"serve": {
@@ -1824,6 +2288,14 @@ def main() -> int:
             "pool_mib": round(r["graph"]["pool_bytes"] / 2**20, 1)}
             for r in train},
         "ckpt_resume_bitwise": ckpt["bitwise"],
+        "sten": {"loss_max_rel_err": sten_model["loss_max_rel_err"],
+                 "step_wall_ms": round(sten_model["step_wall_ms"], 3),
+                 "device_busy_share":
+                     sten_model["profile"].get("device_busy_share"),
+                 "conversion_share": round(
+                     sten_model["conversion_share"], 4),
+                 "peak_gb": round(sten_model["peak_gb"], 3),
+                 "launches": {kk: v for kk, v in sten_counts.items() if v}},
         "wall_s": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(card)

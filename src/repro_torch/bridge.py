@@ -1,8 +1,17 @@
 """Carry params from the JAX package into the port, through numpy.
 
 The caller hands over the JAX params as a nested dict of numpy arrays
-(``np.asarray`` of each leaf); a sparse leaf arrives as a dict
-``{val, blk_idx, cols, n, m, g, gr, dense_shape, sparse_dim}``.  The
+(``np.asarray`` of each leaf); a layout leaf arrives as a dict of its
+fields, told apart by its keys:
+
+- ``{val, blk_idx, cols, n, m, g, gr, dense_shape, sparse_dim}``:
+  ``GroupedNMTensor``;
+- ``{val, mask, origin}``: ``FixedMaskTensor``;
+- ``{val, idx, n, m, dense_shape}``: ``NMTensor``;
+- ``{data, indices, indptr, dense_shape}``: ``CsrTensor``;
+- ``{data, coords, dense_shape}``: ``CooTensor``;
+- ``{data}``: ``DenseTensor``.
+  The
 port's kernels and model then run on exactly the storage the reference
 converted, so parity tests do not depend on near-ties in the greedy
 conversion.  bf16 arrays cross without ``ml_dtypes``: their bits are
@@ -15,8 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import sparsifiers
-from repro_torch.core.layouts import FixedMaskTensor, GroupedNMTensor, \
-    SpmmPlan, pattern_onehots
+from repro_torch.core.layouts import CooTensor, CsrTensor, DenseTensor, \
+    FixedMaskTensor, GroupedNMTensor, NMTensor, SpmmPlan, pattern_onehots
 from repro_torch.device import resolve_device
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "sparsifier_from_dict",
@@ -61,16 +70,46 @@ def sparsifier_from_dict(d):
     return getattr(sparsifiers, d["type"])(**fields)
 
 
+def _shape(d: dict) -> tuple:
+    return tuple(int(s) for s in d["dense_shape"])
+
+
+def _int32(arr, dev) -> torch.Tensor:
+    return tensor_from_numpy(arr, dev).to(torch.int32)
+
+
+def _layout(d: dict, dev):
+    """The layout a leaf dict names (by its keys), or None."""
+    keys = set(d)
+    if {"val", "blk_idx"} <= keys:
+        return _sparse(d, dev)
+    if {"val", "mask"} <= keys:
+        return FixedMaskTensor(
+            tensor_from_numpy(d["val"], dev),
+            tensor_from_numpy(d["mask"], dev).bool(),
+            sparsifier_from_dict(d.get("origin")))
+    if {"val", "idx"} <= keys:
+        return NMTensor(tensor_from_numpy(d["val"], dev),
+                        _int32(d["idx"], dev), int(d["n"]), int(d["m"]),
+                        _shape(d))
+    if {"data", "indptr"} <= keys:
+        return CsrTensor(tensor_from_numpy(d["data"], dev),
+                         _int32(d["indices"], dev), _int32(d["indptr"], dev),
+                         _shape(d))
+    if {"data", "coords"} <= keys:
+        return CooTensor(tensor_from_numpy(d["data"], dev),
+                         _int32(d["coords"], dev), _shape(d))
+    if keys == {"data"}:
+        return DenseTensor(tensor_from_numpy(d["data"], dev))
+    return None
+
+
 def params_from_numpy(tree, device="cuda"):
     """The port's params from the reference's (numpy) params tree."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
-        if "val" in tree and "blk_idx" in tree:
-            return _sparse(tree, dev)
-        if "val" in tree and "mask" in tree:
-            return FixedMaskTensor(
-                tensor_from_numpy(tree["val"], dev),
-                tensor_from_numpy(tree["mask"], dev).bool(),
-                sparsifier_from_dict(tree.get("origin")))
+        leaf = _layout(tree, dev)
+        if leaf is not None:
+            return leaf
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return tensor_from_numpy(tree, dev)

@@ -1,19 +1,34 @@
 """Dense <-> n:m:g conversion and the mask constructors (port of
-``repro/core/nmg.py``): greedy conversion only, plus ``unstructured_mask``
-(magnitude top-k); the per-block top-n mask is the ``nm_mask`` kernel's
-(``kernels/nm_mask.py``).
+``repro/core/nmg.py``, paper §5.2).
 
-The greedy assignment is the paper's CPU algorithm: process the
-(block, pattern) scores from highest to lowest and first-fit assign, which
-equals iterated global argmax — vectorized as C*g steps over a
-[B, C*g, C] score tensor, as the reference does.  On random inputs near
-ties can flip under another summation order, so parity with the reference
-is exact on inputs whose score sums are exact (small integers) and is
-judged by preserved energy otherwise.
+Conversion methods, as in the reference:
+
+- ``greedy``: the paper's CPU algorithm: process the (block, pattern)
+  scores from highest to lowest and first-fit assign, which equals
+  iterated global argmax, vectorized as C*g steps over a [B, C*g, C]
+  score tensor;
+- ``swap``: the paper's GPU algorithm, seeded with ``greedy``: apply the
+  best improving pairwise swap of each chunk while one improves (at most
+  128 rounds, one host read a round);
+- ``exact``: brute force over every permutation on the host (an oracle for
+  tests, C*g <= 8).
+
+On random inputs near ties can flip under another summation order, so
+parity with the reference is exact on inputs whose score sums are exact
+(small integers) and is judged by preserved energy otherwise.
+
+The masks: ``unstructured_mask`` (magnitude top-k), ``nm_mask`` (the
+per-block top-n of the ``nm_mask`` kernel, ``kernels/ops.py``: its rule
+is the reference Pallas kernel's, which the reference's ``lax.top_k``
+spelling here shares except on NaN and f32 subnormals), ``blocked_mask``
+(whole blocks by L1) and ``grouped_nm_mask`` (what an n:m:g conversion
+keeps).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -27,7 +42,7 @@ from repro_torch.core.layouts import (
 )
 
 __all__ = ["dense_to_grouped_nm", "grouped_nm_to_dense", "energy",
-           "unstructured_mask"]
+           "nm_mask", "unstructured_mask", "blocked_mask", "grouped_nm_mask"]
 
 
 def energy(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -50,6 +65,31 @@ def unstructured_mask(x: torch.Tensor, sparsity: float) -> torch.Tensor:
         np.float32(size) * (np.float32(1.0) - np.float32(sparsity))), 1, size))
     thresh = torch.topk(flat, k, sorted=False).values.min()
     return (x.abs() >= thresh).to(x.dtype)
+
+
+def nm_mask(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Per-block top-n mask along the last axis, in ``x.dtype``: the
+    ``nm_mask`` kernel on a CUDA tensor, its plain version on the CPU."""
+    from repro_torch.kernels import ops as kops
+
+    return kops.nm_mask(x, n, m).to(x.dtype)
+
+
+def blocked_mask(x: torch.Tensor, block: int, sparsity: float
+                 ) -> torch.Tensor:
+    """Block-wise fraction mask, in ``x.dtype``: drop whole blocks of
+    ``block`` consecutive elements (last axis) with the smallest L1; the
+    kept count is Python's ``round`` of the reference, and the mask keeps
+    every block at or above the kept count's smallest score."""
+    k = x.shape[-1]
+    xp = pad_to_multiple(x, block, axis=-1)
+    sums = xp.abs().reshape(*xp.shape[:-1], -1, block).sum(dim=-1)
+    scores = sums.reshape(-1)
+    keep = max(1, int(round(scores.shape[0] * (1.0 - sparsity))))
+    thresh = torch.topk(scores, keep, sorted=False).values.min()
+    bmask = (sums >= thresh).to(x.dtype)
+    mask = torch.repeat_interleave(bmask, block, dim=-1)
+    return mask.reshape(*xp.shape[:-1], -1)[..., :k]
 
 
 def _greedy_assign(scores: torch.Tensor, g: int) -> torch.Tensor:
@@ -75,14 +115,57 @@ def _greedy_assign(scores: torch.Tensor, g: int) -> torch.Tensor:
     return perm
 
 
+def _swap_refine(scores: torch.Tensor, perm: torch.Tensor, g: int,
+                 max_iters: int = 128) -> torch.Tensor:
+    """The paper's GPU algorithm: each round applies the best improving
+    pairwise swap of chunk positions per chunk (gain above 1e-12), until no
+    chunk improves or ``max_iters`` rounds ran."""
+    B, CG, C = scores.shape
+    dev = scores.device
+    bidx = torch.arange(B, device=dev)
+    pos = torch.arange(CG, device=dev)
+    spos = torch.repeat_interleave(scores, g, dim=2)        # [B, CG, CG]
+    eye = torch.eye(CG, dtype=torch.bool, device=dev)
+    perm = perm.long().clone()
+    for _ in range(max_iters):
+        cur = spos[bidx[:, None], perm, pos[None]]            # [B, CG]
+        # cross[b, i, j] = spos[b, perm[b, j], i]
+        cross = spos[bidx[:, None, None], perm[:, None, :],
+                     pos[None, :, None]]
+        delta = (cross + cross.transpose(1, 2)
+                 - cur[:, :, None] - cur[:, None, :])
+        delta = delta.masked_fill(eye[None], float("-inf"))
+        flat = delta.reshape(B, CG * CG)
+        best = torch.argmax(flat, dim=1)
+        do = flat[bidx, best] > 1e-12
+        if not bool(do.any()):
+            break
+        i, j = best // CG, best % CG
+        pi, pj = perm[bidx, i], perm[bidx, j]
+        perm[bidx, i] = torch.where(do, pj, pi)
+        perm[bidx, j] = torch.where(do, pi, pj)
+    return perm.to(torch.int32)
+
+
+def _exact_assign(scores: np.ndarray, g: int) -> np.ndarray:
+    """Brute-force optimal assignment on the host (oracle; CG <= 8)."""
+    B, CG, C = scores.shape
+    best = np.zeros((B, CG), np.int32)
+    for b in range(B):
+        best_cost, best_perm = -np.inf, None
+        for p in itertools.permutations(range(CG)):
+            cost = sum(scores[b, blk, pos // g] for pos, blk in enumerate(p))
+            if cost > best_cost:
+                best_cost, best_perm = cost, p
+        best[b] = np.array(best_perm, np.int32)
+    return best
+
+
 def dense_to_grouped_nm(x: torch.Tensor, n: int, m: int, g: int,
                         gr: int = 1, sparse_dim: int = -1,
                         method: str = "greedy") -> GroupedNMTensor:
     """Convert dense 2-D ``x`` to n:m:g; ``sparse_dim`` is the axis that
     carries the n:m structure, ``gr`` rows share one chunk permutation."""
-    if method != "greedy":
-        raise NotImplementedError(
-            f"n:m:g conversion method {method!r} is not ported yet")
     assert x.ndim == 2, "n:m:g conversion operates on matrices"
     sd = sparse_dim % 2
     orig_shape = tuple(x.shape)
@@ -98,7 +181,16 @@ def dense_to_grouped_nm(x: torch.Tensor, n: int, m: int, g: int,
     mags = xp.abs().reshape(Gr, gr, nchunks, CG, m).sum(dim=1)
     scores = torch.einsum("bkm,pm->bkp", mags.reshape(Gr * nchunks, CG, m),
                           pat_onehot)
-    perm = _greedy_assign(scores, g).reshape(Gr, nchunks, CG)
+    if method == "greedy":
+        perm = _greedy_assign(scores, g)
+    elif method == "swap":
+        perm = _swap_refine(scores, _greedy_assign(scores, g), g)
+    elif method == "exact":
+        perm = torch.as_tensor(_exact_assign(
+            scores.detach().float().cpu().numpy(), g), device=xp.device)
+    else:
+        raise ValueError(f"unknown n:m:g conversion method {method!r}")
+    perm = perm.reshape(Gr, nchunks, CG)
     chunk_base = (torch.arange(nchunks, dtype=torch.int32,
                                device=xp.device) * CG)[None, :, None]
     blk_idx = (perm + chunk_base).to(torch.int32)
@@ -114,3 +206,14 @@ def dense_to_grouped_nm(x: torch.Tensor, n: int, m: int, g: int,
 def grouped_nm_to_dense(t: GroupedNMTensor) -> torch.Tensor:
     """n:m:g -> dense: one pass reordering by the stored index."""
     return t.to_dense()
+
+
+def grouped_nm_mask(x: torch.Tensor, n: int, m: int, g: int, gr: int = 1,
+                    sparse_dim: int = -1, method: str = "greedy"
+                    ) -> torch.Tensor:
+    """Mask of the entries an n:m:g conversion keeps, in ``x.dtype`` (the
+    masked-dense n:m:g of masked training)."""
+    t = dense_to_grouped_nm(x, n, m, g, gr=gr, sparse_dim=sparse_dim,
+                            method=method)
+    ones = dataclasses.replace(t, val=torch.ones_like(t.val))
+    return ones.to_dense().to(x.dtype)

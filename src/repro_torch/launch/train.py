@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.core.autograd import with_values
 from repro_torch.core.builder import SparsityBuilder
 from repro_torch.core.layouts import FixedMaskTensor
 from repro_torch.core.sparsifiers import ScalarFractionSparsifier
@@ -87,9 +88,9 @@ def _batch_on(batch: dict, device) -> dict:
 
 def loss_and_grads(params, cfg, batch):
     """(loss, aux, grads): one forward and backward.  ``grads`` mirrors
-    ``params`` with one tensor per trainable leaf (a ``FixedMaskTensor``'s
-    is the gradient of its ``val``, masked by the product) and None
-    elsewhere."""
+    ``params`` with one tensor per trainable leaf (a layout's is the
+    gradient of its value tensor: a ``FixedMaskTensor``'s ``val``, masked
+    by the product) and None elsewhere."""
     leaves = []
 
     def with_grad(p):
@@ -98,8 +99,7 @@ def loss_and_grads(params, cfg, batch):
             return p
         t = t.detach().requires_grad_(True)
         leaves.append(t)
-        return FixedMaskTensor(t, p.mask, p.origin) \
-            if isinstance(p, FixedMaskTensor) else t
+        return with_values(p, t)
 
     loss, aux = loss_fn(tree_map(with_grad, params), cfg, batch)
     it = iter(torch.autograd.grad(loss, leaves))

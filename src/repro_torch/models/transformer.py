@@ -5,7 +5,12 @@ Params are nested dicts with the reference's layout: layer leaves are
 stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
 them where the reference scans (a stacked layout is sliced per layer, a
 view).  Any projection may be a ``GroupedNMTensor`` (``mm`` routes it
-through the n:m:g kernels) or a ``FixedMaskTensor`` (masked training).
+through the n:m:g kernels) or another layout (``FixedMaskTensor`` in
+masked training; ``NMTensor`` and ``DenseTensor`` through the dispatcher's
+lossless conversions).  The reference's three intermediate tag sites are
+here (``attn.out`` in the forward and prefill, ``mlp.act`` and
+``mlp.out`` in every FFN): with no sparsity plan active ``tag`` returns
+its input itself, so they change nothing then.
 With ``cfg.mlp_inline_threshold`` the MLP up-projection carries the
 scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it runs the
 fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn`` are
@@ -30,7 +35,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.layouts import FixedMaskTensor
+from repro_torch.core.builder import tag
+from repro_torch.core.layouts import FixedMaskTensor, GroupedNMTensor
 from repro_torch.core.sparsifiers import ScalarThresholdSparsifier
 from repro_torch.device import resolve_device
 from repro_torch.kernels.nmg_fused import act_fn
@@ -95,21 +101,24 @@ def layer_params(layers, i: int):
         return layers[i]
     if isinstance(layers, FixedMaskTensor):
         return FixedMaskTensor(layers.val[i], layers.mask[i], layers.origin)
-    return layers.layer(i)
+    if isinstance(layers, GroupedNMTensor):
+        return layers.layer(i)
+    return layers.unbind(0)[i]
 
 
 def layer_list(layers) -> list:
-    """Every layer of the stacked layer tree, as views.  Tensors (and a
-    ``FixedMaskTensor``'s val and mask) are unbound once, so autograd
-    carries the per-layer gradients back into each stacked leaf with one
-    stack rather than one full-size scatter per layer."""
+    """Every layer of the stacked layer tree, as views.  Tensors and
+    layouts (a ``FixedMaskTensor``'s val and mask, an ``NMTensor``'s val
+    and idx, ...) are unbound once, so autograd carries the per-layer
+    gradients back into each stacked leaf with one stack rather than one
+    full-size scatter per layer."""
     if isinstance(layers, dict):
         parts = {k: layer_list(v) for k, v in layers.items()}
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    if isinstance(layers, (torch.Tensor, FixedMaskTensor)):
-        return list(layers.unbind(0))
-    return [layers.layer(i) for i in range(layers.val.shape[0])]
+    if isinstance(layers, GroupedNMTensor):
+        return [layers.layer(i) for i in range(layers.val.shape[0])]
+    return list(layers.unbind(0))
 
 
 def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
@@ -124,6 +133,7 @@ def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
 def _sublayer_attn(lp, x, cfg, *, collect=False):
     h = _rms(x, lp["ln1"])
     a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg)
+    a = tag("attn.out", a)
     return x + a, ({"k": k, "v": v} if collect else {})
 
 
@@ -143,7 +153,8 @@ def _sublayer_ffn(lp, x, cfg):
             hh = act_fn(cfg.act)(u) * v
     else:
         hh = act_fn(cfg.act)(mm(h, wi, inline=inline))
-    return x + mm(hh, lp["mlp"]["wo"])
+    hh = tag("mlp.act", hh)
+    return x + tag("mlp.out", mm(hh, lp["mlp"]["wo"]))
 
 
 def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False):

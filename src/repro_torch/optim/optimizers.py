@@ -2,11 +2,13 @@
 of ``repro/optim/optimizers.py``).
 
 Functions over nested dicts, run under ``torch.no_grad()``.  Moments are
-f32 and mirror each trainable leaf: a floating tensor, or a
-``FixedMaskTensor``'s ``val`` (never its mask); other leaves carry no
+f32 and mirror each trainable leaf: a floating tensor, or a layout's
+value tensor (a ``FixedMaskTensor``'s or ``NMTensor``'s ``val``, a
+``DenseTensor``'s ``data``; never a mask or an index table), as the
+reference's moments mirror every inexact leaf; other leaves carry no
 moments and pass through.  A gradients tree has the params tree's dicts
-with one tensor (or None) per leaf — for a ``FixedMaskTensor``, the
-gradient of its ``val``.
+with one tensor (or None) per leaf — for a layout, the gradient of its
+value tensor.
 
 This is the reference's update, not ``torch.optim.AdamW``: decay is added
 to the Adam direction before the learning rate (``p - lr * (m_hat /
@@ -30,7 +32,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.layouts import FixedMaskTensor
+from repro_torch.core.autograd import grad_values
+from repro_torch.core.layouts import SparsityLayout
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update",
            "clip_by_global_norm", "trainable", "tree_map", "tree_leaves"]
@@ -50,8 +53,8 @@ class AdamWConfig:
 
 def trainable(leaf):
     """The tensor an optimizer updates for ``leaf``, or None."""
-    if isinstance(leaf, FixedMaskTensor):
-        return leaf.val
+    if isinstance(leaf, SparsityLayout):
+        leaf = grad_values(leaf)
     if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
         return leaf
     return None

@@ -13,6 +13,7 @@ import torch
 
 from repro.configs import get_smoke as jax_smoke
 from repro.core import nmg as jax_nmg
+from repro.core import layouts as jl
 from repro.core.layouts import FixedMaskTensor as JaxFixedMask
 from repro.core.layouts import GroupedNMTensor as JaxGroupedNM
 from repro.models import init_lm as jax_init_lm
@@ -36,8 +37,9 @@ def sparsifier_to_dict(sp):
 
 
 def params_to_numpy(tree):
-    """A JAX params tree as nested dicts of numpy arrays; a
-    FixedMaskTensor as ``{"val", "mask", "origin"}``."""
+    """A JAX params tree as nested dicts of numpy arrays; a layout leaf as
+    the dict of its fields that ``repro_torch.bridge`` reads (a
+    FixedMaskTensor as ``{"val", "mask", "origin"}``, ...)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, JaxGroupedNM):
@@ -45,6 +47,20 @@ def params_to_numpy(tree):
     if isinstance(tree, JaxFixedMask):
         return {"val": np.asarray(tree.val), "mask": np.asarray(tree.mask),
                 "origin": sparsifier_to_dict(tree.origin)}
+    if isinstance(tree, jl.NMTensor):
+        return {"val": np.asarray(tree.val), "idx": np.asarray(tree.idx),
+                "n": tree.n, "m": tree.m, "dense_shape": tree.dense_shape}
+    if isinstance(tree, jl.CsrTensor):
+        return {"data": np.asarray(tree.data),
+                "indices": np.asarray(tree.indices),
+                "indptr": np.asarray(tree.indptr),
+                "dense_shape": tree.dense_shape}
+    if isinstance(tree, jl.CooTensor):
+        return {"data": np.asarray(tree.data),
+                "coords": np.asarray(tree.coords),
+                "dense_shape": tree.dense_shape}
+    if isinstance(tree, jl.DenseTensor):
+        return {"data": np.asarray(tree.data)}
     return np.asarray(tree)
 
 

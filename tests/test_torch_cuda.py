@@ -680,8 +680,12 @@ def test_decode_graphs_replay_bitwise_eager(arch):
     eager, then captured; the others replay) and two single steps, each
     against the eager program on a clone of the cache: tokens, logits and
     caches bitwise equal, and the launch counters of a replay equal those
-    of the eager run."""
+    of the eager run.  The model's ``tag`` sites run here with no sparsity
+    plan active (each returns its input itself)."""
     _require_cuda()
+    from repro_torch.core.builder import _active
+
+    assert _active() is None
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -899,3 +903,94 @@ def test_train_capture_raises_and_leaves_no_graph():
     eager = TrainGraph(step, params, state, batch, capture=False)
     assert torch.isfinite(eager.run(batch)).all()
     assert int(state["step"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# the programming model on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,m", [(2, 4), (16, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_tensor_from_dense_through_the_kernel(dtype, n, m, monkeypatch):
+    """``NMTensor.from_dense`` of bert-base-sten's ``mlp.wo`` [3072, 768]
+    launches the ``nm_mask`` kernel once, and its offsets and values equal
+    the build through the plain version bitwise."""
+    _require_cuda()
+    from repro_torch.core.layouts import NMTensor
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(3072, 768, generator=g, device="cuda").to(dtype)
+    before = nm_mask.nm_mask.launches
+    got = NMTensor.from_dense(x, n, m)
+    assert nm_mask.nm_mask.launches == before + 1
+    monkeypatch.setattr(nm_mask, "nm_mask", nm_mask.nm_mask_plain)
+    want = NMTensor.from_dense(x, n, m)
+    assert torch.equal(got.idx, want.idx) and torch.equal(got.val, want.val)
+    assert got.val.shape == (3072, 768 // m, n)
+    d = got.to_dense()
+    kept = d != 0
+    assert torch.equal(d[kept], x[kept])
+    assert int(kept.sum()) == x.numel() * n // m
+
+
+def test_fused_sparsified_op_launches_matmul_threshold_once():
+    """``sparsified_op(matmul, (ScalarThreshold(0.5), FixedMask, KeepAll,
+    FixedMask))`` on ``DenseTensor`` operands at the training path's
+    shape ([1024, 768] x [768, 3072], bf16): one ``matmul_threshold``
+    launch, no dense fallback, equal to the plain version under the
+    kernel's rule (values within 1e-5, the mask off the threshold)."""
+    _require_cuda()
+    import warnings
+
+    from repro_torch import sten
+    from repro_torch.core.layouts import DenseTensor, FixedMaskTensor
+    from repro_torch.core.sparsifiers import KeepAll, \
+        ScalarThresholdSparsifier
+
+    a, b = _mt_operands(1024, 768, 3072, torch.bfloat16)
+    op = sten.sparsified_op(torch.matmul, sten.OutFormat(
+        ScalarThresholdSparsifier(0.5), FixedMaskTensor, KeepAll(),
+        FixedMaskTensor))
+    before = fused_sparse_matmul.matmul_threshold.launches
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", sten.SparseFallbackWarning)
+        out = op(DenseTensor(a), DenseTensor(b))
+    assert fused_sparse_matmul.matmul_threshold.launches == before + 1
+    assert isinstance(out, FixedMaskTensor)
+    pv, pm = fused_sparse_matmul.matmul_threshold_plain(a, b, 0.5)
+    diff = _check_mask(out.mask, pm, a, b, 0.5)
+    torch.testing.assert_close(out.val[~diff], pv[~diff], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["csr_dense", "dense_csr", "coo_add"])
+def test_unstructured_products_on_the_card(case):
+    """CSR @ dense, dense @ CSR and COO + COO at [3072, 768], 70% sparse,
+    on CUDA tensors: allclose to the dense result (``index_add`` adds in
+    no fixed order there)."""
+    _require_cuda()
+    from repro_torch import sten
+    from repro_torch.core.layouts import CooTensor, CsrTensor
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sp = sten.ScalarFractionSparsifier(0.7)
+    w = torch.randn(3072, 768, generator=g, device="cuda")
+    if case == "coo_add":
+        v = torch.randn(3072, 768, generator=g, device="cuda")
+        a = sten.apply_sparsifier(sp, w, CooTensor)
+        c = sten.apply_sparsifier(sp, v, CooTensor)
+        out = sten.add(a, c)
+        assert isinstance(out, CooTensor)
+        torch.testing.assert_close(out.to_dense(), a.to_dense()
+                                   + c.to_dense(), rtol=0, atol=0)
+        return
+    csr = sten.apply_sparsifier(sp, w, CsrTensor)
+    assert abs(csr.density() - 0.3) < 1e-3
+    if case == "csr_dense":
+        b = torch.randn(768, 256, generator=g, device="cuda")
+        got, want = sten.matmul(csr, b), csr.to_dense() @ b
+    else:
+        b = torch.randn(256, 3072, generator=g, device="cuda")
+        got, want = sten.matmul(b, csr), b @ csr.to_dense()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)

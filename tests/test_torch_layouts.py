@@ -116,7 +116,8 @@ def test_builder_stacks_per_layer_conversions():
     w = torch.from_numpy(np.random.default_rng(3).integers(
         -9, 10, (3, 64, 32)).astype(np.float32))
     sp = GroupedNMSparsifier(1, 4, 8, 16, sparse_dim=0)
-    out = SparsityBuilder().set_weight("*mlp.wi", sp).sparsify_params(
+    out = SparsityBuilder().set_weight(
+        "*mlp.wi", sp, tl.GroupedNMTensor).sparsify_params(
         {"layers": {"mlp": {"wi": w, "wo": w}}})
     st = out["layers"]["mlp"]["wi"]
     assert isinstance(st, tl.GroupedNMTensor) and st.stacked
@@ -128,6 +129,30 @@ def test_builder_stacks_per_layer_conversions():
         assert torch.equal(li.blk_idx, one.blk_idx)
         assert torch.equal(li.plan.cols, one.plan.cols)
         assert li.val.is_contiguous() and li.plan.cols.is_contiguous()
+
+
+def test_builder_default_is_fixed_mask_as_reference():
+    """A GroupedNMSparsifier rule with no output format makes a
+    FixedMaskTensor whose mask is what the n:m:g conversion keeps, per
+    layer, with the sparsifier as its origin: the reference's result on
+    the same (integer, so exactly scored) weights, mask and values
+    equal."""
+    from repro.core.builder import SparsityBuilder as JaxBuilder
+    from repro.core.sparsifiers import GroupedNMSparsifier as JaxGNM
+
+    w = np.random.default_rng(5).integers(-9, 10, (3, 64, 32)).astype(
+        np.float32)
+    ref = JaxBuilder().set_weight("*mlp.wi", JaxGNM(
+        1, 4, 8, 16, sparse_dim=0)).sparsify_params(
+        {"layers": {"mlp": {"wi": jnp.asarray(w)}}})["layers"]["mlp"]["wi"]
+    sp = GroupedNMSparsifier(1, 4, 8, 16, sparse_dim=0)
+    got = SparsityBuilder().set_weight("*mlp.wi", sp).sparsify_params(
+        {"layers": {"mlp": {"wi": torch.from_numpy(w)}}})["layers"]["mlp"]
+    got = got["wi"]
+    assert isinstance(got, tl.FixedMaskTensor) and got.origin == sp
+    assert type(ref).__name__ == "FixedMaskTensor"
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+    np.testing.assert_array_equal(got.val.numpy(), np.asarray(ref.val))
 
 
 def test_bridge_bf16_keeps_bits():

@@ -251,10 +251,10 @@ DISPATCH = ["dense_masked_matmul", "masked_dense_matmul",
 def test_dispatch_routes_equal_reference(case):
     """The registered masked-dense implementations, the post-sparsifier
     route (an inline sparsifier with no fused implementation) and the
-    dense fallback (a signature with no implementation, which warns) give
-    the reference's values.  For (FixedMask, FixedMask) the reference
-    converts an operand losslessly instead of falling back; the port has
-    no conversion search yet, so it densifies and warns."""
+    dense fallback (``relu``, an op with no sparse implementation, which
+    warns in both packages) give the reference's values.  (FixedMask,
+    FixedMask) ``matmul`` converts an operand losslessly in both packages:
+    ``tests/test_torch_dispatch.py`` holds that route.)"""
     rng = np.random.default_rng(6)
     xj, xt = _both(rng.standard_normal((6, 32)), jnp.float32)
     mask = rng.random((32, 32)) < 0.5
@@ -270,7 +270,7 @@ def test_dispatch_routes_equal_reference(case):
         "masked_linear_post_sparsifier": lambda s, x, w, b: s.linear(
             x, w, inline=(JaxThreshold if s is jsten
                           else ScalarThresholdSparsifier)(1.0)),
-        "dense_fallback": lambda s, x, w, b: s.matmul(w, w),
+        "dense_fallback": lambda s, x, w, b: s.relu(w),
     }[case]
     with warnings.catch_warnings(record=True) as jw:
         warnings.simplefilter("always")
@@ -279,7 +279,8 @@ def test_dispatch_routes_equal_reference(case):
         warnings.simplefilter("always")
         got = calls(tsten, xt, wt, bt)
     fell_back = case == "dense_fallback"
-    assert not any(issubclass(w.category, JaxFallbackWarning) for w in jw)
+    assert any(issubclass(w.category, JaxFallbackWarning)
+               for w in jw) == fell_back
     assert any(issubclass(w.category, SparseFallbackWarning)
                for w in tw) == fell_back
     outcome = next(iter(dispatch_counters()))[0]
