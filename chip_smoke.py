@@ -40,16 +40,25 @@
       6912 gated, QKV bias, vocab 151936, bf16, seeded random weights)
       serves the same trace dense and n:m:g 1:4:8 gr64 with ``attn=True``;
       every decode-shaped FFN goes through the fused FFN kernel.
-   Each configuration is served twice: replaying the engine's decode
-   programs as CUDA graphs (the default) and with ``graphs=False``
-   (eager); token streams and launch counts (replays included) must be
-   equal.  Each ``attn=True`` model's prefill and decode logits through
-   the kernels are then held against the same steps through the plain
-   versions (bert at gr64 and gr16).  The graph phase then holds, in all
-   six configurations, the replayed 8-step chunk and single step bitwise
-   against the eager programs across an admission, and reports the
-   chunk's wall and device time eager and replayed, the capture and
-   instantiation cost and the graph pool's size.
+   Each configuration is served twice: replaying the engine's programs
+   as CUDA graphs (the default: one admission prefill per prompt length
+   and the decode chunk) and with ``graphs=False`` (eager), each engine
+   warmed first with the trace's prompt lengths, which builds its
+   programs (trace events: ``slot_prefill`` 4, ``decode_chunk`` 1, and
+   none added by the measured run); token streams and launch counts
+   (replays included) must be equal, TTFT p50/p99 is reported both
+   ways, and each length's replayed admission is held bitwise against
+   eager ``prefill_into_slot``.  Each ``attn=True`` model's prefill and
+   decode logits through the kernels are then held against the same
+   steps through the plain versions (bert at gr64 and gr16).  The graph
+   phase then holds, in all six configurations, the replayed 8-step
+   chunk and single step bitwise against the eager programs across an
+   admission, and reports the chunk's wall and device time eager and
+   replayed, the capture and instantiation cost and the graph pool's
+   size.  The prefill phase does the same for the admission programs
+   of bert and qwen (dense and ``attn=True`` gr64) at S = 16, 24, 32
+   and 64: replay bitwise eager into slots 1 and 3, counts equal, wall
+   replayed and eager, device time, capture cost and pool per length.
    c. full-width bert-base-sten trains (bf16, batch 8 x 128 tokens,
       AdamW, GMP): (a) the CLI's default masked path through
       ``repro_torch.launch.train`` (``--sparsity 0.75 --gmp iterative``,
@@ -807,25 +816,43 @@ ENGINE_KW = dict(max_slots=4, max_seq_len=max(PROMPT_LENS) + 32,
 
 
 def serve_phase(cfg, params, label) -> dict:
-    """The trace through the engine twice: replaying its decode programs
-    as CUDA graphs (the default) and with ``graphs=False`` (eager), each
-    after its own warm-up engine, with the counts zeroed right before each
-    run and read right after.  The token streams must be equal, and so
-    must the counts (a replay counts the launches it runs)."""
+    """The trace through the engine twice: replaying its programs as CUDA
+    graphs (the default: each prompt length's admission and the decode
+    chunk) and with ``graphs=False`` (eager).  Each engine is first warmed
+    with the trace's prompt lengths (``warmup_engine``), which builds its
+    programs: one ``slot_prefill`` trace event per distinct
+    length and one ``decode_chunk``; the measured run, with the counts
+    zeroed right before it and read right after, must build none.  The
+    token streams must be equal, and so must the counts (a replay counts
+    the launches it runs).  Then each prompt length's admission, replayed
+    into slot 2, is held bitwise against eager ``prefill_into_slot`` on a
+    clone of the cache."""
+    import numpy as np
     import torch
 
+    from repro_torch.models import prefill_into_slot
     from repro_torch.serve import ServeEngine, warmup_engine
+    from repro_torch.serve.tracecount import reset_trace_events, \
+        trace_events
 
     runs = {}
+    lens = sorted(set(PROMPT_LENS))
     for mode, graphs in (("graph", True), ("eager", False)):
         kw = dict(ENGINE_KW, graphs=graphs)
-        warmup_engine(params, cfg, requests_for(cfg), engine_kwargs=kw)
+        reset_trace_events()
+        eng = ServeEngine(params, cfg, **kw)
+        warmup_engine(eng, requests_for(cfg))
+        built = trace_events()
+        assert built == {"slot_prefill": len(lens), "decode_chunk": 1}, \
+            (label, mode, built)
         torch.cuda.synchronize()
         reset_counts()
-        eng = ServeEngine(params, cfg, **kw)
         outs = eng.run(requests_for(cfg))
         torch.cuda.synchronize()
         counts = read_counts()
+        assert trace_events() == built, (label, mode, trace_events())
+        print(f"serve[{label}, {mode}] trace events: {built} after the "
+              f"warm-up, {trace_events()} after the served trace")
         assert len(outs) == 8, f"{label}: {len(outs)} of 8 requests finished"
         for o in outs:
             assert o.finish_reason == "length" and len(o.tokens) == 32, (
@@ -833,10 +860,32 @@ def serve_phase(cfg, params, label) -> dict:
             assert all(0 <= t < cfg.vocab for t in o.tokens)
         assert not any(k.endswith("/plain") for k in counts["routes"]), counts
         assert eng._decode_chunk.info["captured"] == graphs
+        pg = eng.kv.prefill_graphs
+        assert sorted(pg) == lens, (label, sorted(pg))
+        for g in pg.values():
+            assert g.info["captured"] == graphs
+            assert g.info["replays"] == (2 if graphs else 0), g.info
         runs[mode] = {"metrics": eng.metrics(label=label).to_dict(),
                       "counts": counts, "tokens": [o.tokens for o in outs],
                       "decode_steps": eng.stats["decode_steps"],
-                      "chunk_graph": dict(eng._decode_chunk.info)}
+                      "chunk_graph": dict(eng._decode_chunk.info),
+                      "prefill_graphs": {S: dict(g.info)
+                                         for S, g in pg.items()},
+                      "trace_events": built}
+        if graphs:
+            rng = np.random.default_rng(3)
+            for S in lens:
+                prompt = rng.integers(0, cfg.vocab, (1, S), dtype=np.int32)
+                ref = {k: v.clone() for k, v in eng.kv.data.items()}
+                got = eng.kv.write_prefill(params, prompt, 2).clone()
+                want, _ = prefill_into_slot(
+                    params, cfg, torch.as_tensor(prompt, device="cuda"),
+                    ref, 2)
+                assert torch.equal(got, want), f"{label}: prefill S={S}"
+                for k in ("k", "v"):
+                    assert torch.equal(eng.kv.data[k], ref[k]), (label, S, k)
+            del ref
+        del eng
     g, e = runs["graph"], runs["eager"]
     assert g["tokens"] == e["tokens"], f"{label}: graph and eager streams differ"
     assert g["counts"] == e["counts"], (label, g["counts"], e["counts"])
@@ -844,6 +893,8 @@ def serve_phase(cfg, params, label) -> dict:
             "eager_metrics": e["metrics"], "counts": g["counts"],
             "decode_steps": g["decode_steps"],
             "chunk_graph": g["chunk_graph"],
+            "prefill_graphs": g["prefill_graphs"],
+            "trace_events": g["trace_events"],
             "first_tokens": [t[:4] for t in g["tokens"]]}
 
 
@@ -1032,6 +1083,121 @@ def graph_phase(cfg, params, label) -> dict:
         "replay_enqueue_ms": replay_enqueue_ms,
         "eager_profile": profile_later(eager_chunk, eager_wall),
         "replay_profile": profile_later(replay_chunk, replay_wall)}
+
+
+PREFILL_LENS = (16, 24, 32, 64)
+TIMED_PREFILLS = 7
+
+
+def prefill_phase(cfg, params, label) -> dict:
+    """The engine's admission programs (``serve/graphs.py:PrefillGraph``,
+    one per prompt length S in ``PREFILL_LENS``, sharing one graph pool)
+    at 4 slots of 96 rows, each against the same program run eagerly (a
+    ``PrefillGraph`` with capture off: the ``graphs=False`` admission):
+
+    - bitwise: the first run (eager on the capture stream, then captured)
+      into slot 1 and a replay into slot 3 at offset 8, each against eager
+      ``prefill_into_slot`` on a clone of the cache: logits and caches
+      equal, and the launch and route counts of each run equal the eager
+      run's;
+    - capture: host ms of capture and of instantiation, and the bytes the
+      capture added to the pool;
+    - wall time of one admission (median of ``TIMED_PREFILLS``, each
+      ending in the logits' host fetch), replayed and eager, unprofiled,
+      and the replay's device span from CUDA events; each's device time
+      from ``torch.profiler`` is queued for :func:`run_profiles`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, prefill_into_slot
+    from repro_torch.serve.cache import _slot_prefill_fn
+    from repro_torch.serve.graphs import PrefillGraph
+
+    cache = init_cache(cfg, 4, 96, device="cuda")
+    pool = torch.cuda.graph_pool_handle()
+    fn = _slot_prefill_fn(cfg)
+    rng = np.random.default_rng(4)
+    rows = []
+    for S in PREFILL_LENS:
+        g = PrefillGraph(fn, params, cache, S, pool=pool)
+        plain = PrefillGraph(fn, params, cache, S, capture=False)
+        for turn, (slot, off) in enumerate(((1, 0), (3, 8))):
+            prompt = rng.integers(0, cfg.vocab, (1, S), dtype=np.int32)
+            ref = {k: v.clone() for k, v in cache.items()}
+            ops.reset_kernel_counters()
+            got = g.run(prompt, slot, off).clone()
+            replayed = ops.counter_snapshot()
+            ops.reset_kernel_counters()
+            want, _ = prefill_into_slot(
+                params, cfg, torch.as_tensor(prompt, device="cuda"), ref,
+                slot, write_offset=off)
+            counts = ops.counter_snapshot()
+            assert torch.equal(got, want), f"{label} S={S}: logits {turn}"
+            for k in ("k", "v"):
+                assert torch.equal(cache[k], ref[k]), (label, S, turn, k)
+            assert replayed == counts, (label, S, turn, replayed, counts)
+        del ref
+        assert g.info["captured"] and g.info["replays"] == 1
+        prompt = rng.integers(0, cfg.vocab, (1, S), dtype=np.int32)
+
+        def timed(prog, prompt=prompt):
+            def one():
+                t0 = time.perf_counter()
+                prog.run(prompt, 1, 0).cpu()
+                return time.perf_counter() - t0
+            return one
+
+        eager_one, replay_one = timed(plain), timed(g)
+        eager_one()
+        replay_one()
+        eager_wall = statistics.median(
+            eager_one() for _ in range(TIMED_PREFILLS))
+        replay_wall = statistics.median(
+            replay_one() for _ in range(TIMED_PREFILLS))
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        for s_, e_ in zip(starts, ends):
+            torch.cuda.synchronize()
+            s_.record()
+            g.graph.replay()
+            e_.record()
+        torch.cuda.synchronize()
+        rows.append({
+            "S": S, "launches": counts["launches"],
+            "graph": dict(g.info), "eager_wall_ms": eager_wall * 1e3,
+            "replay_wall_ms": replay_wall * 1e3,
+            "replay_event_span_ms": statistics.median(
+                s_.elapsed_time(e_) for s_, e_ in zip(starts, ends)),
+            "eager_profile": profile_later(eager_one, eager_wall),
+            "replay_profile": profile_later(replay_one, replay_wall)})
+    return {"label": label, "slots": 4, "cache_rows": 96,
+            "bitwise": "first run (captured) into slot 1, a replay into "
+                       "slot 3 at offset 8", "lens": rows}
+
+
+def report_prefill(phases, card) -> None:
+    for p in phases:
+        for r in p["lens"]:
+            e, rp, gi = r["eager_profile"], r["replay_profile"], r["graph"]
+
+            def busy(prof, wall_ms):
+                ms = prof.get("device_busy_ms")
+                return ("not measured" if not ms else
+                        f"busy {ms:.3f} ms ({ms / wall_ms * 100:.1f}%)")
+
+            r["eager_busy_ms"] = e.get("device_busy_ms")
+            r["replay_busy_ms"] = rp.get("device_busy_ms")
+            print(f"prefill[{p['label']}] S={r['S']} on {card}: replay "
+                  f"bitwise eager; replayed {r['replay_wall_ms']:.3f} ms "
+                  f"wall, {busy(rp, r['replay_wall_ms'])}, event span "
+                  f"{r['replay_event_span_ms']:.3f} ms; eager "
+                  f"{r['eager_wall_ms']:.3f} ms wall, "
+                  f"{busy(e, r['eager_wall_ms'])}, {e.get('launches')} "
+                  f"launches; capture {gi['capture_ms']:.1f} ms + "
+                  f"instantiate {gi['instantiate_ms']:.1f} ms, pool "
+                  f"+{gi['pool_bytes'] / 2**20:.1f} MiB; kernels "
+                  + " ".join(f"{k[4:]} {r['launches'][k]}" for k in KERNELS))
 
 
 def finish_graph(p: dict) -> dict:
@@ -1545,7 +1711,8 @@ def report_runs(runs, card) -> None:
                   f"{m['throughput_tok_s']:.1f} tok/s, per-token p50 "
                   f"{m['tok_latency_p50'] * 1e3:.3f} ms p99 "
                   f"{m['tok_latency_p99'] * 1e3:.3f} ms, ttft p50 "
-                  f"{m['ttft_p50'] * 1e3:.3f} ms, sparse/dense p50 "
+                  f"{m['ttft_p50'] * 1e3:.3f} ms p99 "
+                  f"{m['ttft_p99'] * 1e3:.3f} ms, sparse/dense p50 "
                   f"{over:.3f}, decode steps {r['decode_steps']}, launches "
                   + " ".join(f"{k[4:]} {c[k]}" for k in KERNELS))
 
@@ -2150,6 +2317,8 @@ def main() -> int:
     # timed now, profiled at the end (their profiles hold the params)
     graphs = [graph_phase(cfg, p, r["label"]) for p, r in zip(
         (params, sparse_ffn, sparse_all, sparse_gr16), runs)]
+    prefills = [prefill_phase(cfg, params, "dense"),
+                prefill_phase(cfg, sparse_all, "sparse_attn")]
     del params, sparse_ffn, sparse_all, sparse_gr16
 
     # (b) qwen1.5-4b at full width and depth: dense, sparse (attn=True)
@@ -2190,6 +2359,8 @@ def main() -> int:
     print(f"logit parity (qwen attn=True, kernels vs plain): {q_parity}")
     q_graphs = [graph_phase(qcfg, qparams, "qwen_dense"),
                 graph_phase(qcfg, qsparse, "qwen_sparse")]
+    prefills += [prefill_phase(qcfg, qparams, "qwen_dense"),
+                 prefill_phase(qcfg, qsparse, "qwen_sparse")]
     del qparams, qsparse
 
     # (c) bert-base-sten training at full width: the CLI's masked path,
@@ -2224,6 +2395,7 @@ def main() -> int:
     # every profiler session last: one slows every later launch
     run_profiles()
     report_graphs([finish_graph(p) for p in graphs + q_graphs], card)
+    report_prefill(prefills, card)
     report_train(train, card)
     report_sten(sten_lib, sten_model)
 
@@ -2240,7 +2412,8 @@ def main() -> int:
         "logit_parity": {"bert": parity, "bert_gr16": parity16,
                          "qwen": q_parity},
         "train_margins": margins,
-        "graphs": graphs + q_graphs, "train": train, "ckpt": ckpt,
+        "graphs": graphs + q_graphs, "prefill": prefills,
+        "train": train, "ckpt": ckpt,
         "sten": {"library": sten_lib, "model": sten_model},
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
         indent=1))
@@ -2261,6 +2434,17 @@ def main() -> int:
         "device_busy_share": {p["label"]: {
             "eager": p["eager_busy_share"], "replay": p["replay_busy_share"]}
             for p in graphs + q_graphs},
+        "prefill_ms": {p["label"]: {r["S"]: {
+            "replay": round(r["replay_wall_ms"], 3),
+            "eager": round(r["eager_wall_ms"], 3),
+            "replay_busy": r["replay_busy_ms"]} for r in p["lens"]}
+            for p in prefills},
+        "ttft_ms": {r["label"]: {mode: [
+            round(r[key]["ttft_p50"] * 1e3, 3),
+            round(r[key]["ttft_p99"] * 1e3, 3)]
+            for mode, key in (("graph", "metrics"),
+                              ("eager", "eager_metrics"))}
+            for r in runs + qruns},
         "logit_err": {"bert": parity["max_abs_err"],
                       "bert_gr16": parity16["max_abs_err"],
                       "qwen": q_parity["max_abs_err"]},

@@ -9,14 +9,21 @@ Layout of a checkpoint directory, as the reference's::
     <root>/LATEST            # the newest step, written last by a rename
 
 A tree is nested dicts (keys in sorted order, names joined by "."),
-tuples or lists (children named by index), ``FixedMaskTensor`` leaves
-(its ``val`` then its ``mask``, named ``.0`` and ``.1`` as the
-reference's pytree flattening names them; ``origin`` rides in the
-template, as in the reference's treedef), None (no leaf) and tensors or
-numpy arrays.  Each leaf's sha is the first 16 hex digits of the sha256
-of its bytes; bf16 is stored as its uint16 bits with the logical dtype
-``"bfloat16"`` in the manifest and viewed back with torch (no
-``ml_dtypes``).  Checkpoints of either package restore in the other.
+tuples or lists (children named by index), None (no leaf), tensors or
+numpy arrays, and every layout of ``core/layouts.py``.  A layout's
+children are named by their index in the reference's pytree flattening
+(its ``tree_flatten``): ``DenseTensor`` ``data``; ``CsrTensor`` ``data``,
+``indices``, ``indptr``; ``CooTensor`` ``data``, ``coords``; ``NMTensor``
+``val``, ``idx``; ``FixedMaskTensor`` ``val``, ``mask``;
+``GroupedNMTensor`` ``val``, ``blk_idx``, then its ``SpmmPlan`` as a node
+(``w.2.0`` its ``cols``, ``w.2.1`` its ``pat_onehot``; a tensor without a
+plan has no ``w.2`` leaves).  The static fields (``n``, ``m``, ``g``,
+``gr``, ``dense_shape``, ``sparse_dim``, ``origin``) ride in the
+template, as in the reference's treedef; a ``GroupedNMTensor``'s cache
+of per-layer views is neither saved nor needed.  Each leaf's sha is the
+first 16 hex digits of the sha256 of its bytes; bf16 is stored as its
+uint16 bits with the logical dtype ``"bfloat16"`` in the manifest and
+viewed back with torch (no ``ml_dtypes``).  Checkpoints of either package restore in the other.
 The manifest is committed after the data and ``LATEST`` after the
 manifest, so a crashed writer never leaves a readable, corrupt
 checkpoint; restore checks every hash.
@@ -24,6 +31,7 @@ checkpoint; restore checks every hash.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -35,9 +43,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.layouts import FixedMaskTensor
+from repro_torch.core.layouts import CooTensor, CsrTensor, DenseTensor, \
+    FixedMaskTensor, GroupedNMTensor, NMTensor, SpmmPlan
 
 __all__ = ["save_pytree", "load_pytree", "CheckpointManager"]
+
+#: each layout's children, in the order of the reference's ``tree_flatten``
+_NODE_FIELDS = {
+    DenseTensor: ("data",),
+    CsrTensor: ("data", "indices", "indptr"),
+    CooTensor: ("data", "coords"),
+    NMTensor: ("val", "idx"),
+    FixedMaskTensor: ("val", "mask"),
+    GroupedNMTensor: ("val", "blk_idx", "plan"),
+    SpmmPlan: ("cols", "pat_onehot"),
+}
 
 
 def _children(tree) -> list:
@@ -46,14 +66,15 @@ def _children(tree) -> list:
         return [(str(k), tree[k]) for k in sorted(tree)]
     if isinstance(tree, (tuple, list)):
         return [(str(i), v) for i, v in enumerate(tree)]
-    return [("0", tree.val), ("1", tree.mask)]
+    return [(str(i), getattr(tree, f))
+            for i, f in enumerate(_NODE_FIELDS[type(tree)])]
 
 
 def _is_leaf(tree) -> bool:
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return True
-    if tree is None or isinstance(tree, (dict, tuple, list,
-                                         FixedMaskTensor)):
+    if tree is None or isinstance(tree, (dict, tuple, list)) \
+            or type(tree) in _NODE_FIELDS:
         return False
     raise TypeError(f"cannot checkpoint a {type(tree).__name__} leaf")
 
@@ -75,13 +96,15 @@ def _rebuild(template, leaves):
         return next(leaves)
     if template is None:
         return None
-    if isinstance(template, FixedMaskTensor):
-        return FixedMaskTensor(next(leaves), next(leaves), template.origin)
     vals = {name: _rebuild(child, leaves)
             for name, child in _children(template)}
     if isinstance(template, dict):
         return {k: vals[str(k)] for k in template}
-    return type(template)(vals[str(i)] for i in range(len(template)))
+    if isinstance(template, (tuple, list)):
+        return type(template)(vals[str(i)] for i in range(len(template)))
+    # a layout: its static fields from the template
+    return dataclasses.replace(template, **{
+        f: vals[str(i)] for i, f in enumerate(_NODE_FIELDS[type(template)])})
 
 
 def _host(leaf) -> tuple:

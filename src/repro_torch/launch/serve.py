@@ -84,9 +84,9 @@ def main(argv=None) -> int:
             print(f"sparse/dense per-token p50 ratio: "
                   f"{s.tok_latency_p50 / d.tok_latency_p50:.3f}")
     else:
-        if warm:
-            warmup_engine(params, cfg, reqs, engine_kwargs=ekw)
         eng = ServeEngine(params, cfg, **ekw)
+        if warm:
+            warmup_engine(eng, reqs)
         outs = eng.run(reqs)
         print(eng.metrics(label="dense").report())
         results = {"dense": (outs, None)}

@@ -46,7 +46,7 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.autograd import with_values
 from repro_torch.core.builder import SparsityBuilder
-from repro_torch.core.layouts import FixedMaskTensor
+from repro_torch.core.layouts import FixedMaskTensor, SparsityLayout
 from repro_torch.core.sparsifiers import ScalarFractionSparsifier
 from repro_torch.data import DataConfig, SyntheticLMPipeline
 from repro_torch.device import resolve_device
@@ -201,11 +201,12 @@ def _log_line(step, loss, gnorm, dt):
 
 def ckpt_tree(params, opt_state) -> dict:
     """``{"params", "opt"}`` in the reference's checkpoint structure: the
-    moments of a ``FixedMaskTensor`` leaf as a one-tuple (the reference's
-    moment mirrors the layout, ``FixedMaskTensor(moment, None)``, whose
-    one leaf is named ``.0``)."""
+    moments of a layout leaf as a one-tuple (the reference's moment
+    mirrors the layout with its inexact leaf alone, e.g.
+    ``FixedMaskTensor(moment, None)``, whose one leaf is named ``.0``:
+    every layout's value tensor is its first child)."""
     def like(p, m):
-        return (m,) if isinstance(p, FixedMaskTensor) else m
+        return (m,) if isinstance(p, SparsityLayout) else m
 
     return {"params": params, "opt": {
         "mu": tree_map(like, params, opt_state["mu"]),

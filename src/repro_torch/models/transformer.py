@@ -20,9 +20,10 @@ The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
 array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
 cache for the reference's calling convention.  The serving engine's decode
-graphs (``serve/graphs.py``) replay against these very tensors, so no
-path may reallocate them, and the decode step reads nothing from the host
-(positions stay device tensors).  Decode writes past the
+and admission graphs (``serve/graphs.py``) replay against these very
+tensors, so no path may reallocate them, and neither the decode step
+nor slot prefill reads anything from the host (positions, slot and
+write offset may be device tensors).  Decode writes past the
 cache end are clamped onto its last row where the reference drops them:
 only a slot that already finished writes there (its tokens are discarded
 on the host), and a later occupant rewrites every row before reading it.
@@ -237,28 +238,36 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     return logits_of(params, cfg, x)[:, 0], cache
 
 
-def _write_slot_leaf(dst, src, slot: int):
+def _write_slot_leaf(dst, src, slot, offset=0):
     """Write one request's collected cache leaf into batch row ``slot`` of
-    ``dst`` [L, B_slots, S_cache, ...], in place.  Absolute position p
-    lands at row ``p % S_cache`` (a prompt longer than the cache keeps its
-    tail)."""
-    src = src[:, 0]                                     # [L, ...]
+    ``dst`` [L, B_slots, S_cache, ...] at seq offset ``offset``, in place,
+    as one indexed write.  Absolute position ``offset + p`` lands at row
+    ``(offset + p) % S_cache`` (a prompt longer than the cache keeps its
+    tail).  ``slot`` and ``offset`` are Python ints or 0-dim integer
+    tensors on ``dst``'s device; neither is read back to the host, so a
+    captured program writes whichever slot its buffers name at replay."""
+    src = src[:, 0]                                     # [L, S_src, ...]
     S_c, S_src = dst.shape[2], src.shape[1]
     take = min(S_src, S_c)
     piece = src[:, -take:].to(dst.dtype)
-    rows = ((S_src - take)
-            + torch.arange(take, device=dst.device)) % S_c
-    dst[:, slot].index_copy_(1, rows, piece)
+    rows = (torch.arange(take, device=dst.device)
+            + (offset + (S_src - take))) % S_c
+    flat = dst.view(dst.shape[0], -1, *dst.shape[3:])   # [L, B*S_c, ...]
+    flat.index_copy_(1, (slot * S_c + rows).long(), piece)
     return dst
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
-            *, cache=None, slot: int | None = None):
+            *, cache=None, slot=None, write_offset=0):
     """Parallel forward that also fills the decode cache; returns
     (last-position logits [B, V], cache).  With ``cache_len`` a fresh
     cache is allocated and positions [0, S) written for the batch; with
     ``cache`` + ``slot`` one request [1, S] is written into batch row
-    ``slot`` (the serving admission path)."""
+    ``slot`` at seq offset ``write_offset`` (the serving admission path;
+    both may be 0-dim device tensors, so one captured program serves every
+    slot).  As in the reference, the contributions carry RoPE phases from
+    position 0 and the forward reads nothing of the cache: a nonzero
+    ``write_offset`` only places rows."""
     B, S = tokens.shape
     hidden, contribs = forward(params, cfg, tokens, collect_cache=True)
     logits = logits_of(params, cfg, hidden[:, -1:])[:, 0]
@@ -266,7 +275,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
         assert slot is not None, "slot-mode prefill needs a slot index"
         assert B == 1, "slot-mode prefill admits one request at a time"
         for name in ("k", "v"):
-            _write_slot_leaf(cache[name], contribs[name], slot)
+            _write_slot_leaf(cache[name], contribs[name], slot, write_offset)
         return logits, cache
     assert cache_len is not None, "prefill needs cache_len or cache+slot"
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
@@ -276,7 +285,10 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     return logits, cache
 
 
-def prefill_into_slot(params, cfg: ModelConfig, tokens, cache, slot: int):
+def prefill_into_slot(params, cfg: ModelConfig, tokens, cache, slot, *,
+                      write_offset=0):
     """Admit one request: prefill ``tokens`` [1, S] into batch row
-    ``slot`` of ``cache``; returns (last-position logits [1, V], cache)."""
-    return prefill(params, cfg, tokens, cache=cache, slot=slot)
+    ``slot`` of ``cache`` at seq offset ``write_offset`` (ints or 0-dim
+    device tensors); returns (last-position logits [1, V], cache)."""
+    return prefill(params, cfg, tokens, cache=cache, slot=slot,
+                   write_offset=write_offset)

@@ -10,12 +10,17 @@ greedy, ``decode_chunk`` steps run back to back on the device with
 on-device argmax and the token block reaches the host in one sync per
 chunk; otherwise one step at a time with host-side sampling.
 
-The engine holds its two decode programs as the reference's holds its two
-jitted ones (``_jit_decode``, ``_jit_decode_chunk``): on the card each is
-a :class:`~repro_torch.serve.graphs.DecodeGraph`, run eagerly once and
-captured in the engine's first decode of its kind, then replayed on every
-later decode.  Admission and prefill stay eager.  ``graphs=False`` runs
-both programs eagerly on the card; a CPU engine always does.
+The engine holds its programs as the reference's holds its jitted ones
+(``_jit_decode``, ``_jit_decode_chunk``, and ``_jit_slot_prefill`` once
+per prompt length): on the card each decode program is a
+:class:`~repro_torch.serve.graphs.DecodeGraph` and each prompt length's
+admission a :class:`~repro_torch.serve.graphs.PrefillGraph` (held by the
+:class:`SlotKVCache`), run eagerly once and captured at its first use,
+then replayed; all of them share one graph pool.  ``graphs=False`` runs
+every program eagerly on the card; a CPU engine always does.
+:func:`warmup_engine` builds in the engine to be measured every program a
+trace needs before the trace is timed, and :func:`serve_programs` lists
+the programs with example arguments, as the reference's does.
 
 ``sparsify_for_serving`` converts weights to :class:`GroupedNMTensor`
 through the ordinary :class:`SparsityBuilder`; the engine serves dense and
@@ -35,7 +40,7 @@ from repro_torch.core.builder import SparsityBuilder
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.core.sparsifiers import GroupedNMSparsifier
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step
+from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve.cache import PromptTooLongError, SlotKVCache
 from repro_torch.serve.graphs import DecodeGraph
@@ -44,7 +49,7 @@ from repro_torch.serve.queue import Request, RequestOutput, RequestQueue, \
     sample_token
 
 __all__ = ["ServeEngine", "sparsify_for_serving", "compare_dense_sparse",
-           "warmup_engine", "decode_chunk"]
+           "warmup_engine", "decode_chunk", "serve_programs"]
 
 DEFAULT_MAX_SLOTS = 8
 
@@ -99,6 +104,38 @@ def _decode_chunk_fn(cfg: ModelConfig, n_steps: int):
     return chunk
 
 
+def serve_programs(params, cfg: ModelConfig, *, max_slots: int = 4,
+                   max_seq_len: int = 64, decode_chunk: int = 4,
+                   prompt_len: int = 8) -> dict:
+    """The engine's programs as ``{name: (fn, example_args)}``, with
+    example arguments on the params' device shaped as a running engine
+    shapes them (the reference's ``serve_programs``): ``decode`` and
+    ``decode_chunk`` are the callables the engine's decode graphs run
+    (logits [B, V] and the [T, B] token block; the cache is updated in
+    place, so each gets its own example cache), ``prefill`` the classic
+    prefill of a fresh ``max_seq_len`` cache, as in the reference."""
+    dev = _param_device(params)
+
+    def decode_args():
+        return (params, torch.zeros((max_slots, 1), dtype=torch.int32,
+                                    device=dev),
+                init_cache(cfg, max_slots, max_seq_len, device=dev),
+                torch.full((max_slots,), prompt_len, dtype=torch.int32,
+                           device=dev))
+
+    progs = {
+        "decode": (_decode_fn(cfg), decode_args()),
+        "prefill": (
+            lambda p, toks: prefill(p, cfg, toks, cache_len=max_seq_len),
+            (params, torch.zeros((1, prompt_len), dtype=torch.int32,
+                                 device=dev))),
+    }
+    if decode_chunk > 1:
+        progs["decode_chunk"] = (_decode_chunk_fn(cfg, decode_chunk),
+                                 decode_args())
+    return progs
+
+
 @dataclasses.dataclass
 class _SlotState:
     """Host-side bookkeeping for one occupied slot."""
@@ -122,7 +159,8 @@ class ServeEngine:
     (default ``"cuda"``; pass ``device="cpu"`` for the plain versions).
     ``decode_chunk`` is the number of device-resident greedy steps per
     host sync (1 = the per-token reference loop).  ``graphs=False`` runs
-    the decode programs eagerly on the card instead of replaying them."""
+    the decode and admission programs eagerly on the card instead of
+    replaying them."""
 
     def __init__(self, params, cfg: ModelConfig, *,
                  max_slots: int = DEFAULT_MAX_SLOTS,
@@ -140,15 +178,18 @@ class ServeEngine:
         self.max_seq_len = max_seq_len
         self.decode_chunk = max(1, decode_chunk)
         self.queue = RequestQueue()
-        self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
-                              device=self.device)
         capture = graphs and self.device.type == "cuda"
+        # every program of the engine (decode, chunk, each prompt length's
+        # admission) captures into this one pool: they never run at once
         pool = torch.cuda.graph_pool_handle() if capture else None
+        self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
+                              device=self.device, graphs=capture, pool=pool)
         self._decode = DecodeGraph(_decode_fn(cfg), params, self.kv.data,
-                                   max_slots, capture=capture, pool=pool)
+                                   max_slots, name="decode",
+                                   capture=capture, pool=pool)
         self._decode_chunk = DecodeGraph(
             _decode_chunk_fn(cfg, self.decode_chunk), params, self.kv.data,
-            max_slots, capture=capture, pool=pool) \
+            max_slots, name="decode_chunk", capture=capture, pool=pool) \
             if self.decode_chunk > 1 else None
         self.stats = {"rejected": 0, "peak_active": 0, "decode_steps": 0}
         self._slots: list[Optional[_SlotState]] = [None] * max_slots
@@ -165,6 +206,15 @@ class ServeEngine:
 
     def free_slots(self) -> list:
         return [i for i, s in enumerate(self._slots) if s is None]
+
+    def reset_metrics(self) -> None:
+        """Forget the finished outputs, the stats and the clock (the
+        programs, and what they captured, stay)."""
+        assert not self.num_active and not len(self.queue), \
+            "reset_metrics with requests in flight"
+        self._outputs = []
+        self._t0 = None
+        self.stats = {"rejected": 0, "peak_active": 0, "decode_steps": 0}
 
     def _now(self) -> float:
         if self._t0 is None:
@@ -191,10 +241,9 @@ class ServeEngine:
         self.stats["rejected"] += 1
 
     def _admit(self, slot: int, req: Request, now: float) -> None:
-        """Prefill ``req`` into ``slot`` and sample its first token."""
-        prompt = torch.as_tensor(req.prompt, dtype=torch.int32,
-                                 device=self.device)[None]
-        logits = self.kv.write_prefill(self.params, prompt, slot)
+        """Prefill ``req`` into ``slot`` (its prompt length's admission
+        program) and sample its first token."""
+        logits = self.kv.write_prefill(self.params, req.prompt[None], slot)
         S = int(req.prompt.size)
         # token i (1-based) is written at position S + i - 1, so N tokens
         # need S + N - 1 <= max_seq_len
@@ -338,18 +387,29 @@ class ServeEngine:
         return summarize(self._outputs, wall, label=label)
 
 
-def warmup_engine(params, cfg: ModelConfig, requests, *,
-                  engine_kwargs: Optional[dict] = None) -> None:
-    """Serve a tiny trace (one request per distinct prompt length, two
-    tokens each) through a throwaway engine, so a measured run does not
-    include first-call costs (kernel builds, allocator growth)."""
-    seen, warm = set(), []
+def warmup_engine(engine: ServeEngine, requests) -> ServeEngine:
+    """Serve a tiny trace through ``engine`` (the one to be measured), so
+    a measured run of ``requests`` does not include first-call costs
+    (kernel builds, allocator growth, program builds): one greedy request
+    per distinct prompt length, two tokens each, builds every length's
+    admission program and the greedy decode program; when ``requests``
+    hold a sampled request, one more run of it alone builds the
+    single-step program.  Then clears the engine's outputs, stats and
+    clock.  Returns ``engine``."""
+    seen, greedy, sampled = set(), [], None
     for r in requests:
         if r.prompt.size not in seen:
             seen.add(r.prompt.size)
-            warm.append(Request(uid=-1 - len(warm), prompt=r.prompt,
-                                max_new_tokens=2))
-    ServeEngine(params, cfg, **dict(engine_kwargs or {})).run(warm)
+            greedy.append(Request(uid=-1 - len(greedy), prompt=r.prompt,
+                                  max_new_tokens=2))
+        if sampled is None and not r.sampling.greedy:
+            sampled = Request(uid=-1 - len(seen), prompt=r.prompt,
+                              max_new_tokens=2, sampling=r.sampling)
+    engine.run(greedy)
+    if sampled is not None:
+        engine.run([sampled])
+    engine.reset_metrics()
+    return engine
 
 
 def compare_dense_sparse(params, cfg: ModelConfig, requests, *,
@@ -365,9 +425,9 @@ def compare_dense_sparse(params, cfg: ModelConfig, requests, *,
         ("dense", params),
         ("sparse", sparsify_for_serving(params, *nm, gr=gr)),
     ):
-        if warmup:
-            warmup_engine(p, cfg, requests, engine_kwargs=engine_kwargs)
         eng = ServeEngine(p, cfg, **engine_kwargs)
+        if warmup:
+            warmup_engine(eng, requests)
         outs = eng.run(requests)
         results[label] = (outs, eng.metrics(label=label))
     return results

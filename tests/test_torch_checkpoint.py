@@ -5,14 +5,20 @@ leaf index (names, shapes, dtypes, hashes) equal to the reference's for
 the same bridged params and optimizer state; checkpoints of either
 package restored by the other; and ``python -m repro_torch.launch.train``
 resumed from step 3 of 6 bit for bit equal to the run it resumes, through
-the graph trainer and through ``--host-loop``.  Every comparison is exact:
-the same bytes go through the same formats."""
+the graph trainer and through ``--host-loop``; every sparse layout
+(``DenseTensor``, ``CsrTensor``, ``CooTensor``, ``NMTensor``,
+``GroupedNMTensor`` with and without its plan) written by either package
+and restored by the other, and a model with n:m:g and n:m leaves resumed
+bit for bit.  Every comparison is exact: the same bytes go through the
+same formats."""
 
+import dataclasses
 import json
 import shutil
 import signal
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,19 +26,26 @@ import torch
 from repro.ckpt import load_pytree as jax_load
 from repro.ckpt import save_pytree as jax_save
 from repro.configs import get_smoke as jax_smoke
+from repro.core import layouts as jl
 from repro.core.layouts import FixedMaskTensor as JaxFixedMask
 from repro.launch.train import build_sparse_params as jax_build
 from repro.models import init_lm as jax_init_lm
 from repro.optim import adamw_init as jax_adamw_init
 from repro_torch import bridge
 from repro_torch.ckpt import CheckpointManager, load_pytree, save_pytree
-from repro_torch.core.layouts import FixedMaskTensor
-from repro_torch.core.sparsifiers import ScalarFractionSparsifier
+from repro_torch.ckpt.checkpoint import _flatten
+from repro_torch.configs import get_smoke
+from repro_torch.core.builder import SparsityBuilder
+from repro_torch.core.layouts import FixedMaskTensor, GroupedNMTensor, \
+    NMTensor
+from repro_torch.core.sparsifiers import GroupedNMSparsifier, NMSparsifier, \
+    ScalarFractionSparsifier
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.graphs import state_tensors
-from repro_torch.optim import adamw_init
+from repro_torch.models import init_lm
+from repro_torch.optim import AdamWConfig, adamw_init
 
-from tests._torch_compat import params_to_numpy
+from tests._torch_compat import jax_dense_to_grouped_nm, params_to_numpy
 
 
 def _tree():
@@ -248,3 +261,130 @@ def test_sigterm_saves_steps_completed(tmp_path, monkeypatch, loop, saved):
     assert res["losses"] == full["losses"][saved:]
     for a, b in zip(_state(res), _state(full)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# every sparse layout, both ways (the reference flattens each as a pytree)
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ["dense", "csr", "coo", "nm", "gnm", "gnm_no_plan"]
+#: each layout's static fields, which ride in the template
+STATIC = {"DenseTensor": (), "CsrTensor": ("dense_shape",),
+          "CooTensor": ("dense_shape",), "NMTensor": ("n", "m", "dense_shape"),
+          "GroupedNMTensor": ("n", "m", "g", "gr", "dense_shape",
+                              "sparse_dim")}
+
+
+def _layout_pair(kind):
+    """One seeded [32, 48] matrix (about half zeros) in the reference's
+    layout ``kind``, and its bridged port twin."""
+    x = np.random.default_rng(3).standard_normal((32, 48)).astype(np.float32)
+    x[np.abs(x) < 0.7] = 0
+    jx = jnp.asarray(x)
+    if kind == "dense":
+        j = jl.DenseTensor(jx)
+    elif kind == "csr":
+        j = jl.CsrTensor.from_dense(jx)
+    elif kind == "coo":
+        j = jl.CooTensor.from_dense(jx)
+    elif kind == "nm":
+        j = jl.NMTensor.from_dense(jx, 2, 4)
+    else:
+        j = jax_dense_to_grouped_nm(jx, n=1, m=4, g=2, gr=8, sparse_dim=0)
+    t = bridge.params_from_numpy({"w": params_to_numpy(j)}, device="cpu")["w"]
+    if kind == "gnm_no_plan":
+        j, t = (dataclasses.replace(j, plan=None),
+                dataclasses.replace(t, plan=None))
+    return j, t
+
+
+def _static(layout) -> dict:
+    return {f: getattr(layout, f) for f in STATIC[type(layout).__name__]}
+
+
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_layout_manifest_equals_reference(tmp_path, kind):
+    """The same layout through both writers: leaf names (``w.0``,
+    ``w.2.1``, ...), shapes, dtypes and hashes equal; no ``w.2`` leaves
+    without a plan."""
+    j, t = _layout_pair(kind)
+    want = jax_save({"w": j}, tmp_path / "jax")
+    got = save_pytree({"w": t}, tmp_path / "pt")
+    names = [e["name"] for e in want["index"]]
+    assert [e["name"] for e in got["index"]] == names
+    assert got["index"] == want["index"]
+    assert got["tree_hash"] == want["tree_hash"]
+    assert any(n.startswith("w.2.") for n in names) == (kind == "gnm")
+
+
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_layout_written_by_reference_restores_in_port(tmp_path, kind):
+    j, t = _layout_pair(kind)
+    jax_save({"w": j}, tmp_path / "jax")
+    got, _ = load_pytree({"w": t}, tmp_path / "jax")
+    got = got["w"]
+    assert type(got) is type(t) and type(got).__name__ == type(j).__name__
+    assert _static(got) == _static(j)
+    if isinstance(got, GroupedNMTensor):
+        assert (got.plan is None) == (j.plan is None) and got._layers == {}
+    flat_j = jax.tree_util.tree_leaves(j)
+    flat_t = [leaf for _, leaf in _flatten(got)]
+    assert len(flat_t) == len(flat_j)
+    for a, b in zip(flat_t, flat_j):
+        assert str(a.numpy().dtype) == str(b.dtype)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(got.to_dense().numpy(),
+                                  np.asarray(j.to_dense()))
+
+
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_layout_written_by_port_restores_in_reference(tmp_path, kind):
+    j, t = _layout_pair(kind)
+    save_pytree({"w": t}, tmp_path / "pt")
+    back, _ = jax_load({"w": j}, tmp_path / "pt")
+    back = back["w"]
+    assert type(back) is type(j)
+    assert _static(back) == _static(t)
+    flat_b = jax.tree_util.tree_leaves(back)
+    flat_t = [leaf for _, leaf in _flatten(t)]
+    assert len(flat_b) == len(flat_t)
+    for a, b in zip(flat_b, flat_t):
+        assert a.dtype == b.numpy().dtype
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_model_with_nmg_and_nm_leaves_resumes_bitwise(tmp_path):
+    """bert-base-sten SMOKE (f32) with n:m:g 1:4:8 gr16 ``mlp.wi`` /
+    ``mlp.wo`` and 2:4 NMTensor ``attn.wo``: one step, a checkpoint of
+    params and AdamW state, a second step; the tree restored from the
+    checkpoint and stepped once equals the unbroken run bit for bit."""
+    cfg = dataclasses.replace(get_smoke("bert-base-sten"), dtype="float32")
+    sb = SparsityBuilder()
+    sp = GroupedNMSparsifier(1, 4, 8, 16, sparse_dim=0)
+    sb.set_weight("*mlp.wi", sp, GroupedNMTensor)
+    sb.set_weight("*mlp.wo", sp, GroupedNMTensor)
+    sb.set_weight("*attn.wo", NMSparsifier(2, 4), NMTensor)
+    params = sb.sparsify_params(init_lm(cfg, seed=0, device="cpu"))
+    opt = adamw_init(params)
+    step = ttrain.make_train_step(cfg, AdamWConfig())
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)),
+                                   dtype=torch.int32)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    params, opt, _ = step(params, opt, batches[0])
+    man = save_pytree(ttrain.ckpt_tree(params, opt), tmp_path / "ck")
+    names = [e["name"] for e in man["index"]]
+    for leaf in ("params.layers.mlp.wi.2.0", "params.layers.attn.wo.1",
+                 "opt.mu.layers.mlp.wi.0", "opt.nu.layers.attn.wo.0"):
+        assert leaf in names
+    restored, _ = load_pytree(ttrain.ckpt_tree(params, opt), tmp_path / "ck")
+    p2, o2 = ttrain._from_ckpt_tree(restored)
+    assert isinstance(p2["layers"]["mlp"]["wi"], GroupedNMTensor)
+    assert isinstance(p2["layers"]["attn"]["wo"], NMTensor)
+    params, opt, m1 = step(params, opt, batches[1])
+    p2, o2, m2 = step(p2, o2, batches[1])
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(_flatten(ttrain.ckpt_tree(params, opt)),
+                    _flatten(ttrain.ckpt_tree(p2, o2))):
+        assert a[0] == b[0] and a[1].dtype == b[1].dtype
+        assert torch.equal(a[1], b[1]), a[0]

@@ -34,6 +34,8 @@ at gr a multiple of 16, ``rows`` for f32 at gr a multiple of 4,
 and the SpMM takes every gr (gr not a multiple of 64 through the GEMV
 kernel over 16-column chunks)."""
 
+import functools
+
 import pytest
 import torch
 
@@ -752,37 +754,108 @@ def test_decode_graphs_replay_bitwise_eager(arch):
         assert counts["launches"]["nmg_ffn"] == cfg.n_layers
 
 
-def test_capture_raises_on_a_host_sync(monkeypatch):
-    """A GEMV wrapper whose launch syncs the card cannot be captured: the
-    engine's first chunk raises, no request finishes, and nothing runs
-    the eager loop in its place."""
+@functools.lru_cache(maxsize=None)
+def _bert_full(fmt):
+    """Full-width bert-base-sten (12 layers, d_model 768, bf16) with
+    seeded weights on the card: dense, or n:m:g 1:4:8 with ``attn=True``
+    at gr64 (prefill through the SpMM kernel above 16 tokens) or gr16 (the
+    SpMM route through the GEMV kernel in 16-column chunks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.serve import sparsify_for_serving
+
+    cfg = get_config("bert-base-sten")
+    params = init_lm(cfg, seed=0, device="cuda")
+    if fmt == "dense":
+        return cfg, params
+    return cfg, sparsify_for_serving(params, 1, 4, 8, gr=int(fmt[2:]),
+                                     attn=True)
+
+
+@pytest.mark.parametrize("S", [16, 24, 32, 64])
+@pytest.mark.parametrize("fmt", ["dense", "gr64", "gr16"])
+def test_prefill_graph_replay_bitwise_eager(fmt, S):
+    """One admission program at full bert width: the first run (eager on
+    the capture stream, then captured) and two replays, into slots 1, 3
+    and 0 at offsets 0, 5 and 40, each against eager ``prefill_into_slot``
+    on a clone of the cache: logits and caches bitwise equal, the launch
+    counts of each run equal to the eager run's, the storage kept."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, prefill_into_slot
+    from repro_torch.serve.cache import _slot_prefill_fn
+    from repro_torch.serve.graphs import PrefillGraph
+
+    cfg, params = _bert_full(fmt)
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    cache = init_cache(cfg, 4, 96, device="cuda")
+    ref = {k: v.clone() for k, v in cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    g = PrefillGraph(_slot_prefill_fn(cfg), params, cache, S,
+                     pool=torch.cuda.graph_pool_handle())
+    for turn, (slot, off) in enumerate(((1, 0), (3, 5), (0, 40))):
+        toks = torch.randint(0, cfg.vocab, (1, S), device="cuda",
+                             generator=gen, dtype=torch.int32)
+        ops.reset_kernel_counters()
+        got = g.run(toks.cpu(), slot, off).clone()
+        replayed = ops.counter_snapshot()
+        ops.reset_kernel_counters()
+        want, _ = prefill_into_slot(params, cfg, toks, ref, slot,
+                                    write_offset=off)
+        counts = ops.counter_snapshot()
+        assert torch.equal(got, want), turn
+        for k in ("k", "v"):
+            assert torch.equal(cache[k], ref[k]), (turn, k)
+        assert replayed == counts, turn
+        if fmt != "dense":
+            kernel = "nmg_gemv" if S <= 16 else "nmg_spmm"
+            assert counts["launches"][kernel] > 0, counts
+    assert g.info["captured"] and g.info["replays"] == 2
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+
+
+@pytest.mark.parametrize("where", ["prefill", "decode_chunk"])
+def test_capture_raises_on_a_host_sync(monkeypatch, where):
+    """A GEMV wrapper whose launch syncs the card cannot be captured.
+    ``prefill``: the engine's first admission (a 5-token prompt, through
+    the GEMV) raises and no graph is kept.  ``decode_chunk``: the 5-token
+    admission program is built before the patch, so the admission replays
+    and the first decode chunk's capture raises.  Either way no request
+    finishes, no decode step is counted, and nothing runs the eager program
+    in its place."""
     _require_cuda()
     import numpy as np
 
     from repro_torch.serve import Request, ServeEngine
 
     cfg, params = _served("bert-base-sten")
+    prompt = np.arange(1, 6, dtype=np.int32)
     original = nmg_gemv.gemv_launch
 
     def syncing(*args, **kwargs):
         torch.cuda.synchronize()
         return original(*args, **kwargs)
 
-    monkeypatch.setattr(nmg_gemv, "gemv_launch", syncing)
     eng = ServeEngine(params, cfg, max_slots=2, max_seq_len=32,
                       decode_chunk=4)
+    if where == "decode_chunk":
+        eng.kv.write_prefill(params, prompt[None], 1)
+        assert eng.kv.prefill_graphs[5].graph is not None
+    monkeypatch.setattr(nmg_gemv, "gemv_launch", syncing)
     with pytest.raises(RuntimeError):
-        eng.run([Request(uid=0, prompt=np.arange(1, 6, dtype=np.int32),
-                         max_new_tokens=8)])
+        eng.run([Request(uid=0, prompt=prompt, max_new_tokens=8)])
     assert eng._outputs == []
+    if where == "prefill":
+        assert eng.kv.prefill_graphs[5].graph is None
+    else:
+        assert eng.kv.prefill_graphs[5].info["replays"] == 1
     assert eng._decode_chunk.graph is None
     assert eng.stats["decode_steps"] == 0
     monkeypatch.undo()
     torch.cuda.synchronize()              # the card is usable afterwards
     out = ServeEngine(params, cfg, max_slots=2, max_seq_len=32,
                       decode_chunk=4).run([Request(
-                          uid=0, prompt=np.arange(1, 6, dtype=np.int32),
-                          max_new_tokens=8)])
+                          uid=0, prompt=prompt, max_new_tokens=8)])
     assert len(out[0].tokens) == 8
 
 
