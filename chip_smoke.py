@@ -92,6 +92,21 @@
       five library-API training steps and an eval forward with ``mlp.wo``
       an NMTensor (the lossless NMTensor -> FixedMaskTensor route), held
       to the same run through the plain versions.
+   f. tuning (``repro_torch.tune``): ``python -m repro_torch.tune
+      --quick`` in a subprocess (its decision lines, its table loaded);
+      at bert ``mlp.wi`` / ``mlp.wo`` and qwen ``attn.wq``, packed
+      ``mlp.wi`` and ``mlp.wo`` (bf16 1:4:8 gr64) the tuned decode config
+      and SpMM split held against the plain versions, and the GEMV and
+      SpMM device times at M = 8, 12, 16, 17, 20, 24, 32 with the
+      kernels' own configs and the tuned ones, with each crossover; then
+      bert and qwen ``attn=True`` gr64 served by an engine warmed with
+      ``warmup_engine(..., tune=True)`` beside one with default routing:
+      every routed counter ``[table]``, ``predict_route`` equal to one
+      replay's counters (decode chunk and each admission), tokens equal
+      where no route or config moved and logits within the serve
+      phase's bound of the default routing's, a replay bitwise unchanged
+      under another table activated after capture, and per-token p50 and
+      TTFT p99 tuned and default in turns.
 4. Summary: a compact ``{"serve": ..., "train": ...}`` line, a
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
@@ -898,10 +913,11 @@ def serve_phase(cfg, params, label) -> dict:
             "first_tokens": [t[:4] for t in g["tokens"]]}
 
 
-def logit_parity(cfg, params) -> dict:
+def logit_parity(cfg, params, reference=None) -> dict:
     """Prefill (a 32-token prompt: SpMM; a 16-token prompt: GEMV, fused
     QKV and, for a gated MLP, fused FFN) and 4 decode steps, through the
-    kernels and through the plain versions, fed the same tokens.  Bound:
+    kernels and through the plain versions (or under ``reference``, a
+    context manager, in their place), fed the same tokens.  Bound:
     5% of the largest plain logit — bf16 activations round at ~2**-8
     relative per op, and rounding flips between two summation orders
     compound over the layers.  The argmax must agree at every step unless
@@ -934,7 +950,7 @@ def logit_parity(cfg, params) -> dict:
                 tok = torch.argmax(logits, -1)[:, None]
             return out, fed
 
-        with plain_versions():
+        with (reference or plain_versions)():
             want, fed = steps()
         got, _ = steps(fed)
         for g, w in zip(got, want):
@@ -2182,6 +2198,338 @@ def report_sten(lib, model) -> None:
           f"{model['nm_mask_launches']}")
 
 
+# ---------------------------------------------------------------------------
+# tuning phase (repro_torch.tune)
+# ---------------------------------------------------------------------------
+
+#: widths of the crossover sweep at the served widths, around decode's and
+#: the short admission's 16
+TUNE_MS = (8, 12, 16, 17, 20, 24, 32)
+#: (model, weight) of the served projections the crossover is measured at
+TUNE_WEIGHTS = (("bert", "wi"), ("bert", "wo_ffn"), ("qwen", "wq"),
+                ("qwen", "wi"), ("qwen", "wo_ffn"))
+
+
+def tune_cli() -> dict:
+    """``python -m repro_torch.tune --quick --out <tmp>`` in a subprocess:
+    its ``decision,key,value`` lines, and the table it wrote, loaded (a
+    table that does not load fails the phase)."""
+    import os
+    import tempfile
+
+    from repro_torch.tune import TuningTable
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "tune_table.json"
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tune", "--quick", "--out",
+             str(path)], capture_output=True, text=True, timeout=600,
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        if p.returncode:
+            raise RuntimeError(f"python -m repro_torch.tune failed "
+                               f"({p.returncode}):\n{p.stdout}\n{p.stderr}")
+        table = TuningTable.load(str(path))
+    lines = [ln for ln in p.stdout.splitlines()
+             if re.match(r"^[a-z_]+,", ln)]
+    for ln in lines:
+        print(f"  tune cli: {ln}")
+    assert len(table) > 0 and any(k.startswith("gemv_cuda/")
+                                  for k in table.entries), table.entries
+    assert any(k.startswith("spmm_cuda/") for k in table.entries)
+    assert "spmm_block_elems" not in table.entries
+    return {"wall_s": wall, "device": table.device, "entries": len(table),
+            "lines": lines}
+
+
+def crossover_phase(gen) -> list:
+    """At the served projections (bf16 1:4:8 gr64, B = x.T): the tuned
+    decode config (M = 4, the engine's slots) and SpMM split (N = 24, 32,
+    64, its prompts past 16), each held against the plain version at the
+    kernel phase's tolerance; then the GEMV and SpMM device times at
+    ``TUNE_MS`` with the kernels' own configs and with the tuned ones (the
+    packed gated weight also with its gate, as the model runs it), and the
+    measured crossover of each."""
+    import torch
+
+    from repro_torch.core.nmg import dense_to_grouped_nm
+    from repro_torch.kernels import nmg_gemv, nmg_spmm
+    from repro_torch.tune import TuningTable, bench, routing
+
+    bf16 = torch.bfloat16
+    out = []
+    for model, name in TUNE_WEIGHTS:
+        K, N = MODELS[model]["shapes"][name]
+        w = dense_to_grouped_nm(
+            (torch.randn(K, N, generator=gen, device="cuda")
+             / math.sqrt(K)).to(bf16), 1, 4, 8, gr=64, sparse_dim=0)
+        table = TuningTable.for_device()
+        ctx = dict(K=K, R=N, fmt=(1, 4, 8), gr=64, dtype=bf16)
+        gcfg = bench.tune_gemv_cuda(table, M=4, reps=3, **ctx)
+        scfg = bench.tune_spmm_cuda(table, Ns=(24, 32, 64), reps=3, **ctx)
+        errs = {}
+        for what, M, fn, plain in (
+                ("gemv_cuda", 4, lambda b: nmg_gemv.nmg_gemv(
+                    w, b, transpose_out=True, config=gcfg),
+                 lambda b: nmg_gemv.nmg_gemv_plain(w, b, transpose_out=True)),
+                ("spmm_cuda", 32, lambda b: nmg_spmm.nmg_spmm(
+                    w, b, splits=scfg["splits"]),
+                 lambda b: nmg_spmm.nmg_spmm_plain(w, b))):
+            x = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
+            got, ref = fn(x.T), plain(x.T)
+            err = (got - ref).abs().max().item()
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            assert err <= tol, (model, name, what, err, tol)
+            errs[what] = err
+        sweeps = {}
+        # the packed gated weight also with its gate: what the model runs
+        # (the fused FFN where the router fuses, else projection + gate)
+        gated = (("gated", table, "silu"),) if name == "wi" and \
+            MODELS[model]["ffn"] == "wi" else ()
+        for which, tab, gate in (("own", None, None), ("tuned", table, None),
+                                 *gated):
+            routing.set_active_table(tab)
+            try:
+                recs = bench.sweep_m(w, TUNE_MS, dtype=bf16, reps=3,
+                                     gate=gate)
+            finally:
+                routing.clear_active_table()
+            sweeps[which] = {
+                "gemv_ms": {r["M"]: r["us"] / 1e3 for r in recs
+                            if r["path"] == "gemv"},
+                "spmm_ms": {r["M"]: r["us"] / 1e3 for r in recs
+                            if r["path"] == "spmm"},
+                "crossover": bench.measured_crossover(recs)}
+        own = nmg_gemv.row_plan(64, 4, w.val.shape[1] * w.val.shape[2], bf16)
+        out.append({"model": model, "weight": name, "K": K, "N": N,
+                    "gemv_cuda": gcfg,
+                    "gemv_own": {"rows": own.rows, "parts": own.parts},
+                    "spmm_cuda": scfg, "max_abs_err": errs, **sweeps})
+    return out
+
+
+def report_crossover(rows, card) -> None:
+    for r in rows:
+        for which in ("own", "tuned", "gated"):
+            if which not in r:
+                continue
+            s = r[which]
+            print(f"crossover[{r['model']} {r['weight']} K={r['K']} "
+                  f"N={r['N']}, {which} configs] on {card}: " + " ".join(
+                      f"M={m} gemv {s['gemv_ms'][m]:.4f} spmm "
+                      f"{s['spmm_ms'][m]:.4f} ms;" for m in TUNE_MS)
+                  + f" crossover {s['crossover']}")
+        print(f"  chosen: gemv_cuda {r['gemv_cuda']} (own {r['gemv_own']}), "
+              f"spmm_cuda {r['spmm_cuda']}; against plain: "
+              f"{r['max_abs_err']}")
+
+
+@contextlib.contextmanager
+def default_routing():
+    """Route with the shipped defaults (no table) inside the block."""
+    from repro_torch.tune import routing
+
+    held = routing.active_table()
+    routing.clear_active_table()
+    try:
+        yield
+    finally:
+        routing.set_active_table(held)
+
+
+def _projections(cfg, params):
+    """(op, weight or group) of each routed projection of one layer."""
+    attn, mlp = params["layers"]["attn"], params["layers"]["mlp"]
+    one = {k: v.layer(0) for k, v in {**attn, **{f"mlp_{k}": v
+                                      for k, v in mlp.items()}}.items()
+           if hasattr(v, "layer")}
+    return [("mm_fused_qkv", tuple(one[k] for k in ("wq", "wk", "wv"))),
+            ("nmg_linear", one["wo"]),
+            ("mm_gated" if cfg.gated_mlp else "nmg_linear", one["mlp_wi"]),
+            ("nmg_linear", one["mlp_wo"])]
+
+
+def _predicted(cfg, params, M) -> dict:
+    """``predict_route`` of one forward at M rows: each projection's keys,
+    once per layer."""
+    import collections
+
+    from repro_torch.kernels import ops
+
+    keys = collections.Counter()
+    for op, w in _projections(cfg, params):
+        ws = w if op == "mm_fused_qkv" else None
+        keys.update(ops.predict_route(
+            op, None if ws else w, ws=ws, M=M, dtype=cfg.tdtype,
+            device=(ws or (w,))[0].val.device))
+    return {f"{k}/{p}": n * cfg.n_layers for (k, p), n in keys.items()}
+
+
+def _route_kinds(routes) -> dict:
+    """Calls per route with the provenance left out."""
+    kinds: dict = {}
+    for k, n in routes.items():
+        kind = re.sub(r"\[(table|default)\]$", "", k)
+        kinds[kind] = kinds.get(kind, 0) + n
+    return kinds
+
+
+def serve_tuned(cfg, params, label) -> dict:
+    """The trace served by an engine warmed with ``warmup_engine(...,
+    tune=True)`` beside one warmed with the default routing (n:m:g
+    ``attn=True`` params): every routed counter of the tuned run reads
+    ``[table]``; ``predict_route`` of each projection, summed over the
+    layers, equals the counters of one replay of the decode chunk (times
+    its steps) and of each prompt length's admission; the tokens equal
+    the default run's where no route or config moved, and the logits
+    through the tuned routing stay within ``logit_parity``'s bound of the
+    default routing's; a different table activated after capture leaves
+    a chunk and an admission replay bitwise unchanged.  Then per-token
+    p50 and TTFT p99, tuned and default, over two runs each in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.nmg_gemv import row_plan
+    from repro_torch.serve import ServeEngine, warmup_engine
+    from repro_torch.tune import TuningTable, routing
+
+    t0 = time.perf_counter()
+    reqs = requests_for(cfg)
+    routing.clear_active_table()
+    default = ServeEngine(params, cfg, **ENGINE_KW)
+    warmup_engine(default, reqs)
+    reset_counts()
+    d_outs = default.run(reqs)
+    d_counts = read_counts()
+    tuned = ServeEngine(params, cfg, **ENGINE_KW)
+    t1 = time.perf_counter()
+    warmup_engine(tuned, reqs, tune=True)
+    warm_s = time.perf_counter() - t1
+    table = routing.active_table()
+    assert table is not None and table.device.startswith("torch-cuda:")
+    reset_counts()
+    t_outs = tuned.run(requests_for(cfg))
+    torch.cuda.synchronize()
+    t_counts = read_counts()
+    routed = [k for k in t_counts["routes"] if "[" in k]
+    assert routed and all(k.endswith("[table]") for k in routed), \
+        (label, t_counts["routes"])
+    assert all(len(o.tokens) == 32 for o in t_outs)
+
+    # predict_route against one replay of each program
+    chunk = tuned._decode_chunk
+    slots = ENGINE_KW["max_slots"]
+    tok = np.arange(1, slots + 1, dtype=np.int32)
+    pos = np.full(slots, 40, np.int32)
+    saved = {k: v.clone() for k, v in tuned.kv.data.items()}
+    reset_counts()
+    first = chunk.run(tok, pos).clone()
+    replay_routes = read_counts()["routes"]
+    want = {k: n * tuned.decode_chunk
+            for k, n in _predicted(cfg, params, slots).items()}
+    assert replay_routes == want, (label, replay_routes, want)
+    after_first = {k: v.clone() for k, v in tuned.kv.data.items()}
+    rng = np.random.default_rng(5)
+    for S in sorted(tuned.kv.prefill_graphs):
+        reset_counts()
+        tuned.kv.write_prefill(params, rng.integers(
+            0, cfg.vocab, (1, S), dtype=np.int32), 1)
+        assert read_counts()["routes"] == _predicted(cfg, params, S), \
+            (label, S, read_counts()["routes"])
+    for k, v in after_first.items():
+        tuned.kv.data[k].copy_(v)
+    prompt = rng.integers(0, cfg.vocab, (1, 32), dtype=np.int32)
+    logits_a = tuned.kv.write_prefill(params, prompt, 2).clone()
+    cache_a = {k: v.clone() for k, v in tuned.kv.data.items()}
+
+    # a different table after capture: replays unchanged, bit for bit
+    other = TuningTable.for_device()
+    for k, v in (("decode_m_max", 0), ("fused_qkv", False),
+                 ("fused_ffn", False), ("spmm_cuda", {"splits": 1}),
+                 ("gemv_cuda", {"rows": 16, "parts": 1})):
+        other.put(k, v)
+    routing.set_active_table(other)
+    try:
+        for k, v in saved.items():
+            tuned.kv.data[k].copy_(v)
+        reset_counts()
+        again = chunk.run(tok, pos).clone()
+        assert torch.equal(again, first), f"{label}: chunk replay moved"
+        assert read_counts()["routes"] == replay_routes
+        assert all(torch.equal(tuned.kv.data[k], v)
+                   for k, v in after_first.items())
+        logits_b = tuned.kv.write_prefill(params, prompt, 2).clone()
+        assert torch.equal(logits_b, logits_a), f"{label}: admission moved"
+        assert all(torch.equal(tuned.kv.data[k], v)
+                   for k, v in cache_a.items())
+        assert _predicted(cfg, params, slots) != \
+            {k: n // tuned.decode_chunk for k, n in replay_routes.items()}
+    finally:
+        routing.set_active_table(table)
+    for k, v in saved.items():
+        tuned.kv.data[k].copy_(v)
+
+    # tokens where nothing moved; logits wherever something did
+    moved = _route_kinds(d_counts["routes"]) != _route_kinds(
+        t_counts["routes"])
+    for op, w in _projections(cfg, params):
+        w0 = w[0] if isinstance(w, tuple) else w
+        ctx = ops._route_ctx(w0, cfg.tdtype)
+        cfg_t, _ = routing.gemv_cuda_config(**ctx)
+        own = row_plan(w0.gr, slots, w0.val.shape[1] * w0.val.shape[2],
+                       cfg.tdtype)
+        if cfg_t is not None and cfg_t != {"rows": own.rows,
+                                           "parts": own.parts}:
+            moved = True
+        s_cfg, _ = routing.spmm_cuda_config(**ctx)
+        if s_cfg is not None and s_cfg.get("splits") is not None:
+            moved = True
+    d_tokens = [o.tokens for o in d_outs]
+    t_tokens = [o.tokens for o in t_outs]
+    same = sum(a == b for a, b in zip(d_tokens, t_tokens))
+    if not moved:
+        assert same == len(d_tokens), f"{label}: tokens moved"
+    parity = logit_parity(cfg, params, reference=default_routing)
+
+    # timings, in turns: default, tuned, tuned, default
+    runs = {"default": [], "tuned": []}
+    for which, eng in (("default", default), ("tuned", tuned),
+                       ("tuned", tuned), ("default", default)):
+        eng.reset_metrics()
+        eng.run(requests_for(cfg))
+        runs[which].append(eng.metrics(label=which).to_dict())
+    routing.clear_active_table()
+    entries = {k: v for k, v in table.entries.items()
+               if not k.startswith("matmul_latency/")}
+    del default, tuned
+    torch.cuda.empty_cache()
+    return {"label": label, "wall_s": time.perf_counter() - t0,
+            "tune_warmup_s": warm_s, "entries": entries,
+            "routes_tuned": t_counts["routes"],
+            "routes_default": d_counts["routes"], "moved": moved,
+            "same_streams": f"{same}/{len(d_tokens)}", "parity": parity,
+            "tok_p50_ms": {k: [m["tok_latency_p50"] * 1e3 for m in v]
+                           for k, v in runs.items()},
+            "ttft_p99_ms": {k: [m["ttft_p99"] * 1e3 for m in v]
+                            for k, v in runs.items()}}
+
+
+def report_tuned(r, card) -> None:
+    print(f"tuned serving[{r['label']}] on {card}: warm-up with tuning "
+          f"{r['tune_warmup_s']:.1f} s, phase {r['wall_s']:.1f} s; routes "
+          f"moved: {r['moved']}, streams equal {r['same_streams']}, logits "
+          f"vs default routing {r['parity']['max_abs_err']:.4f} (bound "
+          f"{r['parity']['tol']:.4f}, argmax {r['parity']['argmax_agree']})")
+    for k in ("tok_p50_ms", "ttft_p99_ms"):
+        print(f"  {k}: tuned " + ", ".join(
+            f"{v:.3f}" for v in r[k]["tuned"]) + " | default " + ", ".join(
+            f"{v:.3f}" for v in r[k]["default"]))
+    for k, v in sorted(r["entries"].items()):
+        print(f"  entry {k} = {json.dumps(v)}")
+
+
 BODY_OF = {"matmul_threshold": "tc"}
 
 
@@ -2286,6 +2634,16 @@ def main() -> int:
               f"plain {c['plain_ms']:.4f} ms library {lib} "
               f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}){extra}")
 
+    # the tuning phase, part 1: the CLI, and the crossover and configs
+    # at the served widths (a generator of its own: the later phases'
+    # inputs stay as they were)
+    t0 = time.perf_counter()
+    tune = {"cli": tune_cli(),
+            "crossover": crossover_phase(
+                torch.Generator(device="cuda").manual_seed(22))}
+    tune_s = time.perf_counter() - t0
+    report_crossover(tune["crossover"], card)
+
     # (a) bert-base-sten: dense, sparse FFN, sparse FFN + attention
     cfg = get_config("bert-base-sten")
     params = init_lm(cfg, seed=0, device="cuda")
@@ -2319,6 +2677,7 @@ def main() -> int:
         (params, sparse_ffn, sparse_all, sparse_gr16), runs)]
     prefills = [prefill_phase(cfg, params, "dense"),
                 prefill_phase(cfg, sparse_all, "sparse_attn")]
+    tune["serve"] = [serve_tuned(cfg, sparse_all, "bert_attn_gr64")]
     del params, sparse_ffn, sparse_all, sparse_gr16
 
     # (b) qwen1.5-4b at full width and depth: dense, sparse (attn=True)
@@ -2361,7 +2720,16 @@ def main() -> int:
                 graph_phase(qcfg, qsparse, "qwen_sparse")]
     prefills += [prefill_phase(qcfg, qparams, "qwen_dense"),
                  prefill_phase(qcfg, qsparse, "qwen_sparse")]
+    tune["serve"].append(serve_tuned(qcfg, qsparse, "qwen_attn_gr64"))
     del qparams, qsparse
+    for r in tune["serve"]:
+        report_tuned(r, card)
+    tune["wall_s"] = tune_s + sum(r["wall_s"] for r in tune["serve"])
+    print(f"tuning phase on {card}: {tune['wall_s']:.1f} s (CLI "
+          f"{tune['cli']['wall_s']:.1f} s, crossover and configs "
+          f"{tune_s - tune['cli']['wall_s']:.1f} s, tuned serving "
+          + ", ".join(f"{r['label']} {r['wall_s']:.1f} s"
+                      for r in tune["serve"]) + ")")
 
     # (c) bert-base-sten training at full width: the CLI's masked path,
     # then the library API through both training kernels
@@ -2415,6 +2783,7 @@ def main() -> int:
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt,
         "sten": {"library": sten_lib, "model": sten_model},
+        "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
         indent=1))
     print(json.dumps({"serve": {
@@ -2472,6 +2841,19 @@ def main() -> int:
             "pool_mib": round(r["graph"]["pool_bytes"] / 2**20, 1)}
             for r in train},
         "ckpt_resume_bitwise": ckpt["bitwise"],
+        "tuning": {
+            "wall_s": round(tune["wall_s"], 1),
+            "crossover": {f"{r['model']}.{r['weight']}": {
+                "own": r["own"]["crossover"],
+                "tuned": r["tuned"]["crossover"],
+                "gemv_cuda": r["gemv_cuda"], "spmm_cuda": r["spmm_cuda"]}
+                for r in tune["crossover"]},
+            "serve": {r["label"]: {
+                "tok_p50_ms": r["tok_p50_ms"],
+                "ttft_p99_ms": r["ttft_p99_ms"], "moved": r["moved"],
+                "same_streams": r["same_streams"],
+                "logit_err": r["parity"]["max_abs_err"]}
+                for r in tune["serve"]}},
         "sten": {"loss_max_rel_err": sten_model["loss_max_rel_err"],
                  "step_wall_ms": round(sten_model["step_wall_ms"], 3),
                  "device_busy_share":

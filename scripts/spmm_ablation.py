@@ -80,13 +80,14 @@ def build(out_dir: Path) -> dict:
 
 def launcher(lib, w, b, out, ws):
     """A call of one variant's nmg_spmm_launch, as the wrapper makes it
-    for bf16 [N, R] output (ws sized for any split count)."""
+    for bf16 [N, R] output at the shape's own K split (ws sized for any
+    split count)."""
     import torch
 
     fn = lib.nmg_spmm_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     K, N = b.shape
     cg = math.comb(w.m, w.n) * w.g
@@ -94,7 +95,7 @@ def launcher(lib, w, b, out, ws):
             b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
             ws.data_ptr(), w.canonical_rows(), w.val.shape[0], K,
             w.val.shape[1] * w.val.shape[2], N, w.gr, w.n * cg, w.m * cg, 1,
-            1)
+            1, 0)
 
     def call():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)

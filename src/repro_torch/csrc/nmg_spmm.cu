@@ -68,9 +68,20 @@ constexpr int kSMs = 132;    // H100 SXM streaming multiprocessors
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
-int f32_splits(int R_pad, int N, int KN) {
-  const int tiles = (R_pad / kTM) * ((N + kTN - 1) / kTN);
+// A requested K split (want > 0, from a tuning table) for nslab slabs:
+// kept when it cuts them into want splits of equal slab counts with none
+// empty, else -1 (the caller raises; nothing falls back).
+int requested_splits(int want, int nslab) {
+  if (want < 1 || want > nslab) return -1;
+  const int per = (nslab + want - 1) / want;
+  return (nslab + per - 1) / per == want ? want : -1;
+}
+
+// want: 0 for the shape's own split, else a requested one.
+int f32_splits(int R_pad, int N, int KN, int want) {
   const int nslab = (KN + kTK - 1) / kTK;
+  if (want > 0) return requested_splits(want, nslab);
+  const int tiles = (R_pad / kTM) * ((N + kTN - 1) / kTN);
   int s = (2 * kSMs + tiles - 1) / tiles;  // about two blocks per SM
   if (s > nslab / 2) s = nslab / 2;        // at least two slabs per split
   return s < 1 ? 1 : s;
@@ -453,8 +464,9 @@ struct TcShape {
 };
 
 // staged: whether B's rows can be copied in 16-byte pieces (B = x.T of a
-// token-major x whose rows are 16-byte aligned)
-TcShape tc_shape(int R_pad, int N, int KN, int gr, bool staged) {
+// token-major x whose rows are 16-byte aligned); want: 0 for the shape's
+// own K split, else a requested one (splits = -1 when it cannot be taken)
+TcShape tc_shape(int R_pad, int N, int KN, int gr, bool staged, int want) {
   TcShape s;
   s.row_warps = gr % 128 == 0 ? 8 : 4;
   s.staged = staged;
@@ -466,7 +478,15 @@ TcShape tc_shape(int R_pad, int N, int KN, int gr, bool staged) {
   const int tiles = R_pad / (16 * s.row_warps) * s.col_tiles;
   const int nslab = (KN + tBK - 1) / tBK;
   int z = 1;
-  if (tiles < kSMs) {                  // the card is not full: split K
+  if (want > 0) {
+    z = requested_splits(want, nslab);
+    if (z < 0) {
+      s.per = 0;
+      s.splits = -1;
+      s.smem = 0;
+      return s;
+    }
+  } else if (tiles < kSMs) {           // the card is not full: split K
     z = (2 * kSMs + tiles - 1) / tiles;
     if (z > nslab / 2) z = nslab / 2;  // at least two slabs per split
     if (z < 1) z = 1;
@@ -523,13 +543,16 @@ int launch_tc_w(const TcShape& sh, const void* val, const void* cols,
 
 }  // namespace
 
-// The number of K splits the launch below uses for this shape; the
-// caller sizes the workspace [splits, R, N] f32 from it (none when 1).
+// The number of K splits the launch below uses for this shape and
+// request (splits: 0 for the shape's own, else the one asked for; -1 when
+// it cannot be taken); the caller sizes the workspace [splits, R, N] f32
+// from it (none when 1).
 extern "C" int nmg_spmm_splits(int dtype, int R_pad, int N, int KN, int gr,
-                               const void* b, long long ldk, long long ldc) {
+                               const void* b, long long ldk, long long ldc,
+                               int splits) {
   if (dtype == 1)
-    return tc_shape(R_pad, N, KN, gr, b_staged(b, ldk, ldc)).splits;
-  return f32_splits(R_pad, N, KN);
+    return tc_shape(R_pad, N, KN, gr, b_staged(b, ldk, ldc), splits).splits;
+  return f32_splits(R_pad, N, KN, splits);
 }
 
 // The bf16 body's launch for this shape, for reports: plan[0..5] = warps
@@ -538,7 +561,7 @@ extern "C" int nmg_spmm_splits(int dtype, int R_pad, int N, int KN, int gr,
 extern "C" void nmg_spmm_tc_plan(int R_pad, int N, int KN, int gr,
                                  const void* b, long long ldk, long long ldc,
                                  int* plan) {
-  const TcShape sh = tc_shape(R_pad, N, KN, gr, b_staged(b, ldk, ldc));
+  const TcShape sh = tc_shape(R_pad, N, KN, gr, b_staged(b, ldk, ldc), 0);
   plan[0] = 2 * sh.row_warps;
   plan[1] = sh.nt8;
   plan[2] = sh.col_tiles;
@@ -553,13 +576,15 @@ extern "C" void nmg_spmm_tc_plan(int R_pad, int N, int KN, int gr,
 // for chunk c (n * C(m, n) * g and m * C(m, n) * g).  out is [R, N]
 // row-major, or [N, R] with transpose_out, in f32, or in bf16 with
 // out_bf16 (bf16 inputs only); ws is the f32 workspace of [splits, R, N]
-// when nmg_spmm_splits() > 1, else unused.  Returns cudaGetLastError()
-// after the launches (0 = success, -1 = bad arguments).
+// when nmg_spmm_splits() > 1, else unused; splits is the K split asked
+// for (0: the shape's own), as passed to nmg_spmm_splits().  Returns
+// cudaGetLastError() after the launches (0 = success, -1 = bad arguments,
+// a split that cannot be taken among them).
 extern "C" int nmg_spmm_launch(int dtype, const void* val, const void* cols,
                                const void* b, long long ldk, long long ldc,
                                void* out, void* ws, int R, int R_pad, int K,
                                int KN, int N, int gr, int cs, int cx,
-                               int out_bf16, int transpose_out,
+                               int out_bf16, int transpose_out, int want,
                                void* stream) {
   if (gr % kTM != 0 || R_pad % kTM != 0 || N < 1 || KN < 1 || cs < 1 ||
       cx < 1)
@@ -569,9 +594,10 @@ extern "C" int nmg_spmm_launch(int dtype, const void* val, const void* cols,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int splits;
   if (dtype == 1) {
-    const TcShape sh = tc_shape(R_pad, N, KN, gr, b_staged(b, ldk, ldc));
+    const TcShape sh =
+        tc_shape(R_pad, N, KN, gr, b_staged(b, ldk, ldc), want);
     splits = sh.splits;
-    if (splits > 1 && ws == nullptr) return -1;
+    if (splits < 1 || (splits > 1 && ws == nullptr)) return -1;
     int vec = 16;   // the widest copy both KN and val's base allow
     while (vec > 2 && ((2 * KN) % vec ||
                        reinterpret_cast<uintptr_t>(val) % vec))
@@ -585,8 +611,8 @@ extern "C" int nmg_spmm_launch(int dtype, const void* val, const void* cols,
                              KN, N, gr, vec, mode, cs, cx, s);
     if (err != 0) return err;
   } else if (dtype == 0) {
-    splits = f32_splits(R_pad, N, KN);
-    if (splits > 1 && ws == nullptr) return -1;
+    splits = f32_splits(R_pad, N, KN, want);
+    if (splits < 1 || (splits > 1 && ws == nullptr)) return -1;
     const int nslab = (KN + kTK - 1) / kTK;
     const int per = (nslab + splits - 1) / splits;
     dim3 grid(R_pad / kTM, (N + kTN - 1) / kTN, splits);

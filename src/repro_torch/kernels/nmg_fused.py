@@ -92,9 +92,10 @@ def fused_segments(ws: Sequence) -> list:
 
 
 def nmg_qkv_plain(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
-                  transpose_out: bool = False) -> tuple:
+                  transpose_out: bool = False, config=None) -> tuple:
     """Plain version (``repro/kernels/ops.py:nmg_qkv_xla``): one gather +
-    one einsum over the row-concatenated plan, sliced per projection."""
+    one einsum over the row-concatenated plan, sliced per projection
+    (``config``, the kernel's, changes nothing here)."""
     w0 = ws[0]
     gr = w0.gr
     val = torch.cat([w.val for w in ws])
@@ -117,17 +118,18 @@ def nmg_qkv_plain(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
 
 
 def nmg_qkv(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
-            transpose_out: bool = False) -> tuple:
+            transpose_out: bool = False, config=None) -> tuple:
     """Every weight of ``ws`` against one decode-shaped B[K, M] in one
     launch: the CUDA GEMV kernel over up to three segments for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors.  ``config`` is
+    :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s."""
     if b.device.type == "cpu":
         return nmg_qkv_plain(ws, b, out_dtype=out_dtype,
                              transpose_out=transpose_out)
     if not fusable_qkv(ws):
         raise ValueError("operands not fusable; route per projection")
     outs = gemv_launch(list(ws), b, out_dtype=out_dtype,
-                       transpose_out=transpose_out)
+                       transpose_out=transpose_out, config=config)
     nmg_qkv.launches += 1
     return outs
 
@@ -136,11 +138,12 @@ nmg_qkv.launches = 0
 
 
 def nmg_ffn_plain(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
-                  out_dtype=None, transpose_out: bool = False
+                  out_dtype=None, transpose_out: bool = False, config=None
                   ) -> torch.Tensor:
     """Plain version (``repro/kernels/ops.py:nmg_ffn_xla``): the sequential
     ops themselves — GEMV with the ``out_dtype`` epilogue, split, act,
-    multiply.  Returns [F, M], or [M, F] with ``transpose_out``."""
+    multiply.  Returns [F, M], or [M, F] with ``transpose_out``
+    (``config``, the kernel's, changes nothing here)."""
     hh = nmg_gemv_plain(w, b, out_dtype=out_dtype, transpose_out=True)
     u, v = hh.chunk(2, dim=-1)
     out = act_fn(act)(u) * v                                  # [M, F]
@@ -148,11 +151,14 @@ def nmg_ffn_plain(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
 
 
 def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
-            out_dtype=None, transpose_out: bool = False) -> torch.Tensor:
+            out_dtype=None, transpose_out: bool = False,
+            config=None) -> torch.Tensor:
     """``act(u) * v`` of the packed gated weight against a decode-shaped
     B[D, M] in one launch: the CUDA kernel when the operands lie on the
     card, the plain version when both lie on the CPU.  A weight that
-    :func:`fusable_ffn` rejects raises."""
+    :func:`fusable_ffn` rejects raises.  ``config`` is
+    :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s (the GEMV's at the
+    same K, format, gr and dtype)."""
     if b.device.type == "cpu" and w.val.device.type == "cpu":
         return nmg_ffn_plain(w, b, act=act, out_dtype=out_dtype,
                              transpose_out=transpose_out)
@@ -173,7 +179,7 @@ def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
     KN = w.val.shape[1] * w.val.shape[2]
     out = torch.empty((M, F) if transpose_out else (F, M),
                       dtype=out_dtype, device=b.device)
-    plan = row_plan(w.gr, M, KN, b.dtype)
+    plan = row_plan(w.gr, M, KN, b.dtype, config)
     fn = _build.load("nmg_ffn").nmg_ffn_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 3

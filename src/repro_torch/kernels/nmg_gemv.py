@@ -1,5 +1,6 @@
 """Decode-shaped n:m:g GEMV: ``C[R, M] = A_canonical[R, K] @ B[K, M]``
-with M <= 16 (port of ``repro/kernels/nmg_gemv.py``).
+with M <= 16, or any M 16 columns at a time when a tuning table moves
+the crossover past 16 (port of ``repro/kernels/nmg_gemv.py``).
 
 :func:`nmg_gemv` launches the hand-written CUDA kernel
 (``csrc/nmg_gemv.cu``) for CUDA tensors and takes the plain PyTorch version
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.core.layouts import GroupedNMTensor
 
 __all__ = ["nmg_gemv", "nmg_gemv_plain", "gemv_launch", "MAX_M",
-           "RowPlan", "row_plan", "chunk_geometry"]
+           "RowPlan", "row_plan", "tc_parts_choices", "chunk_geometry"]
 
 #: widest right operand the kernel takes (its register tile)
 MAX_M = 16
@@ -74,7 +75,7 @@ class RowPlan:
                 self.parts)
 
 
-def row_plan(gr: int, M: int, KN: int, dtype) -> RowPlan:
+def row_plan(gr: int, M: int, KN: int, dtype, config=None) -> RowPlan:
     """The decode body for weights of row group ``gr`` with ``KN`` stored
     values a row, against ``M`` columns of B (more than 16 are taken 16 at
     a time), in ``dtype``.  A function of these four alone, never of the
@@ -88,18 +89,44 @@ def row_plan(gr: int, M: int, KN: int, dtype) -> RowPlan:
     of about two slabs each, so that even bert-base-sten's few fiber
     groups put blocks on most SMs and a part's ring and gathered B stay
     small enough for several blocks an SM; f32 at gr a multiple of 4
-    takes ``rows``; any other gr takes ``general``."""
+    takes ``rows``; any other gr takes ``general``.
+
+    ``config`` (a tuning table's ``gemv_cuda`` entry, ``{rows, parts}``)
+    replaces the ``tc`` body's tile rows and K parts; it is keyed by
+    (K, format, gr, dtype), never by R, so the contracts above hold under
+    any table.  The ``rows`` and ``general`` bodies take only their own
+    ``{rows: 4, parts: 1}``.  A config the kernel cannot take raises."""
     if gr < 1 or M < 1 or KN < 1:
         raise ValueError(f"no decode body for gr={gr}, M={M}, KN={KN}")
     if dtype == torch.bfloat16 and gr % 16 == 0:
         nslab = math.ceil(KN / _SLAB)
+        rows = next(r for r in (64, 32, 16) if gr % r == 0)
         per = math.ceil(nslab / min(_MAX_PARTS, math.ceil(nslab / 2)))
-        return RowPlan("tc", next(r for r in (64, 32, 16) if gr % r == 0),
-                       nt8=1 if min(M, MAX_M) <= 8 else 2, per=per,
-                       parts=math.ceil(nslab / per))
-    if dtype == torch.float32 and gr % 4 == 0:
-        return RowPlan("rows", 4)
-    return RowPlan("general", 4)
+        if config is not None:
+            rows, parts = int(config["rows"]), int(config["parts"])
+            if rows not in (16, 32, 64) or gr % rows:
+                raise ValueError(f"tc body takes 16, 32 or 64 rows dividing "
+                                 f"gr={gr}, not {rows}")
+            if parts not in tc_parts_choices(KN):
+                raise ValueError(f"tc body cannot cut {nslab} slabs into "
+                                 f"{parts} parts")
+            per = math.ceil(nslab / parts)
+        return RowPlan("tc", rows, nt8=1 if min(M, MAX_M) <= 8 else 2,
+                       per=per, parts=math.ceil(nslab / per))
+    body = "rows" if dtype == torch.float32 and gr % 4 == 0 else "general"
+    if config is not None and (int(config["rows"]), int(config["parts"])) \
+            != (4, 1):
+        raise ValueError(f"the {body} body takes only rows=4, parts=1, "
+                         f"not {config}")
+    return RowPlan(body, 4)
+
+
+def tc_parts_choices(KN: int) -> list:
+    """The K part counts the ``tc`` body takes for ``KN`` stored values a
+    row: 1 to 8 parts of equal slab counts, none empty."""
+    nslab = math.ceil(KN / _SLAB)
+    return [p for p in range(1, min(_MAX_PARTS, nslab) + 1)
+            if math.ceil(nslab / math.ceil(nslab / p)) == p]
 
 
 def chunk_geometry(w: GroupedNMTensor) -> tuple:
@@ -115,8 +142,11 @@ def _pad_rows(b: torch.Tensor, K_pad: int) -> torch.Tensor:
 
 
 def nmg_gemv_plain(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
-                   transpose_out: bool = False) -> torch.Tensor:
-    """Plain version: one gather of the planned B rows + one f32 einsum."""
+                   transpose_out: bool = False, config=None,
+                   max_m=None) -> torch.Tensor:
+    """Plain version: one gather of the planned B rows + one f32 einsum,
+    any width.  ``config`` and ``max_m`` are the kernel's, taken so the
+    plain version can stand in for it, and change nothing here."""
     gr = a.gr
     R_pad, nblocks, n = a.val.shape
     cols = a.gather_plan().cols                      # [Gr, nblocks*n]
@@ -161,11 +191,13 @@ def check_operands(ws, b: torch.Tensor, *, max_m=None) -> None:
 
 
 def gemv_launch(ws, b: torch.Tensor, *, out_dtype=None,
-                transpose_out: bool = False, max_m=MAX_M) -> tuple:
+                transpose_out: bool = False, max_m=MAX_M,
+                config=None) -> tuple:
     """One CUDA launch over up to three weights sharing B (one segment
     each); returns one output per weight.  B's columns are taken 16 at a
-    time, so ``max_m=None`` lets the SpMM route any width through the same
-    bodies.  Callers count the launch."""
+    time, so ``max_m=None`` lets the SpMM route, and a routed GEMV past
+    16 columns, take any width through the same bodies.  ``config`` is
+    :func:`row_plan`'s.  Callers count the launch."""
     from repro_torch.kernels import _build
 
     check_operands(ws, b, max_m=max_m)
@@ -182,7 +214,7 @@ def gemv_launch(ws, b: torch.Tensor, *, out_dtype=None,
         raise ValueError(f"output dtype {out_dtype} not taken for "
                          f"{b.dtype} inputs")
     K, M = b.shape
-    plan = row_plan(w0.gr, M, KN, b.dtype)
+    plan = row_plan(w0.gr, M, KN, b.dtype, config)
     outs, segs = [], []
     for w in ws:
         R = w.canonical_rows()
@@ -214,14 +246,17 @@ def gemv_launch(ws, b: torch.Tensor, *, out_dtype=None,
 
 
 def nmg_gemv(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
-             transpose_out: bool = False) -> torch.Tensor:
+             transpose_out: bool = False, config=None,
+             max_m=MAX_M) -> torch.Tensor:
     """C = A_canonical @ B for narrow B: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  ``config`` is :func:`row_plan`'s;
+    ``max_m=None`` takes any width (16 columns at a time)."""
     if b.device.type == "cpu":
         return nmg_gemv_plain(a, b, out_dtype=out_dtype,
                               transpose_out=transpose_out)
     (out,) = gemv_launch([a], b, out_dtype=out_dtype,
-                         transpose_out=transpose_out)
+                         transpose_out=transpose_out, max_m=max_m,
+                         config=config)
     nmg_gemv.launches += 1
     return out
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -40,10 +41,21 @@ from repro_torch.kernels.nmg_gemv import _DTYPE_CODE, _pad_rows, \
     check_operands, gemv_launch
 from repro_torch.tune import routing
 
-__all__ = ["nmg_spmm", "nmg_spmm_plain"]
+__all__ = ["nmg_spmm", "nmg_spmm_plain", "spmm_split_choices"]
 
 #: output rows per block of the SpMM kernel; other gr take the GEMV route
 _ROWS_PER_BLOCK = 64
+#: stored K values per slab of the bf16 (tensor-core) and f32 bodies
+_SLAB = {torch.bfloat16: 64, torch.float32: 32}
+
+
+def spmm_split_choices(KN: int, dtype, most: int = 16) -> list:
+    """The K split counts (up to ``most``) the SpMM takes for ``KN`` stored
+    values a row in ``dtype``: splits of equal slab counts, none empty
+    (``csrc/nmg_spmm.cu:requested_splits``)."""
+    nslab = math.ceil(KN / _SLAB[dtype])
+    return [z for z in range(1, min(most, nslab) + 1)
+            if math.ceil(nslab / math.ceil(nslab / z)) == z]
 
 
 def _gather_block(b_p, cols, val_g):
@@ -56,10 +68,16 @@ def _gather_block(b_p, cols, val_g):
 
 def nmg_spmm_plain(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
                    transpose_out: bool = False,
-                   block_elems: int = routing.DEFAULT_SPMM_BLOCK_ELEMS
-                   ) -> torch.Tensor:
+                   block_elems: Optional[int] = None,
+                   splits: Optional[int] = None) -> torch.Tensor:
     """Plain version: blocked gather + einsum over the column plan, each
-    block's gathered operand capped at ``block_elems`` elements."""
+    block's gathered operand capped at ``block_elems`` elements (default:
+    the routing lookup's ``spmm_block_elems``).  The cap schedules the
+    blocks and changes no bit of the result.  ``splits`` is the kernel's,
+    taken so the plain version can stand in for it, and changes nothing
+    here."""
+    if block_elems is None:
+        block_elems, _ = routing.spmm_block_elems()
     gr = a.gr
     R_pad, nblocks, n = a.val.shape
     cols = a.gather_plan().cols
@@ -77,16 +95,23 @@ def nmg_spmm_plain(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
 
 
 def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
-             transpose_out: bool = False) -> torch.Tensor:
+             transpose_out: bool = False,
+             splits: Optional[int] = None) -> torch.Tensor:
     """C = A_canonical @ B: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; f32 [R, N] unless ``out_dtype`` /
-    ``transpose_out``."""
+    ``transpose_out``.  ``splits`` (a tuning table's ``spmm_cuda``
+    entry) is the kernel's K split count, None for the shape's own; one
+    the kernel cannot take raises, as does any on the GEMV route of gr
+    not a multiple of 64."""
     if b.device.type == "cpu":
         return nmg_spmm_plain(a, b, out_dtype=out_dtype,
                               transpose_out=transpose_out)
     from repro_torch.kernels import _build
 
     if a.gr % _ROWS_PER_BLOCK:
+        if splits is not None:
+            raise ValueError(f"gr={a.gr} takes the GEMV route, which has no "
+                             f"K split to set")
         (out,) = gemv_launch([a], b, out_dtype=out_dtype,
                              transpose_out=transpose_out, max_m=None)
         nmg_spmm.launches += 1
@@ -105,17 +130,21 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         splits_fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p]
-                              + [ctypes.c_longlong] * 2)
+                              + [ctypes.c_longlong] * 2 + [ctypes.c_int])
         splits_fn.restype = ctypes.c_int
     code = _DTYPE_CODE[b.dtype]
     out = torch.empty((N, R) if transpose_out else (R, N), dtype=out_dtype,
                       device=b.device)
+    want = 0 if splits is None else int(splits)
+    if want and want not in spmm_split_choices(KN, b.dtype, most=want):
+        raise ValueError(f"the SpMM cannot cut K ({KN} stored values a row) "
+                         f"into {want} splits")
     # K-split partials for shapes whose output tiles cannot fill the card
     splits = splits_fn(code, R_pad, N, KN, a.gr, b.data_ptr(), b.stride(0),
-                       b.stride(1))
+                       b.stride(1), want)
     # chunk geometry: cs stored values of a row cover cx rows of B
     cg = math.comb(a.m, a.n) * a.g
     ws = torch.empty((splits, R, N), dtype=torch.float32,
@@ -124,7 +153,7 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
              b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
              None if ws is None else ws.data_ptr(), R, R_pad, K, KN, N, a.gr,
              a.n * cg, a.m * cg, int(out_dtype != torch.float32),
-             int(transpose_out),
+             int(transpose_out), want,
              torch.cuda.current_stream(b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nmg_spmm launch failed: error {err}")

@@ -8,7 +8,9 @@ by side.
         --nm 1:4:8
 
 runs on the card; ``--device cpu`` runs the plain versions on the CPU
-(with ``--smoke`` for a size the CPU can take).
+(with ``--smoke`` for a size the CPU can take).  ``--tuning-table PATH``
+(or ``$REPRO_TUNE_TABLE``) routes through a table of ``python -m
+repro_torch.tune``; ``--tune`` tunes the served shapes in the warmup.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import init_lm
 from repro_torch.serve import Request, SamplingParams, ServeEngine, \
     compare_dense_sparse, warmup_engine
+from repro_torch.tune import load_table_cli
+from repro_torch.tune.table import device_kind
 
 __all__ = ["main", "make_requests"]
 
@@ -60,11 +64,24 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--tuning-table", default=None, metavar="PATH",
+                    help="load a tuning table (written by `python -m "
+                         "repro_torch.tune`) so kernel routing uses its "
+                         "measured decisions; $REPRO_TUNE_TABLE otherwise")
+    ap.add_argument("--tune", action="store_true",
+                    help="tune the served shapes' kernel routing in the "
+                         "warmup, before the engine's programs are built")
     args = ap.parse_args(argv)
     if not args.engine:
         ap.error("only --engine mode is ported")
+    if args.tune and args.no_warmup:
+        # tuning runs inside the warmup, before the programs are built;
+        # without it the run would serve default routing reported as tuned
+        ap.error("--tune requires the warmup pass; drop --no-warmup")
 
     device = resolve_device(args.device)
+    # --tuning-table or $REPRO_TUNE_TABLE, before any model is built
+    load_table_cli(args.tuning_table, device=device_kind(device))
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = init_lm(cfg, args.seed, device=device)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen_len,
@@ -76,7 +93,8 @@ def main(argv=None) -> int:
     if args.sparse:
         n, m, g = (int(v) for v in args.nm.split(":"))
         results = compare_dense_sparse(params, cfg, reqs, nm=(n, m, g),
-                                       engine_kwargs=ekw, warmup=warm)
+                                       engine_kwargs=ekw, warmup=warm,
+                                       tune=args.tune)
         for _, met in results.values():
             print(met.report())
         d, s = results["dense"][1], results["sparse"][1]
@@ -86,7 +104,7 @@ def main(argv=None) -> int:
     else:
         eng = ServeEngine(params, cfg, **ekw)
         if warm:
-            warmup_engine(eng, reqs)
+            warmup_engine(eng, reqs, tune=args.tune)
         outs = eng.run(reqs)
         print(eng.metrics(label="dense").report())
         results = {"dense": (outs, None)}

@@ -56,6 +56,8 @@ from repro_torch.models import init_lm, loss_fn
 from repro_torch.optim import AdamWConfig, GMPSchedule, adamw_init, \
     adamw_update, resparsify_params_, sparse_aware_update
 from repro_torch.optim.optimizers import trainable, tree_map
+from repro_torch.tune import load_table_cli
+from repro_torch.tune.table import device_kind
 
 __all__ = ["build_sparse_params", "retarget_sparsity", "loss_and_grads",
            "make_train_step", "make_multi_step", "stack_batches",
@@ -327,6 +329,10 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
+    ap.add_argument("--tuning-table", default=None, metavar="PATH",
+                    help="load a tuning table (written by `python -m "
+                         "repro_torch.tune`) so kernel routing uses its "
+                         "measured decisions; $REPRO_TUNE_TABLE otherwise")
     args = ap.parse_args(argv)
     # the fast path chunks by --log-every: a non-positive value would spin
     # on zero-step chunks
@@ -343,6 +349,8 @@ def run(args) -> dict:
     "start_step", "cfg", "gmp" and "trainer" (the :class:`MultiStep`, or
     None for the host loop)."""
     dev = resolve_device(args.device)
+    # --tuning-table or $REPRO_TUNE_TABLE, before any model is built
+    load_table_cli(args.tuning_table, device=device_kind(dev))
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = init_lm(cfg, seed=args.seed, device=dev)
     gmp = None

@@ -387,7 +387,14 @@ class ServeEngine:
         return summarize(self._outputs, wall, label=label)
 
 
-def warmup_engine(engine: ServeEngine, requests) -> ServeEngine:
+def _has_nmg(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_nmg(v) for v in tree.values())
+    return isinstance(tree, GroupedNMTensor)
+
+
+def warmup_engine(engine: ServeEngine, requests, *, tune: bool = False,
+                  tune_reps: int = 3) -> ServeEngine:
     """Serve a tiny trace through ``engine`` (the one to be measured), so
     a measured run of ``requests`` does not include first-call costs
     (kernel builds, allocator growth, program builds): one greedy request
@@ -395,7 +402,25 @@ def warmup_engine(engine: ServeEngine, requests) -> ServeEngine:
     admission program and the greedy decode program; when ``requests``
     hold a sampled request, one more run of it alone builds the
     single-step program.  Then clears the engine's outputs, stats and
-    clock.  Returns ``engine``."""
+    clock.  Returns ``engine``.
+
+    With ``tune=True`` it first tunes the kernel routing for the engine's
+    n:m:g weights (``tune/bench.py:autotune_for_serving``: each weight's
+    GEMV/SpMM crossover at ``max_slots`` and the trace's prompt lengths,
+    on the card the kernels' configs, the fused groups' decisions) and
+    activates the table, merged into any already active.  The order is the
+    point: a CUDA graph freezes the routes active at its capture, so the
+    table must be active before the programs this warmup builds; tuning
+    an engine whose programs are built changes none of them."""
+    if tune and _has_nmg(engine.params):
+        from repro_torch.tune.bench import autotune_for_serving
+
+        cfg = engine.cfg
+        autotune_for_serving(
+            engine.params, max_slots=engine.max_slots,
+            prompt_lens=sorted({int(r.prompt.size) for r in requests})
+            or [8], dtype=cfg.tdtype, reps=tune_reps,
+            gated_act=cfg.act if cfg.gated_mlp else None)
     seen, greedy, sampled = set(), [], None
     for r in requests:
         if r.prompt.size not in seen:
@@ -415,9 +440,12 @@ def warmup_engine(engine: ServeEngine, requests) -> ServeEngine:
 def compare_dense_sparse(params, cfg: ModelConfig, requests, *,
                          nm: tuple = (1, 4, 16), gr: int = 64,
                          engine_kwargs: Optional[dict] = None,
-                         warmup: bool = False) -> dict:
+                         warmup: bool = False, tune: bool = False) -> dict:
     """Serve the same trace with dense and n:m:g weights: returns
-    {'dense': (outputs, metrics), 'sparse': (outputs, metrics)}."""
+    {'dense': (outputs, metrics), 'sparse': (outputs, metrics)}.
+    ``warmup`` warms each engine first; ``tune`` also tunes the sparse
+    variant's routing in its warmup (:func:`warmup_engine`; the dense
+    variant has no n:m:g weight to tune)."""
     engine_kwargs = dict(engine_kwargs or {})
     requests = list(requests)
     results = {}
@@ -427,7 +455,7 @@ def compare_dense_sparse(params, cfg: ModelConfig, requests, *,
     ):
         eng = ServeEngine(p, cfg, **engine_kwargs)
         if warmup:
-            warmup_engine(eng, requests)
+            warmup_engine(eng, requests, tune=tune)
         outs = eng.run(requests)
         results[label] = (outs, eng.metrics(label=label))
     return results

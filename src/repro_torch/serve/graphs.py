@@ -30,6 +30,14 @@ its gather plan (:func:`check_capturable`): one without it would rebuild
 the plan, with host copies, inside the capture.  Never capture while the
 kernel wrappers are swapped for their plain versions: replay would run
 whatever was captured.
+
+Capture freezes the routing too.  Each n:m:g projection reads its route
+and kernel config from the active tuning table (``tune/routing.py``)
+when it is called, and a capture records the launches of that call: a
+table activated after a program's capture changes nothing that replays,
+as a table swapped in the reference retraces nothing.  Activate a table
+before the programs are built (``serve/engine.py:warmup_engine(tune=
+True)`` tunes, then builds).
 """
 
 from __future__ import annotations

@@ -1067,3 +1067,130 @@ def test_unstructured_products_on_the_card(case):
         b = torch.randn(256, 3072, generator=g, device="cuda")
         got, want = sten.matmul(b, csr), b @ csr.to_dense()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# tuned kernel configs (repro_torch.tune)
+# ---------------------------------------------------------------------------
+
+
+def _ints(shape, gen):
+    """Small integers: every product and partial sum exact in f32, so any
+    summation order gives the same bits."""
+    return torch.randint(-4, 5, shape, generator=gen, device="cuda").float()
+
+
+@pytest.mark.parametrize("K,R", [(768, 3072), (2560, 2560)])
+def test_every_tuned_config_matches_plain(K, R):
+    """Every ``gemv_cuda`` config the tuner can pick at bert and qwen
+    widths (tile rows 16/32/64, every K part count the body takes), at M =
+    4 and 16, and every SpMM split it can pick (up to 8) at N = 24 and 64,
+    against the plain version at the tolerance above.  ``rows`` moves no
+    summation (bitwise on small integers against the body's own plan);
+    ``parts`` and ``splits`` reassociate the f32 sum (small integers:
+    bitwise too, being exact)."""
+    _require_cuda()
+    from repro_torch.kernels.nmg_gemv import tc_parts_choices
+    from repro_torch.kernels.nmg_spmm import spmm_split_choices
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(K)
+    w = dense_to_grouped_nm(torch.randn(K, R, generator=g, device="cuda"),
+                            1, 4, 8, gr=64, sparse_dim=0).to(dtype=bf16)
+    wi = dense_to_grouped_nm(_ints((K, R), g), 1, 4, 8, gr=64,
+                             sparse_dim=0).to(dtype=bf16)
+    KN = w.val.shape[1] * w.val.shape[2]
+    for M in (4, 16):
+        x = torch.randn(M, K, generator=g, device="cuda").to(bf16)
+        xi = _ints((M, K), g).to(bf16)
+        want = nmg_gemv.nmg_gemv_plain(w, x.T, transpose_out=True)
+        own = nmg_gemv.nmg_gemv(wi, xi.T, transpose_out=True)
+        for rows in (16, 32, 64):
+            for parts in tc_parts_choices(KN):
+                cfg = {"rows": rows, "parts": parts}
+                got = nmg_gemv.nmg_gemv(w, x.T, transpose_out=True,
+                                        config=cfg)
+                torch.testing.assert_close(got, want, **TOL)
+                assert torch.equal(nmg_gemv.nmg_gemv(
+                    wi, xi.T, transpose_out=True, config=cfg), own), cfg
+    for N in (24, 64):
+        x = torch.randn(N, K, generator=g, device="cuda").to(bf16)
+        want = nmg_spmm.nmg_spmm_plain(w, x.T)
+        for z in spmm_split_choices(KN, bf16, most=8):
+            torch.testing.assert_close(nmg_spmm.nmg_spmm(w, x.T, splits=z),
+                                       want, **TOL)
+    with pytest.raises(ValueError):
+        nmg_gemv.nmg_gemv(w, x[:4].T, config={"rows": 64, "parts": 99})
+    with pytest.raises(ValueError):
+        nmg_spmm.nmg_spmm(w, x.T, splits=10 ** 6)
+
+
+def test_fused_qkv_and_ffn_bitwise_sequential_under_a_table():
+    """With a ``gemv_cuda`` entry that is not the body's own plan, the
+    fused QKV launch equals the per-projection GEMVs bit for bit, and the
+    fused FFN equals the GEMV followed by silu and multiply: the entry's
+    key has no R, so all of them run the same body."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.tune import TuningTable, routing
+
+    bf16 = torch.bfloat16
+    ws = _weights(768, 768, bf16, count=3)
+    (wi,) = _weights(768, 2 * 1536, bf16, seed=5)
+    tab = TuningTable.for_device()
+    cfg = {"rows": 32, "parts": 3}
+    tab.put(routing.gemv_cuda_key(K=768, fmt=(1, 4, 8), gr=64, dtype=bf16),
+            cfg)
+    routing.set_active_table(tab)
+    try:
+        # a generator of its own: the default one may be left in a
+        # capture state by the capture-error tests above
+        g = torch.Generator(device="cuda").manual_seed(4)
+        x = torch.randn(4, 768, generator=g, device="cuda").to(bf16)
+        fused = ops.maybe_fused_qkv(x, ws)
+        for f, w in zip(fused, ws):
+            assert torch.equal(f, ops.nmg_linear(x, w))
+            assert torch.equal(f, nmg_gemv.nmg_gemv(
+                w, x.T, out_dtype=bf16, transpose_out=True, config=cfg))
+        u, v = ops.nmg_linear(x, wi).chunk(2, dim=-1)
+        assert torch.equal(ops.maybe_fused_ffn(x, wi),
+                           torch.nn.functional.silu(u) * v)
+        tab.put(routing.gemv_cuda_key(K=768, fmt=(1, 4, 8), gr=64,
+                                      dtype=bf16), {"rows": 64, "parts": 7})
+        with pytest.raises(ValueError):        # 3 slabs: no 7 parts
+            ops.maybe_fused_qkv(x, ws)
+    finally:
+        routing.clear_active_table()
+
+
+@pytest.mark.parametrize("M", [24, 64])
+def test_gemv_routed_past_16_columns(M):
+    """A table that moves the crossover past 16 routes M = 24 and 64
+    through the GEMV kernel (16 columns at a time), against the plain
+    version; the fused QKV declines past the kernels' 16-column tile and
+    the projections run per projection through the same GEMV."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.tune import TuningTable, routing
+
+    bf16 = torch.bfloat16
+    ws = _weights(768, 768, bf16, count=3)
+    tab = TuningTable.for_device()
+    tab.put("decode_m_max", 4096)
+    routing.set_active_table(tab)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(M)
+        x = torch.randn(M, 768, generator=g, device="cuda").to(bf16)
+        ops.reset_kernel_counters()
+        y = ops.nmg_linear(x, ws[0])
+        assert ops.kernel_counters() == {("nmg_linear", "gemv[table]"): 1,
+                                         ("nmg_gemv", "cuda"): 1}
+        torch.testing.assert_close(y.float(), nmg_gemv.nmg_gemv_plain(
+            ws[0], x.T, out_dtype=bf16, transpose_out=True).float(),
+            rtol=2 ** -7, atol=1e-3)
+        torch.testing.assert_close(
+            ops.nmg_matmul(ws[0], x.T),
+            nmg_gemv.nmg_gemv_plain(ws[0], x.T), **TOL)
+        assert ops.maybe_fused_qkv(x, ws) is None
+    finally:
+        routing.clear_active_table()
