@@ -6,9 +6,13 @@ by side.
     python -m repro_torch.launch.serve --arch bert-base-sten --engine --sparse
     python -m repro_torch.launch.serve --arch qwen1.5-4b --engine --sparse \
         --nm 1:4:8
+    python -m repro_torch.launch.serve --arch starcoder2-15b --engine --sparse
+    python -m repro_torch.launch.serve --arch gemma2-9b --engine --sparse
 
-runs on the card; ``--device cpu`` runs the plain versions on the CPU
-(with ``--smoke`` for a size the CPU can take).  ``--tuning-table PATH``
+runs on the card (gemma2-9b's local layers keep a ring cache of its
+4096-token window, so ``--prompt-len`` may exceed it); ``--device cpu``
+runs the plain versions on the CPU (with ``--smoke`` for a size the CPU
+can take).  ``--tuning-table PATH``
 (or ``$REPRO_TUNE_TABLE``) routes through a table of ``python -m
 repro_torch.tune``; ``--tune`` tunes the served shapes in the warmup.
 """

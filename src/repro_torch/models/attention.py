@@ -69,10 +69,14 @@ def _block_mask(qpos, kpos, *, causal: bool, window: Optional[int],
 
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None, prefix_len: int = 0,
-                      chunk_q: int = 512, q_offset: int = 0,
+                      softcap: Optional[float] = None, chunk_q: int = 512,
+                      q_offset: int = 0,
                       compute_dtype=torch.float32) -> torch.Tensor:
     """q [B, Sq, H, hd]; k, v [B, Sk, KV, hd] (H % KV == 0); head h reads
-    kv head h // (H // KV).  Returns [B, Sq, H, hd] in q.dtype."""
+    kv head h // (H // KV).  ``window``: key positions more than
+    ``window - 1`` before the query are masked; ``softcap`` c maps each
+    score s to c·tanh(s/c) before the mask.  Returns [B, Sq, H, hd] in
+    q.dtype."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -86,6 +90,8 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         qc = q[:, q0:q0 + chunk_q].to(cdt)
         qpos = q_offset + q0 + torch.arange(qc.shape[1], device=q.device)
         s = torch.einsum("bqhd,bkhd->bhqk", qc, kf).float() * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
         mask = _block_mask(qpos, kpos, causal=causal, window=window,
                            prefix_len=prefix_len)
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
@@ -94,15 +100,20 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """Single-token decode: q [B, 1, H, hd]; caches [B, S, KV, hd];
-    ``cache_len`` [] or [B] valid length(s), the new token included."""
+    ``cache_len`` [] or [B] valid length(s), the new token included;
+    ``softcap`` as in :func:`chunked_attention`.  A local layer's window
+    is its ring's length (``models/transformer.py:init_cache``)."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     qf = q.reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     pos = torch.arange(S, device=q.device)
     cl = torch.as_tensor(cache_len, device=q.device)
     if cl.ndim == 1:
@@ -143,12 +154,17 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v.reshape(B, S, KV, hd)
 
 
-def apply_gqa(p, x, cfg: ModelConfig, *, positions=None):
-    """Causal self-attention over x [B, S, D]; returns (y, (k, v))."""
+def apply_gqa(p, x, cfg: ModelConfig, *, is_local: bool = False,
+              positions=None):
+    """Causal self-attention over x [B, S, D], over ``cfg.local_window``
+    keys in a local layer; returns (y, (k, v))."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    out = chunked_attention(q, k, v, causal=True, chunk_q=cfg.attn_chunk_q,
+    out = chunked_attention(q, k, v, causal=True,
+                            window=cfg.local_window if is_local else None,
+                            softcap=cfg.attn_softcap,
+                            chunk_q=cfg.attn_chunk_q,
                             compute_dtype=torch_dtype(cfg.attn_dtype))
     return mm(out.reshape(B, S, -1), p["wo"]), (k, v)

@@ -2,10 +2,12 @@
 ``repro/models/common.py``).
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field.
-The port runs its GQA dense-decoder subset, plain or gated MLP, with or
-without QKV bias and the MLP's inline threshold:
+The port runs its GQA dense-decoder subset: plain or gated MLP, with or
+without QKV bias and the MLP's inline threshold, global layers or
+alternating local/global layer pairs with a sliding window, attention and
+logit softcaps, post-norms, a tied or separate head.
 :meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
-other families.
+other families (MoE, MLA, SSM, enc-dec, vision prefix, int8 KV cache).
 """
 
 from __future__ import annotations
@@ -146,18 +148,19 @@ class ModelConfig:
     def check_ported(self):
         """Raise NotImplementedError unless this config lies in the
         ported subset: GQA dense decoder (plain or gated MLP, optional QKV
-        bias and MLP inline threshold), global attention, no
-        MoE/MLA/SSM/enc-dec/VLM prefix/int8 KV/softcaps/post-norms."""
+        bias and MLP inline threshold), global layers or local/global
+        pairs (``alt_local_global`` with ``local_window``, an even layer
+        count), softcaps, post-norms; no MoE/MLA/SSM/enc-dec/VLM
+        prefix/int8 KV."""
         unported = {
             "attn_type != 'gqa'": self.attn_type != "gqa",
             "moe": self.moe is not None,
             "mla": self.mla is not None,
             "ssm": self.ssm is not None,
-            "local/global layers": self.layer_pattern != "global"
-            or self.local_window is not None,
-            "softcaps": self.attn_softcap is not None
-            or self.logit_softcap is not None,
-            "post_norms": self.post_norms,
+            "layer_pattern 'local'": self.layer_pattern == "local",
+            "local/global pairs without local_window or of odd depth":
+                self.layer_pattern == "alt_local_global"
+                and (self.local_window is None or self.n_layers % 2),
             "enc-dec": self.n_enc_layers > 0,
             "vision prefix": self.vision_prefix > 0,
             "kv_cache_dtype": self.kv_cache_dtype is not None,

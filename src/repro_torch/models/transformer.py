@@ -4,29 +4,38 @@
 Params are nested dicts with the reference's layout: layer leaves are
 stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
 them where the reference scans (a stacked layout is sliced per layer, a
-view).  Any projection may be a ``GroupedNMTensor`` (``mm`` routes it
-through the n:m:g kernels) or another layout (``FixedMaskTensor`` in
-masked training; ``NMTensor`` and ``DenseTensor`` through the dispatcher's
-lossless conversions).  The reference's three intermediate tag sites are
-here (``attn.out`` in the forward and prefill, ``mlp.act`` and
-``mlp.out`` in every FFN): with no sparsity plan active ``tag`` returns
-its input itself, so they change nothing then.
-With ``cfg.mlp_inline_threshold`` the MLP up-projection carries the
-scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it runs the
-fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn`` are
-autograd-safe (the training path); remat is not ported.
+view).  A config with ``layer_pattern == "alt_local_global"`` (gemma2)
+holds the reference's pair layout, ``layers = {"local": {...}, "global":
+{...}}``, each stacked on ``[L/2]``; the loop walks the pairs, local
+first, as the reference's scan over pairs does.  Local layers attend over
+``cfg.local_window`` keys; ``attn_softcap`` / ``logit_softcap`` cap the
+attention scores and the logits, and ``post_norms`` norms each
+sublayer's output before its residual add.  Any projection may be a
+``GroupedNMTensor`` (``mm`` routes it through the n:m:g kernels) or
+another layout (``FixedMaskTensor`` in masked training; ``NMTensor`` and
+``DenseTensor`` through the dispatcher's lossless conversions).  The
+reference's three intermediate tag sites are here (``attn.out`` in the
+forward and prefill, ``mlp.act`` and ``mlp.out`` in every FFN): with no
+sparsity plan active ``tag`` returns its input itself, so they change
+nothing then.  With ``cfg.mlp_inline_threshold`` the MLP up-projection
+carries the scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it
+runs the fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn``
+are autograd-safe (the training path); remat is not ported.
 
-The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]) is updated **in place**
+The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]; for a pair layout
+``{"local": {"k", "v"}, "global": {...}}`` on [L/2], the local leaves a
+ring of ``min(S, local_window)`` rows) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
 array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
 cache for the reference's calling convention.  The serving engine's decode
 and admission graphs (``serve/graphs.py``) replay against these very
 tensors, so no path may reallocate them, and neither the decode step
 nor slot prefill reads anything from the host (positions, slot and
-write offset may be device tensors).  Decode writes past the
-cache end are clamped onto its last row where the reference drops them:
-only a slot that already finished writes there (its tokens are discarded
-on the host), and a later occupant rewrites every row before reading it.
+write offset may be device tensors).  A ring leaf takes position ``p`` at
+row ``p % S_cache``.  Decode writes past the end of a full-length leaf
+are clamped onto its last row where the reference drops them: only a
+slot that already finished writes there (its tokens are discarded on the
+host), and a later occupant rewrites every row before reading it.
 """
 
 from __future__ import annotations
@@ -46,18 +55,33 @@ from repro_torch.models.common import ModelConfig, mm, mm_gated
 
 __all__ = ["init_lm", "forward", "logits_of", "loss_fn", "init_cache",
            "decode_step", "prefill", "prefill_into_slot", "dense_init",
-           "layer_params", "layer_list"]
+           "layer_params", "layer_list", "cache_leaves", "map_cache"]
 
 
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: float | None = None) -> torch.Tensor:
-    """Truncated-normal (±2σ) fan-in init drawn from ``gen``, in f32 then
-    cast; stacked [L, fan_in, fan_out] shapes use the per-layer fan-in."""
+    """Truncated-normal (±2σ) fan-in init drawn from ``gen`` in f32, scaled
+    and cast to ``dtype``; stacked [L, fan_in, fan_out] shapes use the
+    per-layer fan-in.  A stacked shape is drawn one layer at a time into
+    f32 scratch of one layer's shape, scaled in place and cast into the
+    preallocated [L, ...] result: init's peak is the params plus one
+    layer's scratch (drawn whole, starcoder2-15b's ``mlp.wi`` would take
+    24 GB of f32 and as much again for its scaled copy)."""
     fan_in = shape[-2] if len(shape) > 1 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+
+    def draw(t):
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return t.mul_(std)
+
+    if len(shape) < 3:
+        return draw(torch.empty(shape, dtype=torch.float32,
+                                device=device)).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    scratch = torch.empty(shape[1:], dtype=torch.float32, device=device)
+    for i in range(shape[0]):
+        out[i].copy_(draw(scratch))
+    return out
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -68,26 +92,54 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
+def _pair(cfg: ModelConfig) -> bool:
+    return cfg.layer_pattern == "alt_local_global"
+
+
+def _groups(cfg: ModelConfig) -> tuple:
+    """The layer groups of one body in depth order: ("local", "global")
+    for a pair layout, (None,) for a plain stack."""
+    return ("local", "global") if _pair(cfg) else (None,)
+
+
+def _group(tree, g):
+    return tree if g is None else tree[g]
+
+
+def _init_layers(gen, cfg: ModelConfig, L: int, dev):
+    D, F_, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+    p: dict[str, Any] = {
+        "ln1": torch.zeros(L, D, dtype=dt, device=dev),
+        "ln2": torch.zeros(L, D, dtype=dt, device=dev),
+        "attn": attn.init_gqa(gen, cfg, L=L, device=dev),
+        "mlp": {"wi": dense_init(
+            gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
+                "wo": dense_init(gen, (L, F_, D), dt, dev)},
+    }
+    if cfg.post_norms:
+        p["post_ln1"] = torch.zeros(L, D, dtype=dt, device=dev)
+        p["post_ln2"] = torch.zeros(L, D, dtype=dt, device=dev)
+    return p
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Random params for ``cfg`` from a seeded ``torch.Generator`` on
-    ``device``, in the reference's layout (different numbers: the
-    reference draws from ``jax.random``)."""
+    ``device``, in the reference's layout (a pair layout for
+    ``alt_local_global``; different numbers: the reference draws from
+    ``jax.random``), each stacked leaf drawn a layer at a time."""
     cfg.validate()
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    D, F_, L, dt = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.tdtype
+    D, L, dt = cfg.d_model, cfg.n_layers, cfg.tdtype
     params: dict[str, Any] = {
         "embedding": dense_init(gen, (cfg.vocab, D), dt, dev, scale=1.0),
         "final_norm": torch.zeros(D, dtype=dt, device=dev),
-        "layers": {
-            "ln1": torch.zeros(L, D, dtype=dt, device=dev),
-            "ln2": torch.zeros(L, D, dtype=dt, device=dev),
-            "attn": attn.init_gqa(gen, cfg, L=L, device=dev),
-            "mlp": {"wi": dense_init(
-                gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
-                    "wo": dense_init(gen, (L, F_, D), dt, dev)},
-        },
     }
+    if _pair(cfg):
+        params["layers"] = {g: _init_layers(gen, cfg, L // 2, dev)
+                            for g in _groups(cfg)}
+    else:
+        params["layers"] = _init_layers(gen, cfg, L, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, cfg.vocab), dt, dev)
     return params
@@ -131,10 +183,12 @@ def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return x * scale
 
 
-def _sublayer_attn(lp, x, cfg, *, collect=False):
+def _sublayer_attn(lp, x, cfg, *, is_local=False, collect=False):
     h = _rms(x, lp["ln1"])
-    a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg)
+    a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg, is_local=is_local)
     a = tag("attn.out", a)
+    if cfg.post_norms:
+        a = _rms(a, lp["post_ln1"])
     return x + a, ({"k": k, "v": v} if collect else {})
 
 
@@ -147,7 +201,8 @@ def _sublayer_ffn(lp, x, cfg):
     if cfg.gated_mlp:
         # projection, split, act, gate in one decode launch when eligible;
         # None -> the same ops in sequence (the kernel's epilogue replays
-        # their roundings, so the two agree bitwise)
+        # their roundings: bitwise equal for silu, within a few ulp for
+        # gelu, whose tanh is the kernel's own)
         hh = mm_gated(h, wi, cfg.act, inline=inline)
         if hh is None:
             u, v = mm(h, wi, inline=inline).chunk(2, dim=-1)
@@ -155,32 +210,49 @@ def _sublayer_ffn(lp, x, cfg):
     else:
         hh = act_fn(cfg.act)(mm(h, wi, inline=inline))
     hh = tag("mlp.act", hh)
-    return x + tag("mlp.out", mm(hh, lp["mlp"]["wo"]))
+    f = tag("mlp.out", mm(hh, lp["mlp"]["wo"]))
+    if cfg.post_norms:
+        f = _rms(f, lp["post_ln2"])
+    return x + f
 
 
 def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False):
     """tokens [B, S] -> hidden [B, S, D] (final-normed).  With
     ``collect_cache`` also returns the per-layer K/V stacked on [L]:
-    (hidden, {"k": [L, B, S, KV, hd], "v": ...})."""
+    (hidden, {"k": [L, B, S, KV, hd], "v": ...}), for a pair layout
+    {"local": {"k", "v"}, "global": {...}} on [L/2]."""
     x = _embed(params, cfg, tokens)
-    ks, vs = [], []
-    for lp in layer_list(params["layers"]):
-        x, c = _sublayer_attn(lp, x, cfg, collect=collect_cache)
-        x = _sublayer_ffn(lp, x, cfg)
-        if collect_cache:
-            ks.append(c["k"])
-            vs.append(c["v"])
+    groups = _groups(cfg)
+    kv = {g: ([], []) for g in groups}
+    for body in zip(*(layer_list(_group(params["layers"], g))
+                      for g in groups)):
+        for g, lp in zip(groups, body):
+            x, c = _sublayer_attn(lp, x, cfg, is_local=g == "local",
+                                  collect=collect_cache)
+            x = _sublayer_ffn(lp, x, cfg)
+            if collect_cache:
+                kv[g][0].append(c["k"])
+                kv[g][1].append(c["v"])
     x = _rms(x, params["final_norm"])
-    if collect_cache:
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return x
+    if not collect_cache:
+        return x
+    cache = {g: {"k": torch.stack(ks), "v": torch.stack(vs)}
+             for g, (ks, vs) in kv.items()}
+    return x, (cache if _pair(cfg) else cache[None])
 
 
 def logits_of(params, cfg: ModelConfig, hidden):
+    """The head (tied: ``hidden @ embedding.T``), then ``logit_softcap``
+    c as c·tanh(logits/c)."""
     head = params.get("lm_head")
     if head is None:
-        return hidden @ params["embedding"].T
-    return mm(hidden, head)
+        logits = hidden @ params["embedding"].T
+    else:
+        logits = mm(hidden, head)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -199,31 +271,67 @@ def loss_fn(params, cfg: ModelConfig, batch):
     return loss, {"ce": loss, "moe_aux": aux}
 
 
+def cache_leaves(cache) -> list:
+    """Every tensor of a cache tree (flat ``{"k", "v"}`` or a pair
+    layout's nested one), in key order."""
+    if isinstance(cache, dict):
+        return [t for v in cache.values() for t in cache_leaves(v)]
+    return [cache]
+
+
+def map_cache(fn, *caches):
+    """The cache tree of ``fn`` over the matching leaves of ``caches``
+    (trees of one structure)."""
+    if isinstance(caches[0], dict):
+        return {k: map_cache(fn, *(c[k] for c in caches))
+                for k in caches[0]}
+    return fn(*caches)
+
+
 def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
-    """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros."""
+    """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros.  A pair
+    layout's is {"local": ..., "global": ...}, each on [L/2], its local
+    leaves a ring of ``min(S, local_window)`` rows (the reference's
+    ``local_window_cache``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
+
+    def kv(L, rows):
+        shape = (L, B, rows, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
+
+    if _pair(cfg):
+        L = cfg.n_layers // 2
+        return {"local": kv(L, min(S, cfg.local_window)), "global": kv(L, S)}
+    return kv(cfg.n_layers, S)
 
 
-def _decode_gqa_at(p, x, cfg, kc, vc, pv):
+def _decode_gqa_at(p, x, cfg, kc, vc, pv, *, is_local=False):
     """GQA decode of one layer; writes this token's K/V into the layer's
-    cache views ``kc``/``vc`` [B, S, KV, hd] in place."""
+    cache views ``kc``/``vc`` [B, S_c, KV, hd] in place: a local layer's
+    (a ring of at most ``local_window`` rows, :func:`init_cache`) at row
+    ``pv % S_c``, attending over its ``min(pv + 1, S_c)`` rows; a global
+    layer's at ``pv`` clamped onto its last row, attending over ``pv + 1``
+    rows."""
     B = x.shape[0]
     q, k, v = attn._qkv(p, x, cfg, pv[:, None])
     rows = torch.arange(B, device=x.device)
-    wpos = pv.clamp(max=kc.shape[1] - 1).long()
+    S_c = kc.shape[1]
+    assert not is_local or S_c <= cfg.local_window, (S_c, cfg.local_window)
+    wpos = (pv % S_c if is_local else pv.clamp(max=S_c - 1)).long()
     kc.index_put_((rows, wpos), k[:, 0].to(kc.dtype))
     vc.index_put_((rows, wpos), v[:, 0].to(vc.dtype))
-    out = attn.decode_attention(q, kc, vc, pv + 1)
+    n_valid = (pv + 1).clamp(max=S_c) if is_local else pv + 1
+    out = attn.decode_attention(q, kc, vc, n_valid, softcap=cfg.attn_softcap)
     return mm(out.reshape(B, 1, -1), p["wo"])
 
 
-def _decode_layer(lp, x, cfg, kc, vc, pv):
+def _decode_layer(lp, x, cfg, kc, vc, pv, *, is_local=False):
     h = _rms(x, lp["ln1"])
-    x = x + _decode_gqa_at(lp["attn"], h, cfg, kc, vc, pv)
-    return _sublayer_ffn(lp, x, cfg)
+    a = _decode_gqa_at(lp["attn"], h, cfg, kc, vc, pv, is_local=is_local)
+    if cfg.post_norms:
+        a = _rms(a, lp["post_ln1"])
+    return _sublayer_ffn(lp, x + a, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos):
@@ -231,29 +339,50 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     (logits [B, V], cache) with the cache updated in place."""
     x = _embed(params, cfg, token)
     pv = attn.pos_vec(pos, token.shape[0], device=token.device)
-    for i in range(cache["k"].shape[0]):
-        x = _decode_layer(layer_params(params["layers"], i), x, cfg,
-                          cache["k"][i], cache["v"][i], pv)
+    groups = _groups(cfg)
+    for i in range(_group(cache, groups[0])["k"].shape[0]):
+        for g in groups:
+            c = _group(cache, g)
+            x = _decode_layer(layer_params(_group(params["layers"], g), i),
+                              x, cfg, c["k"][i], c["v"][i], pv,
+                              is_local=g == "local")
     x = _rms(x, params["final_norm"])
     return logits_of(params, cfg, x)[:, 0], cache
+
+
+def _rows(S_src: int, S_c: int, offset, device) -> torch.Tensor:
+    """Cache rows of the last ``min(S_src, S_c)`` of ``S_src`` positions
+    written from seq offset ``offset``: absolute position p lands at row
+    ``p % S_c``, the decode step's ring rule (a full-length leaf gets the
+    identity placement)."""
+    take = min(S_src, S_c)
+    return (torch.arange(take, device=device)
+            + (offset + (S_src - take))) % S_c
 
 
 def _write_slot_leaf(dst, src, slot, offset=0):
     """Write one request's collected cache leaf into batch row ``slot`` of
     ``dst`` [L, B_slots, S_cache, ...] at seq offset ``offset``, in place,
-    as one indexed write.  Absolute position ``offset + p`` lands at row
-    ``(offset + p) % S_cache`` (a prompt longer than the cache keeps its
-    tail).  ``slot`` and ``offset`` are Python ints or 0-dim integer
-    tensors on ``dst``'s device; neither is read back to the host, so a
-    captured program writes whichever slot its buffers name at replay."""
+    as one indexed write (rows by :func:`_rows`; a prompt longer than the
+    cache keeps its tail).  ``slot`` and ``offset`` are Python ints or
+    0-dim integer tensors on ``dst``'s device; neither is read back to the
+    host, so a captured program writes whichever slot its buffers name at
+    replay."""
     src = src[:, 0]                                     # [L, S_src, ...]
     S_c, S_src = dst.shape[2], src.shape[1]
-    take = min(S_src, S_c)
-    piece = src[:, -take:].to(dst.dtype)
-    rows = (torch.arange(take, device=dst.device)
-            + (offset + (S_src - take))) % S_c
+    rows = _rows(S_src, S_c, offset, dst.device)
+    piece = src[:, S_src - rows.shape[0]:].to(dst.dtype)
     flat = dst.view(dst.shape[0], -1, *dst.shape[3:])   # [L, B*S_c, ...]
     flat.index_copy_(1, (slot * S_c + rows).long(), piece)
+    return dst
+
+
+def _write_leaf(dst, src):
+    """Write a batch's collected cache leaf src [L, B, S_src, ...] into a
+    fresh ``dst`` [L, B, S_cache, ...] by :func:`_rows` from offset 0."""
+    rows = _rows(src.shape[2], dst.shape[2], 0, dst.device)
+    dst.index_copy_(2, rows, src[:, :, src.shape[2] - rows.shape[0]:]
+                    .to(dst.dtype))
     return dst
 
 
@@ -267,21 +396,26 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     both may be 0-dim device tensors, so one captured program serves every
     slot).  As in the reference, the contributions carry RoPE phases from
     position 0 and the forward reads nothing of the cache: a nonzero
-    ``write_offset`` only places rows."""
+    ``write_offset`` only places rows.
+
+    Both modes place absolute position ``p`` at row ``p % S_cache`` of
+    every leaf, the rule the decode step's ring writes follow.  The
+    reference's slot mode does so too; its classic mode puts a ring
+    leaf's tail at row 0, which is right only for S % S_cache == 0: for
+    any other prompt longer than the window the next decode step reads
+    misplaced rows (a deliberate difference, ROADMAP C10)."""
     B, S = tokens.shape
     hidden, contribs = forward(params, cfg, tokens, collect_cache=True)
     logits = logits_of(params, cfg, hidden[:, -1:])[:, 0]
     if cache is not None:
         assert slot is not None, "slot-mode prefill needs a slot index"
         assert B == 1, "slot-mode prefill admits one request at a time"
-        for name in ("k", "v"):
-            _write_slot_leaf(cache[name], contribs[name], slot, write_offset)
+        map_cache(lambda d, s: _write_slot_leaf(d, s, slot, write_offset),
+                  cache, contribs)
         return logits, cache
     assert cache_len is not None, "prefill needs cache_len or cache+slot"
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
-    for name in ("k", "v"):
-        take = min(S, cache_len)
-        cache[name][:, :, :take] = contribs[name][:, :, -take:]
+    map_cache(_write_leaf, cache, contribs)
     return logits, cache
 
 

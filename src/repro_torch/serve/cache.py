@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import init_cache, prefill_into_slot
+from repro_torch.models.transformer import cache_leaves
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve.graphs import PrefillGraph
 
@@ -46,8 +47,8 @@ def _slot_prefill_fn(cfg: ModelConfig):
 
 def reset_slot(cache: dict, slot) -> dict:
     """Zero batch row ``slot`` (an int or a 0-dim device tensor) of every
-    cache leaf, in place."""
-    for leaf in cache.values():
+    cache leaf (a flat or a pair layout's nested cache), in place."""
+    for leaf in cache_leaves(cache):
         idx = torch.as_tensor(slot, device=leaf.device).reshape(1).long()
         leaf.index_fill_(1, idx, 0)
     return cache
@@ -55,8 +56,8 @@ def reset_slot(cache: dict, slot) -> dict:
 
 def gather_slots(cache: dict, perm) -> dict:
     """Reorder the slot axis by ``perm`` ([max_slots] ints), in place:
-    row i becomes old row ``perm[i]`` (slot compaction)."""
-    for leaf in cache.values():
+    row i becomes old row ``perm[i]`` (slot compaction), in every leaf."""
+    for leaf in cache_leaves(cache):
         idx = torch.as_tensor(perm, device=leaf.device).long()
         leaf.copy_(leaf.index_select(1, idx))
     return cache

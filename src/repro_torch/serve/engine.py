@@ -57,8 +57,9 @@ DEFAULT_MAX_SLOTS = 8
 def sparsify_for_serving(params, n: int = 1, m: int = 4, g: int = 16,
                          gr: int = 64, *, attn: bool = False):
     """Convert the FFN weights (and with ``attn=True`` also wq/wk/wv/wo) to
-    the n:m:g serving layout, ``gr`` rows sharing each chunk permutation.
-    With ``attn=True`` q/k/v share one format over one contraction axis and
+    the n:m:g serving layout, ``gr`` rows sharing each chunk permutation
+    (the globs match a pair layout's ``layers.local.*`` and
+    ``layers.global.*`` too).  With ``attn=True`` q/k/v share one format over one contraction axis and
     decode routes them through the fused QKV launch.  A gated MLP's packed
     [D, 2F] ``wi`` converts as one weight; when 2F needs no row padding
     and F is a multiple of ``gr`` (qwen1.5-4b: 2F = 13824 = 216 x 64; its

@@ -5,9 +5,10 @@ counterpart of the reference's jitted ``_jit_decode``,
 
 A :class:`DecodeGraph` holds one decode program ``fn(params, tok, cache,
 pos) -> tensor`` over static buffers: ``tok`` [B, 1] and ``pos`` [B]
-int32, the engine's own KV cache tensors (updated in place, never
-reallocated) and a static output (the [T, B] token block of a chunk, the
-[B, V] logits of one step).  A :class:`PrefillGraph` holds the admission
+int32, the engine's own KV cache tensors (every leaf of a flat or a
+pair layout's nested cache, updated in place, never reallocated) and a
+static output (the [T, B] token block of a chunk, the [B, V] logits of
+one step).  A :class:`PrefillGraph` holds the admission
 program for one prompt length S: a static [1, S] prompt, the slot and
 seq offset as device scalars (so one graph writes any slot), the same
 cache, and the [1, V] logits as its output.  On the card the first run
@@ -50,6 +51,7 @@ import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels import ops as kops
+from repro_torch.models.transformer import cache_leaves
 from repro_torch.serve.tracecount import note_trace
 
 __all__ = ["DecodeGraph", "PrefillGraph", "check_capturable"]
@@ -156,8 +158,8 @@ class DecodeGraph(_ProgramGraph):
 
     def __init__(self, fn: Callable, params, cache: dict, batch: int, *,
                  name: str = "decode", capture: bool = True, pool=None):
-        super().__init__(name, params, cache["k"].device, capture=capture,
-                         pool=pool)
+        super().__init__(name, params, cache_leaves(cache)[0].device,
+                         capture=capture, pool=pool)
         self.fn = fn
         self.cache = cache
         # tok and pos share one buffer, so each run copies in once
@@ -188,8 +190,9 @@ class PrefillGraph(_ProgramGraph):
 
     def __init__(self, fn: Callable, params, cache: dict, S: int, *,
                  capture: bool = True, pool=None):
-        super().__init__("slot_prefill", params, cache["k"].device,
-                         capture=capture, pool=pool)
+        super().__init__("slot_prefill", params,
+                         cache_leaves(cache)[0].device, capture=capture,
+                         pool=pool)
         self.fn = fn
         self.cache = cache
         self.S = S

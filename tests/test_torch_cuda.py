@@ -1194,3 +1194,126 @@ def test_gemv_routed_past_16_columns(M):
         assert ops.maybe_fused_qkv(x, ws) is None
     finally:
         routing.clear_active_table()
+
+
+def _card_weight(K, R, dtype, seed=0, gr=64):
+    """An n:m:g 1:4:8 weight [K, R] converted on the card, values scaled
+    by 1/sqrt(K) so products stay O(1) at any K."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dense = torch.randn(K, R, generator=g, device="cuda") / K ** 0.5
+    return dense_to_grouped_nm(dense.to(dtype), 1, 4, 8, gr=gr,
+                               sparse_dim=0)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_ffn_gelu_at_gemma2_width(M):
+    """The fused FFN with gelu at gemma2-9b's packed [3584, 28672] wi
+    (bf16, gr64): the f32 output against the plain version, the bf16
+    output against the GEMV followed by gelu-tanh · v (the bound of
+    ``test_ffn_matches_plain_and_sequential``) and bitwise against a
+    second launch."""
+    _require_cuda()
+    bf16 = torch.bfloat16
+    w = _card_weight(3584, 2 * 14336, bf16)
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn(M, 3584, generator=g, device="cuda").to(bf16)
+    torch.testing.assert_close(
+        nmg_fused.nmg_ffn(w, x.T, act="gelu", transpose_out=True),
+        nmg_fused.nmg_ffn_plain(w, x.T, act="gelu", transpose_out=True),
+        **TOL)
+    fused = nmg_fused.nmg_ffn(w, x.T, act="gelu", out_dtype=bf16,
+                              transpose_out=True)
+    assert fused.shape == (M, 14336)
+    u, v = nmg_gemv.nmg_gemv(w, x.T, out_dtype=bf16,
+                             transpose_out=True).chunk(2, dim=-1)
+    torch.testing.assert_close(
+        fused.float(), (nmg_fused.act_fn("gelu")(u) * v).float(),
+        atol=1e-6, rtol=2 ** -7)
+    assert torch.equal(fused, nmg_fused.nmg_ffn(
+        w, x.T, act="gelu", out_dtype=bf16, transpose_out=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemv_and_spmm_at_k_24576(dtype):
+    """starcoder2-15b's mlp.wo [24576, 6144] (the widest contraction the
+    port serves): the GEMV at M = 4 and 16 and the SpMM at N = 32 and 64
+    against their plain versions, each bitwise against a second launch."""
+    _require_cuda()
+    w = _card_weight(24576, 6144, dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for M in (4, 16):
+        x = torch.randn(24576, M, generator=g, device="cuda").to(dtype)
+        got = nmg_gemv.nmg_gemv(w, x)
+        torch.testing.assert_close(got, nmg_gemv.nmg_gemv_plain(w, x),
+                                   **TOL)
+        assert torch.equal(got, nmg_gemv.nmg_gemv(w, x)), M
+    for N in (32, 64):
+        x = torch.randn(24576, N, generator=g, device="cuda").to(dtype)
+        got = nmg_spmm.nmg_spmm(w, x)
+        torch.testing.assert_close(got, nmg_spmm.nmg_spmm_plain(w, x),
+                                   **TOL)
+        assert torch.equal(got, nmg_spmm.nmg_spmm(w, x)), N
+
+
+@pytest.mark.parametrize("fmt", ["dense", "nmg"])
+def test_ring_cache_engine_replay_bitwise_eager(fmt):
+    """gemma2-9b SMOKE (bf16, window 16; n:m:g 1:4:8 gr16 ``attn=True``
+    or dense) served by an engine of 2 slots x 40 rows, local rings of 16
+    rows: prompts 20, 6, 20, 6 with 12 new tokens each, chunk 4 (a
+    20-token admission wraps the ring, and every request wraps it while
+    its chunks replay).  With graphs and with ``graphs=False``: token
+    streams and launch counts equal.  Then an admission replayed into
+    slot 1 against eager ``prefill_into_slot`` on a clone of the cache:
+    logits and every leaf bitwise."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm, prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve import Request, ServeEngine, \
+        sparsify_for_serving, warmup_engine
+
+    cfg = get_smoke("gemma2-9b")
+    params = init_lm(cfg, seed=0, device="cuda")
+    if fmt == "nmg":
+        params = sparsify_for_serving(params, 1, 4, 8, gr=16, attn=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 6, 20, 6)]
+
+    def trace():
+        return [Request(uid=i, prompt=p, max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+
+    runs = {}
+    for graphs in (True, False):
+        eng = ServeEngine(params, cfg, max_slots=2, max_seq_len=40,
+                          decode_chunk=4, graphs=graphs)
+        assert eng.kv.data["local"]["k"].shape[2] == cfg.local_window
+        warmup_engine(eng, trace())
+        ops.reset_kernel_counters()
+        outs = eng.run(trace())
+        runs[graphs] = ([o.tokens for o in outs], ops.counter_snapshot())
+        if not graphs:
+            continue
+        assert eng._decode_chunk.info["captured"]
+        assert all(g.info["captured"] and g.info["replays"] == 2
+                   for g in eng.kv.prefill_graphs.values())
+        prompt = rng.integers(0, cfg.vocab, (1, 20), dtype=np.int32)
+        ref = map_cache(torch.clone, eng.kv.data)
+        got = eng.kv.write_prefill(params, prompt, 1).clone()
+        want, _ = prefill_into_slot(
+            params, cfg, torch.as_tensor(prompt, device="cuda"), ref, 1)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(cache_leaves(eng.kv.data), cache_leaves(ref)))
+    assert runs[True] == runs[False]
+    assert all(len(t) == 12 for t in runs[True][0])
+    launches = runs[True][1]["launches"]
+    if fmt == "nmg":
+        for k in ("nmg_gemv", "nmg_qkv", "nmg_ffn"):
+            assert launches[k] > 0, (k, launches)
+    else:
+        assert not any(launches.values()), launches

@@ -4,7 +4,7 @@ with the reference's weights (dense, and n:m:g 1:4:8 gr16 with
 ``attn=True``) carried over by the bridge: forward hidden states, prefill
 logits and several decode steps allclose, greedy tokens equal.  Plus the
 port's guards: no JAX/``repro`` imports, no silent CPU runs, unported
-families raise."""
+families raise (starcoder2-15b and gemma2-9b: ``test_torch_families.py``)."""
 
 import ast
 import dataclasses
@@ -206,11 +206,11 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_families_raise():
-    softcap = dataclasses.replace(get_smoke("qwen1.5-4b"), attn_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="softcaps"):
-        init_lm(softcap, device="cpu")
+    prefix = dataclasses.replace(get_smoke("qwen1.5-4b"), vision_prefix=4)
+    with pytest.raises(NotImplementedError, match="vision prefix"):
+        init_lm(prefix, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma2-9b")
+        get_config("paligemma-3b")
     full = get_config("bert-base-sten")
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab, full.dtype) \
         == (12, 768, 3072, 30522, "bfloat16")
