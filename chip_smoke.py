@@ -11,7 +11,11 @@
    24576, and mlp.wo, K = 24576, the fused QKV and the SpMM at mlp.wo; at
    gemma2-9b the fused QKV, the FFN with gelu at the packed [3584, 28672]
    wi, held against the GEMV + gelu-tanh · v within the card tests'
-   bound, and the SpMM at that wi) and of the training path (``nm_mask`` 2:4
+   bound, and the SpMM at that wi; at paligemma-3b the fused QKV over
+   its MQA segments 2048 + 256 + 256, the gelu FFN at [2048, 32768], the
+   GEMV at K = 16384 and the SpMM at an image request's N = 288; at
+   minicpm3-4b the silu FFN at [2560, 12800] and the GEMV at mlp.wo, K =
+   6400, and attn.wo) and of the training path (``nm_mask`` 2:4
    on the stacked and per-layer ``mlp.wo`` / ``attn.wo``, 16:32, 5:20,
    special values and a misaligned view, bitwise, each naming the body it
    took; ``matmul_threshold``
@@ -108,7 +112,25 @@
       its cache row by row against the classic prefill of its tokens, and
       controls that must fail those checks (the reference's classic ring
       layout; no post-norms; silu for gelu).
-   e. the programming model (``repro_torch.sten``): (s1) the library at
+   e. full-width, full-depth paligemma-3b (18 layers, d_model 2048, MQA
+      8/1 heads of 256, gated gelu d_ff 16384, tied 257216-row head) and
+      minicpm3-4b (62 layers, d_model 2560, MLA over 40 heads with a
+      256-wide latent, gated silu d_ff 6400, vocab 73448), bf16, seeded
+      random weights, in a process of its own (``python3 chip_smoke.py
+      --vlm-mla``, after (d)), through (d)'s sequence (the fused QKV
+      asserted at GQA models only: MLA has no q/k/v group).  Then
+      paligemma's image request: 256 seeded patch embeddings admitted by
+      ``prefill_into_slot(prefix_embeds=)`` into an engine's cache with a
+      32-token prompt, 32 tokens decoded by the engine's decode programs
+      (replayed); and minicpm3's 1024 + 32-token request through the
+      engine.  Each request's last step is held against one full
+      ``forward`` over everything fed (logits under the rule above, and
+      every layer's attention output at the last position within 0.1 of
+      its RMS: with random weights the context reaches the logits
+      little) and against the plain versions; controls that must fail
+      the check: the patch embeddings fed causally (no prefix mask), and
+      the cache's ``kr`` rows zeroed (MLA's RoPE term dropped).
+   f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
       through the GEMV and SpMM routes, the fused ``sparsified_op``
@@ -119,7 +141,7 @@
       five library-API training steps and an eval forward with ``mlp.wo``
       an NMTensor (the lossless NMTensor -> FixedMaskTensor route), held
       to the same run through the plain versions.
-   f. tuning (``repro_torch.tune``): ``python -m repro_torch.tune
+   g. tuning (``repro_torch.tune``): ``python -m repro_torch.tune
       --quick`` in a subprocess (its decision lines, its table loaded);
       at bert ``mlp.wi`` / ``mlp.wo`` and qwen ``attn.wq``, packed
       ``mlp.wi`` and ``mlp.wo`` (bf16 1:4:8 gr64) the tuned decode config
@@ -138,8 +160,8 @@
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
    launches from its n:m:g run, and their launches on each n:m:g run of
-   (d); training kernels at bert-base-sten training shapes with launches
-   from run (b)'s graph trainer),
+   (d) and (e); training kernels at bert-base-sten training shapes with
+   launches from run (b)'s graph trainer),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Every ``torch.profiler`` session runs after all unprofiled timing
    (one session slows every later launch of the process).
@@ -198,6 +220,21 @@ MODELS = {
                    qkv=(4096, 2048, 2048), gemv=(), spmm=("wi",),
                    spmm_n=(32, 64), ffn="wi", act="gelu",
                    decode_m=(1, 4, 16)),
+    # paligemma-3b: MQA segments 2048 + 256 + 256, the gelu FFN at the
+    # packed [2048, 32768] wi, the GEMV at K = 16384 (mlp.wo), the SpMM at
+    # a prefix request's width (256 patch rows + a 32-token prompt)
+    "paligemma": dict(shapes={"wi": (2048, 32768), "wo_ffn": (16384, 2048),
+                              "wq": (2048, 2048)},
+                      qkv=(2048, 256, 256), gemv=("wo_ffn",), spmm=("wi",),
+                      spmm_n=(288,), ffn="wi", act="gelu",
+                      decode_m=(4, 16)),
+    # minicpm3-4b: no q/k/v group (MLA's latent projections stay dense, no
+    # "wq" here, so no QKV case), attn.wo [2560, 2560], mlp.wo K = 6400,
+    # the silu FFN at the packed [2560, 12800] wi
+    "minicpm3": dict(shapes={"wi": (2560, 12800), "wo_ffn": (6400, 2560),
+                             "wo": (2560, 2560)},
+                     gemv=("wo_ffn", "wo"), spmm=(), ffn="wi", act="silu",
+                     decode_m=(4, 16)),
 }
 DECODE_M = (1, 4, 8, 16)
 
@@ -377,9 +414,11 @@ def kernel_phase(gen, model: str) -> list:
         return dense_to_grouped_nm(dense, 1, 4, 8, gr=64, sparse_dim=0)
 
     W = {name: weight(K, N) for name, (K, N) in shapes.items()}
-    Dq = shapes["wq"][0]
-    widths = spec.get("qkv", (shapes["wq"][1],) * 3)
-    qkv = [W["wq"]] + [weight(Dq, n) for n in widths[1:]]
+    qkv = []
+    if "wq" in shapes:
+        Dq = shapes["wq"][0]
+        widths = spec.get("qkv", (shapes["wq"][1],) * 3)
+        qkv = [W["wq"]] + [weight(Dq, n) for n in widths[1:]]
     decode_m = spec.get("decode_m", DECODE_M)
     act = spec.get("act", "silu")
     dense_of = {id(w): w.to_dense() for w in list(W.values()) + qkv}
@@ -429,8 +468,8 @@ def kernel_phase(gen, model: str) -> list:
                  **rows_resources("nmg_gemv", w, x.T))
 
     # fused QKV: one launch over three segments, bitwise equal to three
-    wqkv = torch.cat([dense_of[id(w)] for w in qkv], dim=1)
-    for M in decode_m:
+    wqkv = torch.cat([dense_of[id(w)] for w in qkv], dim=1) if qkv else None
+    for M in decode_m if qkv else ():
         x = x_of(M, Dq)
         fused = nmg_fused.nmg_qkv(qkv, x.T, out_dtype=bf16,
                                   transpose_out=True)
@@ -1434,13 +1473,25 @@ def device_profile(fn, wall_s: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3d: starcoder2-15b and gemma2-9b at full width and depth, in a
-# process of its own
+# phases 3d and 3e: starcoder2-15b and gemma2-9b, then paligemma-3b and
+# minicpm3-4b, at full width and depth, each pair in a process of its own
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("starcoder2-15b", "gemma2-9b")
+#: the model families served in a process of their own: flag ->
+#: (architectures, the JSON file the child writes under chiprun_out/)
+FAMILY_RUNS = {
+    "--families": (("starcoder2-15b", "gemma2-9b"),
+                   "chip_smoke_families.json"),
+    "--vlm-mla": (("paligemma-3b", "minicpm3-4b"),
+                  "chip_smoke_vlm_mla.json"),
+}
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
-FAMILY_JSON = "chip_smoke_families.json"
+#: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
+#: new tokens; minicpm3's long request: 1024 + 32 tokens
+PREFIX_PROMPT, LATENT_PROMPT, LONG_NEW = 32, 1024, 32
+#: an attention sublayer's output at the last position is held to the
+#: full forward's within this RMS of their difference over its RMS
+ATTN_TOL = 0.1
 
 
 def step_weight_bytes(params) -> int:
@@ -1617,6 +1668,232 @@ def check_window(res) -> None:
         assert not ctl[name]["logits"]["ok"], (name, ctl[name])
 
 
+@contextlib.contextmanager
+def attn_rows(into: list):
+    """While inside, append to ``into`` every attention sublayer's output
+    at the last position (before any post-norm), [B, D] in f32, in call
+    order: a forward's (``apply_gqa`` / ``apply_mla``) last row, a decode
+    step's (``_decode_gqa_at`` / ``decode_mla``) row, one per layer.
+    Python runs these only in eager programs: a graph replay records
+    nothing."""
+    from repro_torch.models import attention, transformer
+
+    hooks = ((attention, "apply_gqa", 0), (attention, "apply_mla", 0),
+             (attention, "decode_mla", None),
+             (transformer, "_decode_gqa_at", None))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
+
+    def recorder(fn, part):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            into.append((out if part is None else out[part])[:, -1].float())
+            return out
+        return rec
+
+    for (mod, name, fn), (_, _, part) in zip(saved, hooks):
+        setattr(mod, name, recorder(fn, part))
+    try:
+        yield into
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def attn_gap(got: list, want: list) -> dict:
+    """Each layer's attention output at the last position (:func:`attn_rows`)
+    against ``want``'s: the RMS of the difference over ``want``'s RMS, its
+    worst and the layers over :data:`ATTN_TOL`.  With random weights a
+    token's logits are mostly its own embedding's (scaled by
+    sqrt(d_model)), so the context reaches them little; this is where a
+    fault in the attention shows."""
+    assert len(got) == len(want) > 0, (len(got), len(want))
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(got, want)]
+    return {"max_rel_rms_err": max(rel), "tol": ATTN_TOL,
+            "layers_over": sum(r > ATTN_TOL for r in rel),
+            "per_layer": [round(r, 5) for r in rel]}
+
+
+def check_ok(c: dict) -> bool:
+    """A long request's check: its logits under the rule and every layer's
+    attention output within :data:`ATTN_TOL`."""
+    return c["logits"]["ok"] and c["attn"]["layers_over"] == 0
+
+
+def long_request(cfg, params, label, prompt_len, prefix=None,
+                 fault=None) -> dict:
+    """One request of ``prompt_len`` tokens (behind ``prefix`` [1, P, D]
+    patch embeddings, if given) and :data:`LONG_NEW` new tokens in a
+    one-slot engine of P + prompt + new rows.  Without a prefix it is
+    served by the engine, warmed with the request itself (its
+    admission's capture), then replayed.  With one it is admitted by
+    ``prefill_into_slot(prefix_embeds=)`` into the engine's cache (the
+    engine's programs take no prefix, as the reference's take none), and
+    decoded by the engine's decode programs: three 8-step chunks, then
+    single steps, each captured at its first run and replayed after, the
+    last step's logits kept.  The same tokens fed through eager
+    ``prefill_into_slot`` and ``decode_step`` on a fresh cache give the
+    same stream (and the replayed last logits bitwise); that last step is
+    then held against one full ``forward`` over everything fed (the slot
+    rule's invariant): its logits by :func:`hold_logits` and each layer's
+    attention output by :func:`attn_gap`, and against the same steps
+    through the plain versions.  ``fault`` (a control) edits the eager
+    run's cache before its last step, or, with ``"causal"``, the full
+    forward is replaced by one over the same embeddings with no prefix
+    mask; either must fail the check (:func:`check_ok`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, forward, init_cache, \
+        logits_of, prefill_into_slot
+    from repro_torch.models.transformer import _embed
+    from repro_torch.serve import Request, ServeEngine, warmup_engine
+
+    P = 0 if prefix is None else prefix.shape[1]
+    rows, new = P + prompt_len + LONG_NEW, LONG_NEW
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab, prompt_len,
+                                               dtype=np.int32)
+    prompt_d = torch.as_tensor(prompt[None], device="cuda")
+    res = {"label": label, "prefix_rows": P, "prompt": prompt_len,
+           "new_tokens": new, "cache_rows": rows}
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, max_slots=1, max_seq_len=rows,
+                      decode_chunk=8, device="cuda")
+    replayed = None
+    if prefix is None:
+        def trace():
+            return [Request(uid=0, prompt=prompt, max_new_tokens=new)]
+
+        t0 = time.perf_counter()
+        warmup_engine(eng, trace())
+        res["warmup_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_counts()
+        (out,) = eng.run(trace())
+        torch.cuda.synchronize()
+        res["counts"] = read_counts()
+        tokens = out.tokens
+        assert len(tokens) == new and out.finish_reason == "length"
+        g = eng.kv.prefill_graphs[prompt_len]
+        assert g.info["captured"] and g.info["replays"] == 1, g.info
+        res.update(metrics=eng.metrics(label=label).to_dict(),
+                   admission_graph=dict(g.info))
+    else:
+        chunks = (new - 2) // 8
+        singles = new - 1 - 8 * chunks
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, _ = prefill_into_slot(params, cfg, prompt_d, eng.kv.data, 0,
+                                      prefix_embeds=prefix)
+        tokens = [int(logits.argmax(-1))]
+        t1 = time.perf_counter()
+        pos = P + prompt_len
+        for _ in range(chunks):
+            blk = eng._decode_chunk.run([tokens[-1]], [pos]).cpu()
+            tokens += [int(t) for t in blk[:, 0]]
+            pos += 8
+        for _ in range(singles):
+            last = eng._decode.run([tokens[-1]], [pos])
+            tokens.append(int(last[0].argmax()))
+            pos += 1
+        replayed = last.float().clone()
+        torch.cuda.synchronize()
+        res.update(admission_ms=(t1 - t0) * 1e3,
+                   decode_s=time.perf_counter() - t1, counts=read_counts(),
+                   chunk_graph=dict(eng._decode_chunk.info),
+                   step_graph=dict(eng._decode.info))
+        assert eng._decode_chunk.info["replays"] == chunks - 1
+        assert eng._decode.info["replays"] == singles - 1
+        assert len(tokens) == new
+    res["serve_peak_gb"] = _gb_peak()
+    del eng
+    torch.cuda.empty_cache()
+
+    def steps(record=None, edit=None):
+        """The request fed eagerly on a fresh cache: the last step's
+        logits, and the stream; ``record`` gets the last step's attention
+        rows, ``edit`` the cache before that step."""
+        cache = init_cache(cfg, 1, rows, device="cuda")
+        logits, _ = prefill_into_slot(params, cfg, prompt_d, cache, 0,
+                                      prefix_embeds=prefix)
+        stream = [int(logits.argmax(-1))]
+        for i in range(new - 1):
+            last = i == new - 2
+            if last and edit is not None:
+                edit(cache)
+            with attn_rows(record) if last and record is not None \
+                    else contextlib.nullcontext():
+                logits, _ = decode_step(
+                    params, cfg, torch.tensor([[tokens[i]]], device="cuda"),
+                    cache, torch.tensor([P + prompt_len + i], device="cuda"))
+            stream.append(int(logits.argmax(-1)))
+        return logits.float(), stream
+
+    got_rows, full_rows = [], []
+    got, stream = steps(got_rows)
+    assert stream == tokens, f"{label}: eager steps and the engine differ"
+    if replayed is not None:
+        assert torch.equal(got, replayed), f"{label}: replay differs"
+    fed = torch.as_tensor(np.concatenate(
+        [prompt, np.asarray(tokens[:-1], np.int32)])[None], device="cuda")
+    with attn_rows(full_rows):
+        hidden = forward(params, cfg, fed, prefix_embeds=prefix)
+    full = logits_of(params, cfg, hidden[:, -1:])[:, 0].float()
+    del hidden
+    cap = cfg.logit_softcap
+    own = [torch.tensor([tokens[-2]])] if cfg.tie_embeddings else None
+    with plain_versions():
+        plain, _ = steps()
+    res["vs_full_forward"] = {"logits": hold_logits([(got, full)], cap, own),
+                              "attn": attn_gap(got_rows, full_rows)}
+    assert check_ok(res["vs_full_forward"]), (label, res["vs_full_forward"])
+    res["vs_plain"] = hold_logits([(got, plain)], cap, own)
+    bad_rows = []
+    if fault == "causal":
+        # the control: the same embeddings, the text scaled as ``_embed``
+        # scales it, with no prefix mask (causal over the image too)
+        emb = torch.cat([prefix.to(cfg.tdtype), _embed(params, cfg, fed)], 1)
+        with attn_rows(bad_rows):
+            hidden = forward(params, cfg, embeds=emb)
+        bad = logits_of(params, cfg, hidden[:, -1:])[:, 0].float()
+        del hidden, emb
+    else:
+        bad, _ = steps(bad_rows, fault)
+    res["control"] = {"logits": logit_stats([(bad, full)], cap, own),
+                      "attn": attn_gap(bad_rows, full_rows)}
+    assert not check_ok(res["control"]), (label, res["control"])
+    return res
+
+
+def prefix_phase(cfg, params) -> dict:
+    """paligemma's image request (:func:`long_request`): ``vision_prefix``
+    seeded patch embeddings, bf16 N(0, 1) (a projector's output scale;
+    the text rows, scaled by sqrt(d_model), are ~45x larger), a 32-token
+    prompt and 32 new tokens.  Control: the same embeddings fed causally
+    (no prefix mask)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    prefix = torch.randn(1, cfg.vision_prefix, cfg.d_model, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    return long_request(cfg, params, "paligemma_prefix", PREFIX_PROMPT,
+                        prefix=prefix, fault="causal")
+
+
+def latent_phase(cfg, params) -> dict:
+    """minicpm3's long request (:func:`long_request`): 1024 + 32 tokens
+    through the engine, the absorbed decode over the compressed cache
+    held to the un-absorbed full forward (exact up to rounding).
+    Control: the ``kr`` rows of the cache zeroed before the last step
+    (the decoupled RoPE term dropped from every cached key)."""
+    def drop_rope(cache):
+        cache["kr"].zero_()
+
+    return long_request(cfg, params, "minicpm3_latent", LATENT_PROMPT,
+                        fault=drop_rope)
+
+
 def family_phase(arch: str, card: str) -> dict:
     """One model at full width and depth (seeded random weights, bf16):
     ``init_lm`` (seconds, peak), the n:m:g 1:4:8 gr64 ``attn=True``
@@ -1626,7 +1903,9 @@ def family_phase(arch: str, card: str) -> dict:
     (the 8-step chunk replay bitwise eager, wall eager and replayed, the
     replay's CUDA-event span as its device time: no profiler session runs
     in this process), the n:m:g logits held against the plain versions
-    (:func:`logit_parity`), and for gemma2 :func:`window_phase`.  Beside
+    (:func:`logit_parity`), and for gemma2 :func:`window_phase`, for
+    paligemma :func:`prefix_phase`, for minicpm3 :func:`latent_phase`.
+    Beside
     per-token p50 stands the step's byte bound: the weights one decode
     step reads (:func:`step_weight_bytes`) at 3.35 TB/s."""
     import torch
@@ -1667,8 +1946,12 @@ def family_phase(arch: str, card: str) -> dict:
     res["serve_peak_gb"] = _gb_peak()
     dc, sc = runs[0]["counts"], runs[1]["counts"]
     assert all(dc[k] == 0 for k in KERNELS), dc
-    for k in ("nmg_gemv", "nmg_qkv", "nmg_spmm"):
+    for k in ("nmg_gemv", "nmg_spmm"):
         assert sc[k] > 0, f"{k} never launched on the {arch} n:m:g path"
+    # a GQA model's q/k/v take the fused launch; MLA has no q/k/v group
+    # (its latent projections stay dense)
+    gqa = cfg.attn_type == "gqa"
+    assert (sc["nmg_qkv"] > 0) == gqa, (arch, sc)
     assert (sc["nmg_ffn"] > 0) == cfg.gated_mlp, sc
     report_runs(runs, card)
     for r in runs:
@@ -1708,39 +1991,66 @@ def family_phase(arch: str, card: str) -> dict:
               f"{w['vs_full_forward']}, vs plain {w['vs_plain']}; cache "
               f"rows vs classic prefill {w['rows_vs_prefill']}; controls "
               f"{w['controls']}", flush=True)
+    requests = {}
+    if cfg.vision_prefix:
+        requests["prefix"] = prefix_phase
+    if cfg.attn_type == "mla":
+        requests["latent"] = latent_phase
+    for key, fn in requests.items():
+        r = res[key] = fn(cfg, sparse)
+        want = [k for k in KERNELS if gqa or k != "nmg_qkv"]
+        assert all(r["counts"][k] > 0 for k in want), (key, r["counts"])
+        chk, ctl = r["vs_full_forward"], r["control"]
+        print(f"{arch} {key} request on {card}: {r['prefix_rows']} "
+              f"prefix rows + {r['prompt']} + {r['new_tokens']} tokens, "
+              f"cache {r['cache_rows']} rows; "
+              + (f"TTFT {r['metrics']['ttft_p50'] * 1e3:.3f} ms "
+                 f"(replayed admission), per-token p50 "
+                 f"{r['metrics']['tok_latency_p50'] * 1e3:.3f} ms; "
+                 if "metrics" in r else
+                 f"admission {r['admission_ms']:.3f} ms (eager), "
+                 f"decode {r['decode_s'] * 1e3:.1f} ms for "
+                 f"{r['new_tokens'] - 1} steps (captures included); ")
+              + f"peak {r['serve_peak_gb']:.2f} GB; last logits vs full "
+              f"forward {chk['logits']}, attention rows "
+              f"{chk['attn']}; vs plain {r['vs_plain']}; control "
+              f"logits {ctl['logits']}, attention rows {ctl['attn']}; "
+              f"launches {r['counts']}", flush=True)
     res["runs"], res["graphs"] = runs, graphs
     return res
 
 
-def families_child() -> int:
-    """Phase 3d in its own process (``python3 chip_smoke.py --families``,
-    started by :func:`main`): the earlier phases' params, graphs, pools
-    and profiler sessions are not in it.  Writes its results to
-    ``chiprun_out/chip_smoke_families.json``."""
+def families_child(flag: str) -> int:
+    """Phase 3d (``python3 chip_smoke.py --families``) or 3e (``--vlm-mla``)
+    in its own process, started by :func:`main`: the earlier phases'
+    params, graphs, pools and profiler sessions are not in it.  Writes its
+    results to ``chiprun_out/`` under the flag's file name
+    (:data:`FAMILY_RUNS`)."""
     import torch
 
     from repro_torch.kernels import _build
 
-    assert torch.cuda.is_available(), "phase 3d needs a CUDA device"
+    archs, name = FAMILY_RUNS[flag]
+    assert torch.cuda.is_available(), f"{flag} needs a CUDA device"
     card = nvidia_smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(("nmg_gemv", "nmg_spmm", "nmg_ffn"))
     t0 = time.perf_counter()
-    res = {"families": [family_phase(a, card) for a in FAMILIES]}
+    res = {"families": [family_phase(a, card) for a in archs]}
     res["wall_s"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / FAMILY_JSON).write_text(json.dumps(res, indent=1))
+    (out / name).write_text(json.dumps(res, indent=1))
     return 0
 
 
-def run_families() -> dict:
-    """Run :func:`families_child` in a child process and return what it
-    wrote; raises if it fails or outlasts 700 s."""
-    path = ROOT / "chiprun_out" / FAMILY_JSON
+def run_families(flag: str, timeout: int) -> dict:
+    """Run :func:`families_child` for ``flag`` in a child process and
+    return what it wrote; raises if it fails or outlasts ``timeout`` s."""
+    path = ROOT / "chiprun_out" / FAMILY_RUNS[flag][1]
     path.unlink(missing_ok=True)
-    subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                    "--families"], check=True, timeout=700)
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
+                   check=True, timeout=timeout)
     return json.loads(path.read_text())
 
 
@@ -2219,7 +2529,7 @@ def report_graphs(graphs, card) -> None:
 
 #: the body of the kernels whose cases do not name one
 # ---------------------------------------------------------------------------
-# phase 3e: the programming model (layouts, dispatch, sparse operators,
+# phase 3f: the programming model (layouts, dispatch, sparse operators,
 # intermediate and gradient plans)
 # ---------------------------------------------------------------------------
 
@@ -2997,9 +3307,9 @@ def kernels_line(cases, counts, train_counts, sten_counts,
     with the launches of its n:m:g run; the SpMM's two schedules (rows 3
     and 4) are one CUDA kernel, listed once for each; the training kernels
     at run (b)'s shapes with the launches of run (b).  ``sten_launches``
-    is each kernel's launches on the programming-model path (phase 3e:
+    is each kernel's launches on the programming-model path (phase 3f:
     its library cases and its full-width model run), ``family_launches``
-    a serving kernel's on each n:m:g run of phase 3d."""
+    a serving kernel's on each n:m:g run of phases 3d and 3e."""
     rows = [  # name, kernel, source, replaces, (model, weight, M)
         ("nmg_gemv", "nmg_gemv", "nmg_gemv.cu", "nmg_gemv.py:45",
          ("qwen", "wo_ffn", 4)),
@@ -3044,8 +3354,8 @@ def kernels_line(cases, counts, train_counts, sten_counts,
 def main() -> int:
     import torch
 
-    if sys.argv[1:] == ["--families"]:
-        return families_child()
+    if len(sys.argv) == 2 and sys.argv[1] in FAMILY_RUNS:
+        return families_child(sys.argv[1])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "needs one CUDA device", file=sys.stderr)
@@ -3082,6 +3392,11 @@ def main() -> int:
     cases = (kernel_phase(gen, "bert") + kernel_phase(gen, "qwen")
              + kernel_phase(gen, "starcoder2") + kernel_phase(gen, "gemma2")
              + any_gr_phase(gen) + train_kernel_phase(gen))
+    # phase (e)'s widths, from a generator of their own (the earlier
+    # cases' inputs stay as they were)
+    gen_e = torch.Generator(device="cuda").manual_seed(24)
+    cases += kernel_phase(gen_e, "paligemma") + kernel_phase(gen_e,
+                                                              "minicpm3")
     print(f"kernel phase: {len(cases)} cases within bounds ({card})")
     for c in cases:
         lib = ("none" if c["library_ms"] is None
@@ -3191,8 +3506,11 @@ def main() -> int:
     # process of its own (this one still holds the earlier phases'
     # profiles, and a profiler session would slow its launches)
     torch.cuda.empty_cache()
-    fam = run_families()
-    fam_counts = {r["label"]: r["counts"] for f in fam["families"]
+    fam = run_families("--families", 700)
+    # (e) paligemma-3b and minicpm3-4b the same way, in another process
+    vlm = run_families("--vlm-mla", 600)
+    fam_counts = {r["label"]: r["counts"]
+                  for f in fam["families"] + vlm["families"]
                   for r in f["runs"] if r["label"].endswith("_sparse")}
     for r in tune["serve"]:
         report_tuned(r, card)
@@ -3222,7 +3540,7 @@ def main() -> int:
               f"err {mg['wi_grad_rel_err']:.5f} (bound 2**-6 = 0.015625, "
               f"{mg['wi_grad_share_of_bound'] * 100:.1f}% of it)")
 
-    # (e) the programming model: the library at the model's shapes, then
+    # (f) the programming model: the library at the model's shapes, then
     # full-width bert-base-sten under an intermediate and gradient plan
     sten_lib = sten_library_phase(gen)
     sten_model = sten_model_phase(card)
@@ -3254,7 +3572,7 @@ def main() -> int:
                          "qwen": q_parity},
         "train_margins": margins,
         "graphs": graphs + q_graphs, "prefill": prefills,
-        "train": train, "ckpt": ckpt, "families": fam,
+        "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -3345,8 +3663,27 @@ def main() -> int:
                     "logit_err": v["logits"]["max_abs_err"],
                     "logits_ok": v["logits"]["ok"]}
                     for k, v in f["window"]["controls"].items()}}}
-               if "window" in f else {})}
-            for f in fam["families"]},
+               if "window" in f else {}),
+            **{key: {
+                "ttft_ms": round(f[key]["metrics"]["ttft_p50"] * 1e3, 3)
+                if "metrics" in f[key] else None,
+                "admission_ms": round(f[key]["admission_ms"], 3)
+                if "admission_ms" in f[key] else None,
+                "logit_err": f[key]["vs_full_forward"]["logits"][
+                    "max_abs_err"],
+                "logit_tol": f[key]["vs_full_forward"]["logits"]["tol"],
+                "attn_rel_err": f[key]["vs_full_forward"]["attn"][
+                    "max_rel_rms_err"],
+                "vs_plain": f[key]["vs_plain"]["max_abs_err"],
+                "control": {
+                    "logit_err": f[key]["control"]["logits"]["max_abs_err"],
+                    "logits_ok": f[key]["control"]["logits"]["ok"],
+                    "attn_rel_err": f[key]["control"]["attn"][
+                        "max_rel_rms_err"],
+                    "attn_layers_over": f[key]["control"]["attn"][
+                        "layers_over"]}}
+               for key in ("prefix", "latent") if key in f}}
+            for f in fam["families"] + vlm["families"]},
         "tuning": {
             "wall_s": round(tune["wall_s"], 1),
             "crossover": {f"{r['model']}.{r['weight']}": {

@@ -1,13 +1,14 @@
 """Architecture registry of the port: the architectures it runs so far."""
 
-from repro_torch.configs import bert_base_sten, gemma2_9b, qwen1_5_4b, \
-    starcoder2_15b
+from repro_torch.configs import bert_base_sten, gemma2_9b, minicpm3_4b, \
+    paligemma_3b, qwen1_5_4b, starcoder2_15b
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["get_config", "get_smoke"]
 
 _MODULES = {"bert-base-sten": bert_base_sten, "qwen1.5-4b": qwen1_5_4b,
-            "starcoder2-15b": starcoder2_15b, "gemma2-9b": gemma2_9b}
+            "starcoder2-15b": starcoder2_15b, "gemma2-9b": gemma2_9b,
+            "paligemma-3b": paligemma_3b, "minicpm3-4b": minicpm3_4b}
 
 
 def _module(name: str):

@@ -8,9 +8,14 @@ by side.
         --nm 1:4:8
     python -m repro_torch.launch.serve --arch starcoder2-15b --engine --sparse
     python -m repro_torch.launch.serve --arch gemma2-9b --engine --sparse
+    python -m repro_torch.launch.serve --arch paligemma-3b --engine --sparse
+    python -m repro_torch.launch.serve --arch minicpm3-4b --engine --sparse
 
 runs on the card (gemma2-9b's local layers keep a ring cache of its
-4096-token window, so ``--prompt-len`` may exceed it); ``--device cpu``
+4096-token window, so ``--prompt-len`` may exceed it; paligemma-3b's
+synthetic requests are text alone, since an image prefix is admitted
+through ``prefill_into_slot(prefix_embeds=)``, not the engine; minicpm3-4b
+caches MLA's compressed latent); ``--device cpu``
 runs the plain versions on the CPU (with ``--smoke`` for a size the CPU
 can take).  ``--tuning-table PATH``
 (or ``$REPRO_TUNE_TABLE``) routes through a table of ``python -m

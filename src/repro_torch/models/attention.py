@@ -1,12 +1,15 @@
-"""Attention for the ported GQA decoder: RoPE, causal attention for
-prefill, single-token decode attention (port of the GQA part of
-``repro/models/attention.py``).
+"""Attention for the ported decoder: RoPE, causal / sliding-window /
+prefix-LM attention for prefill, single-token decode attention, GQA and
+MLA (multi-head latent attention, minicpm3) with its absorbed decode over
+the compressed cache (port of ``repro/models/attention.py``).
 
 Attention was never a Pallas kernel in the reference, so this is plain
 PyTorch.  ``chunked_attention`` keeps the reference's interface and f32
 compute; it takes an exact softmax over all keys for each query chunk
 instead of the reference's online softmax over key chunks, which differs
-from it only by summation order.
+from it only by summation order.  MLA's dense projections are plain
+products (``mm``; only ``wo`` is converted for serving), and its latent
+einsums run in f32, as the reference computes them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from repro_torch.models.common import ModelConfig, mm, mm_fused_qkv, \
     torch_dtype
 
 __all__ = ["pos_vec", "rope", "chunked_attention", "decode_attention",
-           "init_gqa", "apply_gqa"]
+           "init_gqa", "apply_gqa", "init_mla", "apply_mla", "decode_mla"]
 
 NEG_INF = -1e30
 
@@ -72,11 +75,14 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       softcap: Optional[float] = None, chunk_q: int = 512,
                       q_offset: int = 0,
                       compute_dtype=torch.float32) -> torch.Tensor:
-    """q [B, Sq, H, hd]; k, v [B, Sk, KV, hd] (H % KV == 0); head h reads
-    kv head h // (H // KV).  ``window``: key positions more than
-    ``window - 1`` before the query are masked; ``softcap`` c maps each
-    score s to c·tanh(s/c) before the mask.  Returns [B, Sq, H, hd] in
-    q.dtype."""
+    """q, k [B, Sq|Sk, H|KV, hd]; v [B, Sk, KV, hdv] (H % KV == 0; the
+    value width may differ from the q/k width, as MLA's does); head h
+    reads kv head h // (H // KV); scores scale by 1/sqrt(hd).
+    ``window``: key positions more than ``window - 1`` before the query
+    are masked; ``prefix_len`` P: the first P keys are visible to every
+    query (the prefix-LM mask, bidirectional over the prefix);
+    ``softcap`` c maps each score s to c·tanh(s/c) before the mask.
+    Returns [B, Sq, H, hdv] in q.dtype."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -155,16 +161,134 @@ def _qkv(p, x, cfg: ModelConfig, positions):
 
 
 def apply_gqa(p, x, cfg: ModelConfig, *, is_local: bool = False,
-              positions=None):
-    """Causal self-attention over x [B, S, D], over ``cfg.local_window``
-    keys in a local layer; returns (y, (k, v))."""
+              prefix_len: int = 0, positions=None, causal: bool = True):
+    """Self-attention over x [B, S, D]: causal (``causal``), over
+    ``cfg.local_window`` keys in a local layer, and bidirectional over the
+    first ``prefix_len`` positions (a VLM prefix); returns (y, (k, v))."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
-    out = chunked_attention(q, k, v, causal=True,
+    out = chunked_attention(q, k, v, causal=causal,
                             window=cfg.local_window if is_local else None,
+                            prefix_len=prefix_len,
                             softcap=cfg.attn_softcap,
                             chunk_q=cfg.attn_chunk_q,
                             compute_dtype=torch_dtype(cfg.attn_dtype))
     return mm(out.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, *, L: int, device):
+    """Stacked [L, ...] MLA projections in the reference's leaves (the
+    down/up projections of q and of the joint KV latent, the decoupled
+    RoPE key ``wkr``, ``wo``; truncated-normal fan-in init) and its two
+    latent norms, ones."""
+    from repro_torch.models.transformer import dense_init
+
+    mla = cfg.mla
+    D, H, dt = cfg.d_model, cfg.n_heads, cfg.tdtype
+    qk_hd = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    r = mla.kv_lora_rank
+    return {
+        "wdq": dense_init(gen, (L, D, mla.q_lora_rank), dt, device),
+        "wuq": dense_init(gen, (L, mla.q_lora_rank, H * qk_hd), dt, device),
+        "wdkv": dense_init(gen, (L, D, r), dt, device),
+        "wuk": dense_init(gen, (L, r, H * mla.qk_nope_head_dim), dt, device),
+        "wuv": dense_init(gen, (L, r, H * mla.v_head_dim), dt, device),
+        "wkr": dense_init(gen, (L, D, mla.qk_rope_head_dim), dt, device),
+        "wo": dense_init(gen, (L, H * mla.v_head_dim, D), dt, device),
+        "q_norm": torch.ones(L, mla.q_lora_rank, dtype=dt, device=device),
+        "kv_norm": torch.ones(L, r, dtype=dt, device=device),
+    }
+
+
+def _mla_rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """MLA's latent RMSNorm, the reference's own: normalised in f32,
+    rounded to x.dtype, then scaled by ``w`` itself (not the
+    transformer's ``1 + w`` in f32)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope [B, S, H, nd], q_rope [B, S, H, rd]) with RoPE applied."""
+    mla = cfg.mla
+    B, S, _ = x.shape
+    nd, rd = mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    cq = _mla_rms(mm(x, p["wdq"]), p["q_norm"])
+    q = mm(cq, p["wuq"]).reshape(B, S, cfg.n_heads, nd + rd)
+    return q[..., :nd], rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(p, x, cfg: ModelConfig, positions):
+    """The compressed cache entries of x: (ckv [B, S, r], k_rope
+    [B, S, 1, rd] with RoPE applied)."""
+    B, S, _ = x.shape
+    ckv = _mla_rms(mm(x, p["wdkv"]), p["kv_norm"])
+    k_rope = rope(mm(x, p["wkr"]).reshape(B, S, 1, cfg.mla.qk_rope_head_dim),
+                  positions, cfg.rope_theta)
+    return ckv, k_rope
+
+
+def apply_mla(p, x, cfg: ModelConfig, *, positions=None,
+              causal: bool = True):
+    """MLA over x [B, S, D], un-absorbed: keys and values re-expanded from
+    the latent per head, q/k head width nd + rd (scale 1/sqrt(nd + rd)),
+    value width vd.  Returns (y, ckv [B, S, r], k_rope [B, S, 1, rd]),
+    the latter two what decode caches.  As in the reference, no prefix
+    mask reaches MLA."""
+    mla = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, k_rope = _mla_kv_latent(p, x, cfg, positions)
+    k_nope = mm(ckv, p["wuk"]).reshape(B, S, H, nd)
+    v = mm(ckv, p["wuv"]).reshape(B, S, H, vd)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = chunked_attention(q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
+                            compute_dtype=torch_dtype(cfg.attn_dtype))
+    return mm(out.reshape(B, S, -1), p["wo"]), ckv, k_rope
+
+
+def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv):
+    """Absorbed MLA decode of one layer over the compressed cache views
+    ``ckv_c`` [B, S, r] and ``kr_c`` [B, S, rd]: writes this token's
+    latent and RoPE key at row ``pv`` in place, then scores in latent
+    space (q_nope absorbed through ``wuk``, so attention reads the latent
+    directly) and re-expands the output through ``wuv``, in f32.  ``x``
+    [B, 1, D], ``pv`` [B] positions.  A write past the cache end is
+    clamped onto its last row where the reference drops it (ROADMAP C2):
+    only a finished slot writes there.  ``wuk`` and ``wuv`` are reshaped
+    per head, so they stay dense tensors."""
+    mla = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    nd, rd, vd = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    r = mla.kv_lora_rank
+    positions = pv[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv_t, kr_t = _mla_kv_latent(p, x, cfg, positions)
+    rows = torch.arange(B, device=x.device)
+    S = ckv_c.shape[1]
+    wpos = pv.clamp(max=S - 1).long()
+    ckv_c.index_put_((rows, wpos), ckv_t[:, 0].to(ckv_c.dtype))
+    kr_c.index_put_((rows, wpos), kr_t.reshape(B, rd).to(kr_c.dtype))
+    ckv = ckv_c.float()
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(),
+                         p["wuk"].reshape(r, H, nd).float())
+    s = torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), kr_c.float())
+    s = s * (1.0 / math.sqrt(nd + rd))
+    valid = torch.arange(S, device=x.device)[None, None, :] \
+        < (pv + 1)[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    out_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), ckv)
+    out = torch.einsum("bhr,rhv->bhv", out_lat,
+                       p["wuv"].reshape(r, H, vd).float())
+    return mm(out.reshape(B, 1, H * vd).to(x.dtype), p["wo"])

@@ -2,12 +2,14 @@
 ``repro/models/common.py``).
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field.
-The port runs its GQA dense-decoder subset: plain or gated MLP, with or
-without QKV bias and the MLP's inline threshold, global layers or
+``MLAConfig`` is the reference's too.  The port runs its dense-decoder
+subset: GQA or MLA (multi-head latent) attention, plain or gated MLP,
+with or without QKV bias and the MLP's inline threshold, global layers or
 alternating local/global layer pairs with a sliding window, attention and
-logit softcaps, post-norms, a tied or separate head.
+logit softcaps, post-norms, a tied or separate head, and a prefix of
+precomputed embeddings under a prefix-LM mask (the VLM stub frontend).
 :meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
-other families (MoE, MLA, SSM, enc-dec, vision prefix, int8 KV cache).
+other families (MoE, SSM, hybrid, enc-dec, int8 KV cache).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from repro_torch.core.layouts import DenseTensor, GroupedNMTensor, \
     SparsityLayout
 
-__all__ = ["ModelConfig", "mm", "mm_fused_qkv", "mm_gated",
+__all__ = ["MLAConfig", "ModelConfig", "mm", "mm_fused_qkv", "mm_gated",
            "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -100,6 +102,15 @@ def mm_gated(x: torch.Tensor, w, act: str, *, inline=None):
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     vocab: int = 32000
@@ -121,7 +132,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     moe: Optional[object] = None
-    mla: Optional[object] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[object] = None
     n_enc_layers: int = 0
     vision_prefix: int = 0
@@ -147,22 +158,24 @@ class ModelConfig:
 
     def check_ported(self):
         """Raise NotImplementedError unless this config lies in the
-        ported subset: GQA dense decoder (plain or gated MLP, optional QKV
-        bias and MLP inline threshold), global layers or local/global
-        pairs (``alt_local_global`` with ``local_window``, an even layer
-        count), softcaps, post-norms; no MoE/MLA/SSM/enc-dec/VLM
-        prefix/int8 KV."""
+        ported subset: dense decoder with GQA attention or MLA (``attn_type
+        "mla"`` with an ``MLAConfig``), plain or gated MLP, optional QKV
+        bias and MLP inline threshold, global layers or local/global pairs
+        (``alt_local_global`` with ``local_window``, an even layer count),
+        softcaps, post-norms, a VLM prefix (``vision_prefix`` precomputed
+        embeddings); no MoE/SSM/hybrid/enc-dec/int8 KV."""
         unported = {
-            "attn_type != 'gqa'": self.attn_type != "gqa",
+            "attn_type not in ('gqa', 'mla')":
+                self.attn_type not in ("gqa", "mla"),
+            "mla without an MLAConfig":
+                self.attn_type == "mla" and self.mla is None,
             "moe": self.moe is not None,
-            "mla": self.mla is not None,
             "ssm": self.ssm is not None,
             "layer_pattern 'local'": self.layer_pattern == "local",
             "local/global pairs without local_window or of odd depth":
                 self.layer_pattern == "alt_local_global"
                 and (self.local_window is None or self.n_layers % 2),
             "enc-dec": self.n_enc_layers > 0,
-            "vision prefix": self.vision_prefix > 0,
             "kv_cache_dtype": self.kv_cache_dtype is not None,
         }
         bad = [k for k, v in unported.items() if v]

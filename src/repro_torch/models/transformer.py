@@ -1,5 +1,7 @@
-"""The ported LM stack: a GQA dense decoder with a plain or gated MLP
-(port of the dense decoder path of ``repro/models/transformer.py``).
+"""The ported LM stack: a dense decoder with GQA or MLA attention and a
+plain or gated MLP, optionally behind a prefix of precomputed embeddings
+(port of the dense decoder and VLM-prefix paths of
+``repro/models/transformer.py``).
 
 Params are nested dicts with the reference's layout: layer leaves are
 stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
@@ -10,21 +12,28 @@ holds the reference's pair layout, ``layers = {"local": {...}, "global":
 first, as the reference's scan over pairs does.  Local layers attend over
 ``cfg.local_window`` keys; ``attn_softcap`` / ``logit_softcap`` cap the
 attention scores and the logits, and ``post_norms`` norms each
-sublayer's output before its residual add.  Any projection may be a
-``GroupedNMTensor`` (``mm`` routes it through the n:m:g kernels) or
-another layout (``FixedMaskTensor`` in masked training; ``NMTensor`` and
-``DenseTensor`` through the dispatcher's lossless conversions).  The
-reference's three intermediate tag sites are here (``attn.out`` in the
-forward and prefill, ``mlp.act`` and ``mlp.out`` in every FFN): with no
-sparsity plan active ``tag`` returns its input itself, so they change
-nothing then.  With ``cfg.mlp_inline_threshold`` the MLP up-projection
-carries the scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it
-runs the fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn``
+sublayer's output before its residual add.  ``prefix_embeds`` [B, P, D]
+(paligemma's stub vision frontend) are prepended to the scaled token
+embeddings, unscaled, and every layer attends bidirectionally over those
+P positions (the prefix-LM mask).  An MLA layer (``attn_type == "mla"``,
+minicpm3) caches the compressed latent ``{"ckv", "kr"}`` in place of
+``{"k", "v"}`` and decodes by the absorbed-latent attention.  Any
+projection may be a ``GroupedNMTensor`` (``mm`` routes it through the
+n:m:g kernels) or another layout (``FixedMaskTensor`` in masked
+training; ``NMTensor`` and ``DenseTensor`` through the dispatcher's
+lossless conversions).  The reference's three intermediate tag sites
+are here (``attn.out`` in the forward and prefill, ``mlp.act`` and
+``mlp.out`` in every FFN): with no sparsity plan active ``tag`` returns
+its input itself, so they change nothing then.  With
+``cfg.mlp_inline_threshold`` the MLP up-projection carries the
+scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it runs the
+fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn``
 are autograd-safe (the training path); remat is not ported.
 
 The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]; for a pair layout
 ``{"local": {"k", "v"}, "global": {...}}`` on [L/2], the local leaves a
-ring of ``min(S, local_window)`` rows) is updated **in place**
+ring of ``min(S, local_window)`` rows; for MLA ``{"ckv" [L, B, S, r],
+"kr" [L, B, S, rd]}``) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
 array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
 cache for the reference's calling convention.  The serving engine's decode
@@ -108,10 +117,11 @@ def _group(tree, g):
 
 def _init_layers(gen, cfg: ModelConfig, L: int, dev):
     D, F_, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+    init_attn = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
     p: dict[str, Any] = {
         "ln1": torch.zeros(L, D, dtype=dt, device=dev),
         "ln2": torch.zeros(L, D, dtype=dt, device=dev),
-        "attn": attn.init_gqa(gen, cfg, L=L, device=dev),
+        "attn": init_attn(gen, cfg, L=L, device=dev),
         "mlp": {"wi": dense_init(
             gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
                 "wo": dense_init(gen, (L, F_, D), dt, dev)},
@@ -183,13 +193,21 @@ def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return x * scale
 
 
-def _sublayer_attn(lp, x, cfg, *, is_local=False, collect=False):
+def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0):
+    """The attention sublayer; returns (x, this layer's cache
+    contribution: {"k", "v"}, or MLA's {"ckv", "kr" [B, S, rd]})."""
     h = _rms(x, lp["ln1"])
-    a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg, is_local=is_local)
+    if cfg.attn_type == "mla":
+        a, ckv, kr = attn.apply_mla(lp["attn"], h, cfg)
+        contrib = {"ckv": ckv, "kr": kr.reshape(kr.shape[0], kr.shape[1], -1)}
+    else:
+        a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg, is_local=is_local,
+                                   prefix_len=prefix_len)
+        contrib = {"k": k, "v": v}
     a = tag("attn.out", a)
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
-    return x + a, ({"k": k, "v": v} if collect else {})
+    return x + a, contrib
 
 
 def _sublayer_ffn(lp, x, cfg):
@@ -216,28 +234,38 @@ def _sublayer_ffn(lp, x, cfg):
     return x + f
 
 
-def forward(params, cfg: ModelConfig, tokens, *, collect_cache: bool = False):
-    """tokens [B, S] -> hidden [B, S, D] (final-normed).  With
-    ``collect_cache`` also returns the per-layer K/V stacked on [L]:
-    (hidden, {"k": [L, B, S, KV, hd], "v": ...}), for a pair layout
-    {"local": {"k", "v"}, "global": {...}} on [L/2]."""
-    x = _embed(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            prefix_embeds=None, collect_cache: bool = False):
+    """tokens [B, S] (or ``embeds`` [B, S, D], taken as they are, in
+    place of the scaled token embeddings) -> hidden [B, P + S, D]
+    (final-normed).  ``prefix_embeds`` [B, P, D] are cast to the
+    activation dtype and prepended, and every layer attends over those P
+    positions bidirectionally.  With ``collect_cache`` also returns the
+    per-layer cache contributions stacked on [L]: (hidden, {"k": [L, B,
+    P + S, KV, hd], "v": ...}) (MLA: {"ckv": [L, B, P + S, r], "kr": [L,
+    B, P + S, rd]}), for a pair layout {"local": {...}, "global": {...}}
+    on [L/2]."""
+    x = _embed(params, cfg, tokens) if embeds is None else embeds
+    prefix_len = 0
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        prefix_len = prefix_embeds.shape[1]
     groups = _groups(cfg)
-    kv = {g: ([], []) for g in groups}
+    contribs: dict = {g: {} for g in groups}
     for body in zip(*(layer_list(_group(params["layers"], g))
                       for g in groups)):
         for g, lp in zip(groups, body):
             x, c = _sublayer_attn(lp, x, cfg, is_local=g == "local",
-                                  collect=collect_cache)
+                                  prefix_len=prefix_len)
             x = _sublayer_ffn(lp, x, cfg)
             if collect_cache:
-                kv[g][0].append(c["k"])
-                kv[g][1].append(c["v"])
+                for name, t in c.items():
+                    contribs[g].setdefault(name, []).append(t)
     x = _rms(x, params["final_norm"])
     if not collect_cache:
         return x
-    cache = {g: {"k": torch.stack(ks), "v": torch.stack(vs)}
-             for g, (ks, vs) in kv.items()}
+    cache = {g: {name: torch.stack(ts) for name, ts in c.items()}
+             for g, c in contribs.items()}
     return x, (cache if _pair(cfg) else cache[None])
 
 
@@ -257,10 +285,15 @@ def logits_of(params, cfg: ModelConfig, hidden):
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy: batch {"tokens" [B, S], "labels"
-    [B, S]}, labels < 0 masked out; logits in f32.  Returns (loss,
-    {"ce", "moe_aux"}); ``moe_aux`` is 0 (no MoE in the ported families),
-    so the loss is the cross-entropy alone."""
-    hidden = forward(params, cfg, batch["tokens"])
+    [B, S], optional "prefix_embeds" [B, P, D]}, labels < 0 masked out;
+    the prefix rows of the hidden states are dropped before the head;
+    logits in f32.  Returns (loss, {"ce", "moe_aux"}); ``moe_aux`` is 0
+    (no MoE in the ported families), so the loss is the cross-entropy
+    alone."""
+    prefix = batch.get("prefix_embeds")
+    hidden = forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
+    if prefix is not None:
+        hidden = hidden[:, prefix.shape[1]:]
     labels = batch["labels"].long()
     logits = logits_of(params, cfg, hidden).float()
     logp = torch.log_softmax(logits, dim=-1)
@@ -289,16 +322,22 @@ def map_cache(fn, *caches):
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
-    """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros.  A pair
-    layout's is {"local": ..., "global": ...}, each on [L/2], its local
-    leaves a ring of ``min(S, local_window)`` rows (the reference's
+    """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros; an MLA
+    model's the compressed {"ckv": [L, B, S, r], "kr": [L, B, S, rd]}.  A
+    pair layout's is {"local": ..., "global": ...}, each on [L/2], its
+    local leaves a ring of ``min(S, local_window)`` rows (the reference's
     ``local_window_cache``)."""
     dev = resolve_device(device)
 
     def kv(L, rows):
-        shape = (L, B, rows, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=dev),
-                "v": torch.zeros(shape, dtype=cfg.tdtype, device=dev)}
+        if cfg.attn_type == "mla":
+            shapes = {"ckv": (L, B, rows, cfg.mla.kv_lora_rank),
+                      "kr": (L, B, rows, cfg.mla.qk_rope_head_dim)}
+        else:
+            shape = (L, B, rows, cfg.n_kv_heads, cfg.hd)
+            shapes = {"k": shape, "v": shape}
+        return {name: torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+                for name, shape in shapes.items()}
 
     if _pair(cfg):
         L = cfg.n_layers // 2
@@ -326,9 +365,15 @@ def _decode_gqa_at(p, x, cfg, kc, vc, pv, *, is_local=False):
     return mm(out.reshape(B, 1, -1), p["wo"])
 
 
-def _decode_layer(lp, x, cfg, kc, vc, pv, *, is_local=False):
+def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
+    """One layer's decode step over ``c``, the layer's cache views
+    ({"k", "v"}, or MLA's {"ckv", "kr"}), written in place."""
     h = _rms(x, lp["ln1"])
-    a = _decode_gqa_at(lp["attn"], h, cfg, kc, vc, pv, is_local=is_local)
+    if cfg.attn_type == "mla":
+        a = attn.decode_mla(lp["attn"], h, cfg, c["ckv"], c["kr"], pv)
+    else:
+        a = _decode_gqa_at(lp["attn"], h, cfg, c["k"], c["v"], pv,
+                           is_local=is_local)
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
     return _sublayer_ffn(lp, x + a, cfg)
@@ -340,11 +385,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     x = _embed(params, cfg, token)
     pv = attn.pos_vec(pos, token.shape[0], device=token.device)
     groups = _groups(cfg)
-    for i in range(_group(cache, groups[0])["k"].shape[0]):
+    for i in range(cache_leaves(_group(cache, groups[0]))[0].shape[0]):
         for g in groups:
             c = _group(cache, g)
             x = _decode_layer(layer_params(_group(params["layers"], g), i),
-                              x, cfg, c["k"][i], c["v"][i], pv,
+                              x, cfg, {k: v[i] for k, v in c.items()}, pv,
                               is_local=g == "local")
     x = _rms(x, params["final_norm"])
     return logits_of(params, cfg, x)[:, 0], cache
@@ -387,7 +432,7 @@ def _write_leaf(dst, src):
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
-            *, cache=None, slot=None, write_offset=0):
+            *, cache=None, slot=None, write_offset=0, prefix_embeds=None):
     """Parallel forward that also fills the decode cache; returns
     (last-position logits [B, V], cache).  With ``cache_len`` a fresh
     cache is allocated and positions [0, S) written for the batch; with
@@ -403,9 +448,15 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     reference's slot mode does so too; its classic mode puts a ring
     leaf's tail at row 0, which is right only for S % S_cache == 0: for
     any other prompt longer than the window the next decode step reads
-    misplaced rows (a deliberate difference, ROADMAP C10)."""
+    misplaced rows (a deliberate difference, ROADMAP C10).
+
+    ``prefix_embeds`` [B, P, D] are prepended as in :func:`forward`, and
+    their P rows are written ahead of the prompt's (P + S rows, from
+    ``write_offset``); the next decode position is P + S."""
     B, S = tokens.shape
-    hidden, contribs = forward(params, cfg, tokens, collect_cache=True)
+    hidden, contribs = forward(params, cfg, tokens,
+                               prefix_embeds=prefix_embeds,
+                               collect_cache=True)
     logits = logits_of(params, cfg, hidden[:, -1:])[:, 0]
     if cache is not None:
         assert slot is not None, "slot-mode prefill needs a slot index"
@@ -420,9 +471,10 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
 
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens, cache, slot, *,
-                      write_offset=0):
-    """Admit one request: prefill ``tokens`` [1, S] into batch row
-    ``slot`` of ``cache`` at seq offset ``write_offset`` (ints or 0-dim
-    device tensors); returns (last-position logits [1, V], cache)."""
+                      write_offset=0, prefix_embeds=None):
+    """Admit one request: prefill ``tokens`` [1, S] (behind
+    ``prefix_embeds`` [1, P, D], if given) into batch row ``slot`` of
+    ``cache`` at seq offset ``write_offset`` (ints or 0-dim device
+    tensors); returns (last-position logits [1, V], cache)."""
     return prefill(params, cfg, tokens, cache=cache, slot=slot,
-                   write_offset=write_offset)
+                   write_offset=write_offset, prefix_embeds=prefix_embeds)

@@ -29,6 +29,7 @@ from typing import Iterable, Optional, Sequence
 import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.device import resolve_device
 from repro_torch.tune import routing
 from repro_torch.tune.table import TuningTable, bucket, shape_key
 
@@ -203,12 +204,14 @@ def measured_crossover(records: Iterable[dict], *, tol: float = 0.05) -> int:
 
 
 def _probe_tensor(K: int, R: int, fmt: tuple, gr: int, dtype=torch.float32,
-                  device="cpu", seed: int = 0) -> GroupedNMTensor:
+                  device="cuda", seed: int = 0) -> GroupedNMTensor:
     """Random probe weight [K, R] sparse along K (the serving orientation,
     which the fused launches require) in the dtype under test: the
-    stored-value dtype sets the bytes a kernel moves."""
+    stored-value dtype sets the bytes a kernel moves.  On the card unless
+    ``device`` says otherwise (raises without one)."""
     from repro_torch.core.nmg import dense_to_grouped_nm
 
+    device = resolve_device(device)
     n, m, g = fmt
     w = torch.randn(K, R, generator=_gen(device, seed), device=device)
     return dense_to_grouped_nm(w.to(dtype), n, m, g, gr=gr, sparse_dim=0)
@@ -253,7 +256,9 @@ def tune_spmm_block(table: TuningTable, *, K: int = 4096, R: int = 4096,
     the device-wide ``spmm_block_elems``.  The probe's per-group gather
     ((K/m) * n * N = 2^18 elements at the defaults) times its R/gr = 64
     fiber groups makes each candidate a different blocking.  The plain
-    version serves the CPU only, so the CLI runs this on the CPU."""
+    SpMM serves the CPU only (on the card the SpMM is the CUDA kernel,
+    which has no block cap), so this tuner defaults to the CPU, unlike
+    the others, and the CLI runs it only there."""
     from repro_torch.kernels.nmg_spmm import nmg_spmm_plain
 
     t = _probe_tensor(K, R, fmt, gr, torch.float32, device, seed=1)
@@ -437,15 +442,17 @@ def tune_fused_ffn(table: TuningTable, *, K: int = 256, F: int = 512,
 
 
 def tune_conversion_costs(table: TuningTable, *, side: int = 256,
-                          reps: int = 3, device="cpu") -> dict:
+                          reps: int = 3, device="cuda") -> dict:
     """Measure the lossless conversions among the interchange layouts
-    (Dense, Csr, Coo, FixedMask) on ``device`` and record them as
+    (Dense, Csr, Coo, FixedMask) on ``device`` (the card unless told
+    otherwise; raises without one) and record them as
     ``convert_cost/<src>-><dst>`` (us); the dispatcher's tie-breaker reads
     them through :func:`repro_torch.tune.routing.conversion_cost`."""
     conv = importlib.import_module("repro_torch.core.convert")
     from repro_torch.core.layouts import CooTensor, CsrTensor, \
         DenseTensor, FixedMaskTensor
 
+    device = resolve_device(device)
     g = _gen(device, 12)
     x = torch.randn(side, side, generator=g, device=device)
     x = x * (torch.rand(side, side, generator=g, device=device) < 0.25)

@@ -1317,3 +1317,167 @@ def test_ring_cache_engine_replay_bitwise_eager(fmt):
             assert launches[k] > 0, (k, launches)
     else:
         assert not any(launches.values()), launches
+
+
+def _new_family(arch, fmt, dtype=None):
+    """The SMOKE config of ``arch`` (``dtype`` if given, else its bf16)
+    with seeded weights on the card: dense, or n:m:g 1:4:8 gr16 with
+    ``attn=True`` (paligemma's MQA q/k/v through the fused launch; of an
+    MLA layer only ``attn.wo``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.serve import sparsify_for_serving
+
+    cfg = get_smoke(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = init_lm(cfg, seed=0, device="cuda")
+    if fmt == "nmg":
+        params = sparsify_for_serving(params, 1, 4, 8, gr=16, attn=True)
+    return cfg, params
+
+
+def _prefix_on_card(cfg, seed=0):
+    if not cfg.vision_prefix:
+        return None
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(1, cfg.vision_prefix, cfg.d_model, generator=g,
+                       device="cuda").to(cfg.tdtype)
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "minicpm3-4b"])
+def test_new_family_decode_kernels_match_plain(arch, monkeypatch):
+    """f32 SMOKE, n:m:g 1:4:8 gr16 ``attn=True``: an admission into slot 1
+    (paligemma behind its prefix, minicpm3 into the compressed
+    ``{"ckv", "kr"}`` cache) and 6 decode steps of both slots through the
+    kernels, against the same steps fed the same tokens with every
+    wrapper swapped for its plain version: logits and every cache leaf
+    within rtol 1e-4, atol 1e-3 (f32 sums in another order, through two
+    layers and the head), and the kernels of the path launched (no fused
+    QKV at MLA, whose q/k/v-like projections stay dense)."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_cache, \
+        prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves
+
+    cfg, params = _new_family(arch, "nmg", dtype="float32")
+    pe = _prefix_on_card(cfg)
+    P = cfg.vision_prefix
+    g = torch.Generator(device="cuda").manual_seed(2)
+    # 20 prompt rows (past 16: the SpMM) after any prefix
+    toks = torch.randint(0, cfg.vocab, (1, 20), generator=g, device="cuda",
+                         dtype=torch.int32)
+
+    def run(feed=None):
+        cache = init_cache(cfg, 2, 40, device="cuda")
+        logits, _ = prefill_into_slot(params, cfg, toks, cache, 1,
+                                      prefix_embeds=pe)
+        outs, fed = [logits], []
+        tok = torch.stack([torch.zeros_like(logits[0, 0]).int(),
+                           logits[0].argmax().int()])[:, None]
+        for i in range(6):
+            if feed is not None:
+                tok = feed[i]
+            fed.append(tok)
+            logits, _ = decode_step(params, cfg, tok, cache, torch.tensor(
+                [i, P + 20 + i], device="cuda"))
+            outs.append(logits)
+            tok = logits.argmax(-1).int()[:, None]
+        return outs, fed, cache
+
+    ops.reset_kernel_counters()
+    got, fed, cache = run()
+    launches = ops.counter_snapshot()["launches"]
+    for k in ("nmg_gemv", "nmg_spmm", "nmg_ffn"):
+        assert launches[k] > 0, (k, launches)
+    assert (launches["nmg_qkv"] > 0) == (cfg.attn_type == "gqa"), launches
+    for mod, attr, plain in ops.KERNEL_WRAPPERS.values():
+        monkeypatch.setattr(mod, attr, getattr(mod, plain))
+    want, _, ref = run(fed)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    for a, b in zip(cache_leaves(cache), cache_leaves(ref)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "nmg"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "minicpm3-4b"])
+def test_new_family_engine_replay_bitwise_eager(arch, fmt):
+    """bf16 SMOKE served by an engine of 2 slots x 48 rows (prompts 20,
+    6, 20, 6, 8 new tokens each, chunk 4), with graphs and with
+    ``graphs=False``: token streams and launch counts equal, and an
+    admission replayed into slot 1 bitwise eager ``prefill_into_slot``
+    (logits and every leaf; minicpm3's ``{"ckv", "kr"}``).  Then a
+    prefix admission at paligemma (``prefill_into_slot(prefix_embeds=)``
+    into slot 0 of the engine's cache) decoded by the engine's chunk
+    program, its replay bitwise the eager program on a clone of the
+    cache."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve import Request, ServeEngine, warmup_engine
+    from repro_torch.serve.engine import _decode_chunk_fn
+
+    cfg, params = _new_family(arch, fmt)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 6, 20, 6)]
+
+    def trace():
+        return [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(cache_leaves(a), cache_leaves(b)))
+
+    runs = {}
+    for graphs in (True, False):
+        eng = ServeEngine(params, cfg, max_slots=2, max_seq_len=48,
+                          decode_chunk=4, graphs=graphs)
+        warmup_engine(eng, trace())
+        ops.reset_kernel_counters()
+        outs = eng.run(trace())
+        runs[graphs] = ([o.tokens for o in outs], ops.counter_snapshot())
+        if not graphs:
+            continue
+        assert eng._decode_chunk.info["captured"]
+        assert all(g.info["captured"] and g.info["replays"] == 2
+                   for g in eng.kv.prefill_graphs.values())
+        prompt = rng.integers(0, cfg.vocab, (1, 20), dtype=np.int32)
+        ref = map_cache(torch.clone, eng.kv.data)
+        got = eng.kv.write_prefill(params, prompt, 1).clone()
+        want, _ = prefill_into_slot(
+            params, cfg, torch.as_tensor(prompt, device="cuda"), ref, 1)
+        assert torch.equal(got, want) and same(eng.kv.data, ref)
+        pe = _prefix_on_card(cfg, 3)
+        if pe is None:
+            continue
+        toks = torch.as_tensor(prompt[:, :12], device="cuda")
+        logits, _ = prefill_into_slot(params, cfg, toks, eng.kv.data, 0,
+                                      prefix_embeds=pe)
+        tok = np.array([int(logits[0].argmax()), 0], np.int32)
+        pos = np.array([cfg.vision_prefix + 12, 20], np.int32)
+        for _ in range(2):
+            ref = map_cache(torch.clone, eng.kv.data)
+            got = eng._decode_chunk.run(tok, pos).clone()
+            want = _decode_chunk_fn(cfg, 4)(
+                params, torch.as_tensor(tok[:, None], device="cuda"), ref,
+                torch.as_tensor(pos, device="cuda"))
+            assert torch.equal(got, want) and same(eng.kv.data, ref)
+            tok, pos = got[-1].cpu().numpy().astype(np.int32), pos + 4
+    assert runs[True] == runs[False]
+    assert all(len(t) == 8 for t in runs[True][0])
+    launches = runs[True][1]["launches"]
+    if fmt == "nmg":
+        for k in ("nmg_gemv", "nmg_ffn"):
+            assert launches[k] > 0, (k, launches)
+        assert (launches["nmg_qkv"] > 0) == (cfg.attn_type == "gqa")
+    else:
+        assert not any(launches.values()), launches

@@ -206,11 +206,11 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_families_raise():
-    prefix = dataclasses.replace(get_smoke("qwen1.5-4b"), vision_prefix=4)
-    with pytest.raises(NotImplementedError, match="vision prefix"):
-        init_lm(prefix, device="cpu")
+    int8 = dataclasses.replace(get_smoke("qwen1.5-4b"), kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+        init_lm(int8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("paligemma-3b")
+        get_config("moonshot-v1-16b-a3b")
     full = get_config("bert-base-sten")
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab, full.dtype) \
         == (12, 768, 3072, 30522, "bfloat16")

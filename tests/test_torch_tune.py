@@ -810,7 +810,7 @@ def test_dispatch_picks_reference_conversion_under_one_table(tmp_path, costs,
 
 def test_tune_conversion_costs_feed_the_dispatcher():
     tab = TuningTable.for_device()
-    got = tbench.tune_conversion_costs(tab, side=16, reps=1)
+    got = tbench.tune_conversion_costs(tab, side=16, reps=1, device="cpu")
     assert len(got) == 12 and all(v > 0 for v in got.values())
     routing.set_active_table(tab)
     from repro_torch.core.layouts import CsrTensor, DenseTensor
@@ -818,6 +818,23 @@ def test_tune_conversion_costs_feed_the_dispatcher():
     assert routing.conversion_cost(CsrTensor, DenseTensor) == \
         got["convert_cost/CsrTensor->DenseTensor"]
     assert routing.conversion_cost(DenseTensor, DenseTensor) is None
+
+
+def test_conversion_tuner_and_probe_default_to_the_card():
+    """``tune_conversion_costs`` and the probe weights measure on the card
+    unless told otherwise: without one they raise ``resolve_device``'s
+    error instead of timing the CPU under a card's name; the plain SpMM's
+    block tuner, which serves the CPU only, keeps the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    tab = TuningTable.for_device()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tbench.tune_conversion_costs(tab, side=16, reps=1)
+    assert not tab.entries
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tbench._probe_tensor(64, 64, (1, 4, 8), 16)
+    assert tbench.tune_spmm_block(tab, K=64, R=64, N=8, gr=16,
+                                  candidates=(1 << 10,), reps=1) == 1 << 10
 
 
 # ---------------------------------------------------------------------------
