@@ -15,10 +15,12 @@
    its MQA segments 2048 + 256 + 256, the gelu FFN at [2048, 32768], the
    GEMV at K = 16384 and the SpMM at an image request's N = 288; at
    minicpm3-4b the silu FFN at [2560, 12800] and the GEMV at mlp.wo, K =
-   6400, and attn.wo) and of the training path (``nm_mask`` 2:4
-   on the stacked and per-layer ``mlp.wo`` / ``attn.wo``, 16:32, 5:20,
-   special values and a misaligned view, bitwise, each naming the body it
-   took; ``matmul_threshold``
+   6400, and attn.wo; at moonshot-v1-16b-a3b the GEMV and SpMM at
+   attn.wo [2048, 2048] and the fused QKV at R = 6144) and of the
+   training path (``nm_mask`` 2:4 on the stacked and per-layer
+   ``mlp.wo`` / ``attn.wo``, 16:32, 5:20, special values and a
+   misaligned view, bitwise, each naming the body it took;
+   ``matmul_threshold``
    at 1024 tokens x 768 x 3072): each kernel's wrapper against its plain
    PyTorch version on the same inputs (fused QKV bitwise against three
    GEMV launches, the fused gated FFN bitwise against the GEMV followed by
@@ -130,6 +132,32 @@
       little) and against the plain versions; controls that must fail
       the check: the patch embeddings fed causally (no prefix mask), and
       the cache's ``kr`` rows zeroed (MLA's RoPE term dropped).
+   h. full-width, full-depth moonshot-v1-16b-a3b (48 layers, d_model
+      2048, MHA 16 x 128, a mixture of 64 experts top-6 of d_expert 1408
+      in every layer, capacity factor 1.25, vocab 163840; 28.0 B params,
+      56 GB) and arctic-480b at SMOKE (4 experts top-2 beside its dense
+      residual MLP; its full width needs more than one card), bf16,
+      seeded random weights, in a process of its own (``python3
+      chip_smoke.py --moe``, after (e)), through (d)'s sequence (n:m:g
+      converts attention alone: the serving globs match no expert; no
+      fused FFN: a MoE layer has no ``mlp.wi``), each admission length
+      replayed bitwise eager and timed, dense and n:m:g, and the MoE
+      checks in place of the logit parity (near-ties in the router make
+      two runs take other experts somewhere in 48 layers): (1) layer by
+      layer, each layer fed the plain run's input, the attention output
+      within 0.1 of its RMS, the router's probabilities within 0.01 of
+      theirs, and every expert the kernels take that plain does not a
+      top-k of plain's probabilities within ``ROUTE_MARGIN``, a constant
+      (the kernels' experts relabelled must fall outside it); (2) end to
+      end with each MoE layer's experts from the plain run pinned in the
+      kernels' run (``models/moe.py:route_log``), prefill of 32 and 16
+      tokens and 4 decode steps: the logits under the 5% rule, every MoE
+      layer's output at the last position within 0.1 of its RMS, and
+      every pinned choice a top-k of the kernels' own router within
+      ``PIN_MARGIN``, a constant; (3) the same with a shuffled copy of
+      the routes pinned must fail (2) and fall outside ``PIN_MARGIN``;
+      (4) a 64-token admission's dropped slots per layer, each count the
+      capacity rule's.
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -160,7 +188,7 @@
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
    launches from its n:m:g run, and their launches on each n:m:g run of
-   (d) and (e); training kernels at bert-base-sten training shapes with
+   (d), (e) and (h); training kernels at bert-base-sten training shapes with
    launches from run (b)'s graph trainer),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Every ``torch.profiler`` session runs after all unprofiled timing
@@ -176,6 +204,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -235,6 +264,13 @@ MODELS = {
                              "wo": (2560, 2560)},
                      gemv=("wo_ffn", "wo"), spmm=(), ffn="wi", act="silu",
                      decode_m=(4, 16)),
+    # moonshot-v1-16b-a3b: n:m:g converts attention alone (the experts are
+    # moe.*, which the serving globs do not match), MHA 16 x 128: attn.wo
+    # and each q/k/v segment K = N = 2048, the QKV group R = 6144; the
+    # admissions' SpMM at attn.wo (q/k/v take it alike)
+    "moonshot": dict(shapes={"wq": (2048, 2048), "wo": (2048, 2048)},
+                     gemv=("wo",), spmm=("wo",), spmm_n=(24, 32, 64),
+                     ffn=None, decode_m=(4, 16)),
 }
 DECODE_M = (1, 4, 8, 16)
 
@@ -1290,7 +1326,7 @@ PREFILL_LENS = (16, 24, 32, 64)
 TIMED_PREFILLS = 7
 
 
-def prefill_phase(cfg, params, label) -> dict:
+def prefill_phase(cfg, params, label, profile: bool = True) -> dict:
     """The engine's admission programs (``serve/graphs.py:PrefillGraph``,
     one per prompt length S in ``PREFILL_LENS``, sharing one graph pool)
     at 4 slots of 96 rows, each against the same program run eagerly (a
@@ -1306,7 +1342,8 @@ def prefill_phase(cfg, params, label) -> dict:
     - wall time of one admission (median of ``TIMED_PREFILLS``, each
       ending in the logits' host fetch), replayed and eager, unprofiled,
       and the replay's device span from CUDA events; each's device time
-      from ``torch.profiler`` is queued for :func:`run_profiles`."""
+      from ``torch.profiler`` is queued for :func:`run_profiles` (with
+      ``profile`` false none is queued)."""
     import numpy as np
     import torch
 
@@ -1370,8 +1407,10 @@ def prefill_phase(cfg, params, label) -> dict:
             "replay_wall_ms": replay_wall * 1e3,
             "replay_event_span_ms": statistics.median(
                 s_.elapsed_time(e_) for s_, e_ in zip(starts, ends)),
-            "eager_profile": profile_later(eager_one, eager_wall),
-            "replay_profile": profile_later(replay_one, replay_wall)})
+            "eager_profile": profile_later(eager_one, eager_wall)
+            if profile else {},
+            "replay_profile": profile_later(replay_one, replay_wall)
+            if profile else {}})
     return {"label": label, "slots": 4, "cache_rows": 96,
             "bitwise": "first run (captured) into slot 1, a replay into "
                        "slot 3 at offset 8", "lens": rows}
@@ -1478,12 +1517,17 @@ def device_profile(fn, wall_s: float) -> dict:
 # ---------------------------------------------------------------------------
 
 #: the model families served in a process of their own: flag ->
-#: (architectures, the JSON file the child writes under chiprun_out/)
+#: ((architecture, at SMOKE, n:m:g group rows) each, the JSON file the
+#: child writes under chiprun_out/)
 FAMILY_RUNS = {
-    "--families": (("starcoder2-15b", "gemma2-9b"),
+    "--families": ((("starcoder2-15b", False, 64), ("gemma2-9b", False, 64)),
                    "chip_smoke_families.json"),
-    "--vlm-mla": (("paligemma-3b", "minicpm3-4b"),
+    "--vlm-mla": ((("paligemma-3b", False, 64), ("minicpm3-4b", False, 64)),
                   "chip_smoke_vlm_mla.json"),
+    # arctic's full width needs more than one card: its SMOKE config, in
+    # the CPU tests' gr16 format
+    "--moe": ((("moonshot-v1-16b-a3b", False, 64), ("arctic-480b", True, 16)),
+              "chip_smoke_moe.json"),
 }
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
@@ -1669,13 +1713,13 @@ def check_window(res) -> None:
 
 
 @contextlib.contextmanager
-def attn_rows(into: list):
+def attn_rows(into: list, last: bool = True):
     """While inside, append to ``into`` every attention sublayer's output
     at the last position (before any post-norm), [B, D] in f32, in call
     order: a forward's (``apply_gqa`` / ``apply_mla``) last row, a decode
-    step's (``_decode_gqa_at`` / ``decode_mla``) row, one per layer.
-    Python runs these only in eager programs: a graph replay records
-    nothing."""
+    step's (``_decode_gqa_at`` / ``decode_mla``) row, one per layer; with
+    ``last`` false every position's, [B, S, D].  Python runs these only
+    in eager programs: a graph replay records nothing."""
     from repro_torch.models import attention, transformer
 
     hooks = ((attention, "apply_gqa", 0), (attention, "apply_mla", 0),
@@ -1686,7 +1730,8 @@ def attn_rows(into: list):
     def recorder(fn, part):
         def rec(*args, **kw):
             out = fn(*args, **kw)
-            into.append((out if part is None else out[part])[:, -1].float())
+            a = out if part is None else out[part]
+            into.append((a[:, -1] if last else a).float())
             return out
         return rec
 
@@ -1894,10 +1939,405 @@ def latent_phase(cfg, params) -> dict:
                         fault=drop_rope)
 
 
-def family_phase(arch: str, card: str) -> dict:
-    """One model at full width and depth (seeded random weights, bf16):
-    ``init_lm`` (seconds, peak), the n:m:g 1:4:8 gr64 ``attn=True``
-    conversion (seconds, peak), then dense and n:m:g each through
+#: (1) of the MoE checks: fed the plain run's input to a layer, the
+#: router's probabilities through the kernels are held to the plain ones
+#: within this RMS of their difference over their RMS
+ROUTER_TOL = 0.01
+#: (1): fed the plain run's input, a layer's kernels may take other
+#: experts than plain only where plain's probabilities make the kernels'
+#: experts a top-k within this margin.  A difference of at most e in each
+#: probability can swap two experts only where they lie within 2e; the
+#: largest teacher-forced difference measured at moonshot on the H100 was
+#: 3.6e-5 (PERF.md), so 2e = 7.3e-5, rounded up
+ROUTE_MARGIN = 1e-4
+#: (2): with plain's routes pinned, each must be a top-k of the kernels'
+#: own router within this margin: the pin settles near-ties and nothing
+#: else.  Along the layers the runs' hidden states drift apart by
+#: rounding, which teacher forcing resets at every layer, so the routers
+#: differ more than in (1) (7.8e-4 at most at moonshot on the H100) and
+#: the widest near-tie a pin settled there was 1.45e-4 (PERF.md): twice
+#: that, rounded up
+PIN_MARGIN = 3e-4
+#: the MoE checks' prompts: 32 tokens (the SpMM at admission) and 16 (the
+#: decode kernels), as :func:`logit_parity`'s
+MOE_PROMPTS = (32, 16)
+#: (4): the admission whose dropped slots are printed, layer by layer
+MOE_DROP_PROMPT = 64
+
+
+def route_misses(probs, eidx, margin: float) -> int:
+    """Tokens whose experts ``eidx`` [T, k] are not a top-k of ``probs``
+    [T, E] within ``margin``: the least probability among the experts
+    taken lies below the greatest among the others by more than
+    ``margin``."""
+    taken = probs.gather(1, eidx).min(1).values
+    others = probs.scatter(1, eidx, float("-inf")).max(1).values
+    return int((taken < others - margin).sum())
+
+
+def _same_experts(a, b):
+    """[T] whether each token took the same set of experts in a and b."""
+    return (a.sort(1).values == b.sort(1).values).all(1)
+
+
+def _own_top_k(probs, k: int):
+    import torch
+
+    return torch.sort(probs, stable=True, dim=-1,
+                      descending=True).indices[:, :k]
+
+
+def moe_layers(cfg, params) -> dict:
+    """The MoE check (1), layer by layer and teacher forced: each layer of
+    ``params`` (n:m:g attention) is fed the plain run's input and run
+    through the kernels and through the plain versions, at the prompts of
+    :data:`MOE_PROMPTS`.  Held: the attention output, every position,
+    within :data:`ATTN_TOL` (:func:`attn_gap`); the router's
+    probabilities within :data:`ROUTER_TOL` of their RMS; and where the
+    kernels take other experts than plain, plain's probabilities must
+    make the kernels' experts a top-k within :data:`ROUTE_MARGIN`.  Every
+    other flip fails.  The control: the kernels' experts relabelled by a
+    derangement must fall outside the margin."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    k = cfg.moe.top_k
+    perm = _derangement(cfg.moe.num_experts, 26)
+    rng = np.random.default_rng(1)
+    got_a, want_a, calls = [], [], []
+    for S in MOE_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                               device="cuda")
+        x = tf._embed(params, cfg, toks)
+        for lp in tf.layer_list(params["layers"]):
+            def layer(x=x, lp=lp):
+                rows = []
+                with attn_rows(rows, last=False), moe.route_log() as log:
+                    x1, _ = tf._sublayer_attn(lp, x, cfg)
+                    out, _ = tf._sublayer_ffn(lp, x1, cfg)
+                (a,), (call,) = rows, log.calls
+                return a, call, out
+
+            with plain_versions():
+                a_p, c_p, x_next = layer()
+            a_k, c_k, _ = layer()
+            got_a.append(a_k)
+            want_a.append(a_p)
+            calls.append((c_k, c_p))
+            x = x_next
+    n = cfg.n_layers * len(MOE_PROMPTS)
+    assert len(calls) == n, (len(calls), n)
+    abs_err = [(c_k["probs"] - c_p["probs"]).abs().max().item()
+               for c_k, c_p in calls]
+    rel = [((c_k["probs"] - c_p["probs"]).norm()
+            / c_p["probs"].norm()).item() for c_k, c_p in calls]
+    flips = [int((~_same_experts(c_k["eidx"], c_p["eidx"])).sum())
+             for c_k, c_p in calls]
+    bad = sum(route_misses(c_p["probs"], c_k["eidx"], ROUTE_MARGIN)
+              for c_k, c_p in calls)
+    ctl = sum(route_misses(c_p["probs"], perm[c_k["eidx"]], ROUTE_MARGIN)
+              for c_k, c_p in calls)
+    gaps = []   # plain's k-th minus (k+1)-th probability at each flip
+    for (c_k, c_p), f in zip(calls, flips):
+        if f:
+            top = torch.sort(c_p["probs"], dim=-1, descending=True).values
+            d = ~_same_experts(c_k["eidx"], c_p["eidx"])
+            gaps += (top[d, k - 1] - top[d, k]).tolist()
+    res = {"layers_compared": n, "tokens": sum(MOE_PROMPTS),
+           "routes": sum(c_k["eidx"].shape[0] for c_k, _ in calls),
+           "attn": attn_gap(got_a, want_a),
+           "router_max_abs_err": max(abs_err),
+           "router_max_rel_rms_err": max(rel), "router_tol": ROUTER_TOL,
+           "margin": ROUTE_MARGIN, "flipped_tokens": sum(flips),
+           "flip_gaps": gaps, "flips_outside_margin": bad,
+           "control_outside_margin": ctl}
+    assert res["attn"]["layers_over"] == 0, res
+    assert max(rel) <= ROUTER_TOL, res
+    assert bad == 0, res
+    assert ctl > 0, f"relabelled experts pass the margin: {res}"
+    return res
+
+
+@contextlib.contextmanager
+def moe_rows(into: list):
+    """While inside, append to ``into`` every MoE sublayer's output at the
+    last position (before any post-norm), [B, D] in f32, in call order:
+    one a layer, a forward's last row or a decode step's row.  Eager
+    programs only, as :func:`attn_rows`."""
+    from repro_torch.models import moe
+
+    fn = moe.apply_moe
+
+    def rec(*args, **kw):
+        out = fn(*args, **kw)
+        into.append(out[0][:, -1].float())
+        return out
+
+    moe.apply_moe = rec
+    try:
+        yield into
+    finally:
+        moe.apply_moe = fn
+
+
+@contextlib.contextmanager
+def ulp_embeddings(seed: int):
+    """While inside, every token embedding the model computes (bf16) is
+    moved by one unit in its last place, up, down or not at all at
+    random (seeded): a perturbation of rounding's size at the model's
+    input.  A run through the plain versions under it, beside the plain
+    run, shows how far the model itself carries one rounding step to its
+    logits: the floor under any two bf16 evaluations' difference."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    fn = tf._embed
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def moved(*args, **kw):
+        x = fn(*args, **kw)
+        assert x.dtype == torch.bfloat16, x.dtype
+        step = torch.randint(-1, 2, x.shape, generator=gen, device=x.device,
+                             dtype=torch.int16).masked_fill_(x == 0, 0)
+        return (x.view(torch.int16) + step).view(torch.bfloat16)
+
+    tf._embed = moved
+    try:
+        yield
+    finally:
+        tf._embed = fn
+
+
+def _derangement(E: int, seed: int):
+    """A seeded permutation of the E experts that moves every one."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    while True:
+        perm = torch.randperm(E, generator=g)
+        if bool((perm != torch.arange(E)).all()):
+            return perm.to("cuda")
+
+
+def moe_parity(cfg, params) -> dict:
+    """The MoE checks (2) and (3), end to end with the routes pinned: the
+    prompts of :data:`MOE_PROMPTS` each prefilled and 4 decode steps
+    through the plain versions, every MoE layer's experts recorded
+    (``models/moe.py:route_log``); then the same steps through the kernels
+    fed the same tokens with those experts pinned, held by the 5% rule
+    of :func:`logit_stats` (:func:`hold_logits`') and, at each step,
+    every MoE layer's output at the last position within :data:`ATTN_TOL`
+    of the plain run's (:func:`moe_rows`, :func:`attn_gap`): with random weights
+    a token's logits are mostly its own embedding (x sqrt(d_model)), and
+    the experts reach them too little for the logit rule alone to see
+    which experts ran.  The kernels' router under the pin is held to the
+    plain run's probabilities call for call within :data:`ROUTER_TOL` of
+    their RMS, and each pinned choice must be a top-k of the kernels' own
+    router within :data:`PIN_MARGIN`: the pin settles near-ties and
+    nothing else.  How many lie outside :data:`ROUTE_MARGIN`, (1)'s, is
+    reported.  The control pins a shuffled copy of the recorded routes
+    (the experts relabelled by a derangement): it must fail the check
+    (:func:`check_ok`) and fall outside :data:`PIN_MARGIN`; whether it
+    fails the logit rule alone is reported.  Reported too, the floor: the
+    plain run again, routes pinned, under :func:`ulp_embeddings`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, moe, prefill
+
+    k, E = cfg.moe.top_k, cfg.moe.num_experts
+    perm = _derangement(E, 26)
+    rng = np.random.default_rng(1)
+    pairs, bad_pairs, want_rows, got_rows, bad_rows = [], [], [], [], []
+    floor_pairs, floor_rows = [], []
+    both = []   # (the pinned run's call, the plain run's), call for call
+    shuffled = []   # the control's calls
+    for S in MOE_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                               device="cuda")
+
+        def steps(feed=None):
+            logits, cache = prefill(params, cfg, toks, cache_len=S + 8)
+            out, fed = [logits.float()], []
+            tok = torch.argmax(logits, -1)[:, None]
+            for i in range(4):
+                if feed is not None:
+                    tok = feed[i]
+                fed.append(tok)
+                logits, cache = decode_step(params, cfg, tok, cache,
+                                            torch.tensor(S + i, device="cuda"))
+                out.append(logits.float())
+                tok = torch.argmax(logits, -1)[:, None]
+            return out, fed
+
+        with plain_versions(), moe.route_log() as rec, moe_rows(want_rows):
+            want, fed = steps()
+        with moe.route_log(pin=rec.routes) as pin, moe_rows(got_rows):
+            got, _ = steps(fed)
+        assert len(pin.calls) == len(rec.calls) == 5 * cfg.n_layers, \
+            (len(pin.calls), len(rec.calls))
+        both += zip(pin.calls, rec.calls)
+        with moe.route_log(pin=[perm[r] for r in rec.routes]) as ctl, \
+                moe_rows(bad_rows):
+            bad, _ = steps(fed)
+        assert len(ctl.calls) == len(rec.calls)
+        with plain_versions(), moe.route_log(pin=rec.routes), \
+                moe_rows(floor_rows), ulp_embeddings(S):
+            floor, _ = steps(fed)
+        shuffled += ctl.calls
+        pairs += list(zip(got, want))
+        bad_pairs += list(zip(bad, want))
+        floor_pairs += list(zip(floor, want))
+    abs_err = max((c["probs"] - r["probs"]).abs().max().item()
+                  for c, r in both)
+    rel = max(((c["probs"] - r["probs"]).norm()
+               / r["probs"].norm()).item() for c, r in both)
+    gaps = []   # the kernels' own k-th minus (k+1)-th where they differ
+    for c, _ in both:
+        d = ~_same_experts(c["eidx"], _own_top_k(c["probs"], k))
+        if d.any():
+            top = torch.sort(c["probs"], dim=-1, descending=True).values
+            gaps += (top[d, k - 1] - top[d, k]).tolist()
+    res = logit_stats(pairs)
+    res.update(
+        pinned_routes=sum(c["eidx"].shape[0] for c, _ in both),
+        pinned_unlike_own_top_k=len(gaps), own_gaps=gaps,
+        router_max_abs_err=abs_err, router_max_rel_rms_err=rel,
+        router_tol=ROUTER_TOL, margin=PIN_MARGIN,
+        pinned_outside_margin=sum(route_misses(c["probs"], c["eidx"],
+                                               PIN_MARGIN)
+                                  for c, _ in both),
+        teacher_forced_margin=ROUTE_MARGIN,
+        pinned_outside_teacher_forced_margin=sum(
+            route_misses(c["probs"], c["eidx"], ROUTE_MARGIN)
+            for c, _ in both),
+        moe_rows=attn_gap(got_rows, want_rows),
+        control={"logits": logit_stats(bad_pairs),
+                 "attn": attn_gap(bad_rows, want_rows),
+                 "outside_margin": sum(route_misses(c["probs"], c["eidx"],
+                                                    PIN_MARGIN)
+                                       for c in shuffled)},
+        floor={"logits": logit_stats(floor_pairs),
+               "attn": attn_gap(floor_rows, want_rows)})
+    assert rel <= ROUTER_TOL and res["pinned_outside_margin"] == 0, res
+    assert check_ok({"logits": res, "attn": res["moe_rows"]}), res
+    assert not check_ok(res["control"]), f"shuffled routes pass: {res}"
+    assert res["control"]["outside_margin"] > 0, \
+        f"shuffled routes pass the margin: {res}"
+    return res
+
+
+def moe_drops(cfg, params) -> dict:
+    """The MoE check (4): one admission of :data:`MOE_DROP_PROMPT` tokens,
+    each layer's dropped slots (the reference's capacity rule at work, not
+    a fault), each count held to the rule's own: per expert, the slots
+    past its capacity."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_cache, moe, prefill_into_slot
+
+    S, mc = MOE_DROP_PROMPT, cfg.moe
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, S)), device="cuda")
+    cache = init_cache(cfg, 1, S, device="cuda")
+    with moe.route_log() as log:
+        prefill_into_slot(params, cfg, toks, cache, 0)
+    cap = moe.capacity(S, mc)
+    dropped = [int((~c["keep"]).sum()) for c in log.calls]
+    want = [int((torch.bincount(c["eidx"].reshape(-1),
+                                minlength=mc.num_experts) - cap)
+                .clamp_min(0).sum()) for c in log.calls]
+    assert len(dropped) == cfg.n_layers and dropped == want, (dropped, want)
+    return {"tokens": S, "slots": S * mc.top_k, "capacity": cap,
+            "dropped_per_layer": dropped}
+
+
+def _graph_span_ms(fn) -> float:
+    """The device span of ``fn`` captured as one CUDA graph: CUDA events
+    around each of 5 replays, the median (after one warm replay)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                   # the eager first run (workspaces, libraries)
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for s_, e_ in zip(starts, ends):
+        torch.cuda.synchronize()
+        s_.record()
+        g.replay()
+        e_.record()
+    torch.cuda.synchronize()
+    del g
+    return statistics.median(s_.elapsed_time(e_)
+                             for s_, e_ in zip(starts, ends))
+
+
+def moe_cost(cfg, params) -> dict:
+    """Where a MoE model's decode step spends its time, without a
+    profiler: the device span (:func:`_graph_span_ms`) of every layer's
+    MoE sublayer at a decode step's 4 tokens, and of its two batched
+    expert products alone (on the capacity buffer of that step), beside
+    the experts' bytes at 3.35 TB/s.  Set beside the decode chunk's span
+    a step (:func:`graph_phase`)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    mc, D, dt = cfg.moe, cfg.d_model, cfg.tdtype
+    E, F, B = mc.num_experts, mc.d_expert, 4
+    cap = moe.capacity(B, mc)
+    ps = [lp["moe"] for lp in tf.layer_list(params["layers"])]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn(B, 1, D, generator=gen, device="cuda").to(dt)
+    buf = torch.randn(E, cap, D, generator=gen, device="cuda").to(dt)
+    hbuf = torch.randn(E, cap, F, generator=gen, device="cuda").to(dt)
+
+    def sublayers():
+        for p in ps:
+            moe.apply_moe(p, x, cfg)
+
+    def products():
+        for p in ps:
+            torch.bmm(buf, p["wi"])
+            torch.bmm(hbuf, p["wo"])
+
+    expert_bytes = sum(p["wi"].numel() * p["wi"].element_size()
+                       + p["wo"].numel() * p["wo"].element_size()
+                       for p in ps)
+    return {"tokens": B, "capacity": cap, "layers": len(ps),
+            "moe_sublayers_ms": _graph_span_ms(sublayers),
+            "expert_products_ms": _graph_span_ms(products),
+            "expert_bytes": expert_bytes,
+            "expert_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def moe_phase(cfg, params) -> dict:
+    """The MoE checks on n:m:g ``params``: (1) :func:`moe_layers`, (2) and
+    (3) :func:`moe_parity`, (4) :func:`moe_drops`; then the cost of the
+    MoE sublayers and their expert products (:func:`moe_cost`)."""
+    return {"layers": moe_layers(cfg, params),
+            "parity": moe_parity(cfg, params),
+            "drops": moe_drops(cfg, params), "cost": moe_cost(cfg, params)}
+
+
+def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
+    """One model at full width and depth, or with ``smoke`` its SMOKE
+    config (seeded random weights, bf16): ``init_lm`` (seconds, peak),
+    the n:m:g 1:4:8 ``attn=True`` conversion with ``gr`` group rows
+    (seconds, peak), then dense and n:m:g each through
     :func:`serve_phase` (graphs and eager: streams and counts equal, each
     length's admission replay bitwise eager) and :func:`graph_phase`
     (the 8-step chunk replay bitwise eager, wall eager and replayed, the
@@ -1905,54 +2345,72 @@ def family_phase(arch: str, card: str) -> dict:
     in this process), the n:m:g logits held against the plain versions
     (:func:`logit_parity`), and for gemma2 :func:`window_phase`, for
     paligemma :func:`prefix_phase`, for minicpm3 :func:`latent_phase`.
-    Beside
-    per-token p50 stands the step's byte bound: the weights one decode
-    step reads (:func:`step_weight_bytes`) at 3.35 TB/s."""
+    A MoE model (moonshot; arctic at SMOKE) also runs :func:`prefill_phase`
+    without profiles (each admission length replayed bitwise eager, its
+    wall, dense and n:m:g) and its logits are held by :func:`moe_phase`
+    in place of :func:`logit_parity` (near-ties in the router make two
+    runs take other experts somewhere in 48 layers).  n:m:g converts a
+    MoE model's attention alone (``sparsify_for_serving``'s globs match
+    no expert).  Beside per-token p50 stands the step's byte bound: the
+    weights one decode step reads (:func:`step_weight_bytes`) at 3.35
+    TB/s."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke
     from repro_torch.models import init_lm
     from repro_torch.serve import sparsify_for_serving
 
-    cfg = get_config(arch)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
     short = arch.split("-")[0]
+    label = f"{arch} at SMOKE" if smoke else arch
+    gc.collect()               # the previous model's engines and graphs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    res = {"arch": arch, "init_s": time.perf_counter() - t0,
+    res = {"arch": arch, "smoke": smoke, "init_s": time.perf_counter() - t0,
            "init_peak_gb": _gb_peak(),
            "param_gb": torch.cuda.memory_allocated() / 1e9}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sparse = sparsify_for_serving(params, 1, 4, 8, gr=64, attn=True)
+    sparse = sparsify_for_serving(params, 1, 4, 8, gr=gr, attn=True)
     torch.cuda.synchronize()
-    res.update(convert_s=time.perf_counter() - t0,
+    res.update(convert_s=time.perf_counter() - t0, gr=gr,
                convert_peak_gb=_gb_peak(),
                step_bytes={"dense": step_weight_bytes(params),
                            "sparse": step_weight_bytes(sparse)})
-    print(f"{arch} on {card}: init {res['init_s']:.2f} s, peak "
+    print(f"{label} on {card}: init {res['init_s']:.2f} s, peak "
           f"{res['init_peak_gb']:.2f} GB ({res['param_gb']:.2f} GB of "
           f"params); n:m:g conversion {res['convert_s']:.2f} s, peak "
           f"{res['convert_peak_gb']:.2f} GB", flush=True)
+    if cfg.moe is not None:
+        res["step_bytes"]["moe"] = moe_step_bytes(cfg, params)
     torch.cuda.reset_peak_memory_stats()
     runs = [serve_phase(cfg, params, f"{short}_dense")]
     graphs = [graph_phase(cfg, params, f"{short}_dense", profile=False)]
+    prefills = []
+    if cfg.moe is not None:
+        prefills.append(prefill_phase(cfg, params, f"{short}_dense",
+                                      profile=False))
     del params                 # the n:m:g copy is served alone
     torch.cuda.empty_cache()
     runs.append(serve_phase(cfg, sparse, f"{short}_sparse"))
     graphs.append(graph_phase(cfg, sparse, f"{short}_sparse", profile=False))
+    if cfg.moe is not None:
+        prefills.append(prefill_phase(cfg, sparse, f"{short}_sparse",
+                                      profile=False))
     res["serve_peak_gb"] = _gb_peak()
     dc, sc = runs[0]["counts"], runs[1]["counts"]
     assert all(dc[k] == 0 for k in KERNELS), dc
     for k in ("nmg_gemv", "nmg_spmm"):
-        assert sc[k] > 0, f"{k} never launched on the {arch} n:m:g path"
+        assert sc[k] > 0, f"{k} never launched on the {label} n:m:g path"
     # a GQA model's q/k/v take the fused launch; MLA has no q/k/v group
     # (its latent projections stay dense)
     gqa = cfg.attn_type == "gqa"
     assert (sc["nmg_qkv"] > 0) == gqa, (arch, sc)
-    assert (sc["nmg_ffn"] > 0) == cfg.gated_mlp, sc
+    # a MoE layer has no mlp.wi: no fused FFN
+    assert (sc["nmg_ffn"] > 0) == (cfg.gated_mlp and cfg.moe is None), sc
     report_runs(runs, card)
     for r in runs:
         kind = r["label"].rsplit("_", 1)[1]
@@ -1971,15 +2429,24 @@ def family_phase(arch: str, card: str) -> dict:
               f"{cg['capture_ms']:.1f} ms + instantiate "
               f"{cg['instantiate_ms']:.1f} ms, pool "
               f"{cg['pool_bytes'] / 2**20:.1f} MiB")
-    print(f"{arch} serving peak device memory on {card}: "
+    print(f"{label} serving peak device memory on {card}: "
           f"{res['serve_peak_gb']:.2f} GB", flush=True)
-    res["parity"] = logit_parity(cfg, sparse)
-    print(f"logit parity ({arch} attn=True gr64, kernels vs plain): "
-          f"{res['parity']}", flush=True)
+    if prefills:
+        report_prefill(prefills, card)
+        res["prefill"] = prefills
+    if cfg.moe is None:
+        res["parity"] = logit_parity(cfg, sparse)
+    else:
+        res["moe"] = moe_phase(cfg, sparse)
+        res["parity"] = res["moe"]["parity"]
+        report_moe(label, res["moe"], card)
+    print(f"logit parity ({label} attn=True gr{gr}, kernels vs plain"
+          f"{', routes pinned' if cfg.moe else ''}): {res['parity']}",
+          flush=True)
     if cfg.layer_pattern == "alt_local_global":
         w = res["window"] = window_phase(cfg, sparse)
         ag, m = w["admission_graph"], w["metrics"]
-        print(f"{arch} window request on {card}: prompt {WINDOW_PROMPT} + "
+        print(f"{label} window request on {card}: prompt {WINDOW_PROMPT} + "
               f"{WINDOW_NEW} tokens, rings of {cfg.local_window} rows, "
               f"global {WINDOW_SEQ}; TTFT {m['ttft_p50'] * 1e3:.3f} ms "
               f"(replayed admission), per-token p50 "
@@ -2001,7 +2468,7 @@ def family_phase(arch: str, card: str) -> dict:
         want = [k for k in KERNELS if gqa or k != "nmg_qkv"]
         assert all(r["counts"][k] > 0 for k in want), (key, r["counts"])
         chk, ctl = r["vs_full_forward"], r["control"]
-        print(f"{arch} {key} request on {card}: {r['prefix_rows']} "
+        print(f"{label} {key} request on {card}: {r['prefix_rows']} "
               f"prefix rows + {r['prompt']} + {r['new_tokens']} tokens, "
               f"cache {r['cache_rows']} rows; "
               + (f"TTFT {r['metrics']['ttft_p50'] * 1e3:.3f} ms "
@@ -2020,6 +2487,73 @@ def family_phase(arch: str, card: str) -> dict:
     return res
 
 
+def moe_step_bytes(cfg, params) -> dict:
+    """The MoE leaves' share of :func:`step_weight_bytes`, held to the
+    config: all E experts of every layer (the batched product reads
+    every expert at every step) and the f32 router."""
+    mc, L, D = cfg.moe, cfg.n_layers, cfg.d_model
+    m = params["layers"]["moe"]
+    got = {k: t.numel() * t.element_size() for k, t in m.items()}
+    F2 = (2 if cfg.gated_mlp else 1) * mc.d_expert
+    assert got["router"] == L * D * mc.num_experts * 4, got
+    assert got["wi"] + got["wo"] == L * mc.num_experts * (
+        D * F2 + mc.d_expert * D) * cfg.tdtype.itemsize, got
+    assert sum(got.values()) <= step_weight_bytes(params), got
+    return got
+
+
+def report_moe(arch, r, card) -> None:
+    lay, par, drops = r["layers"], r["parity"], r["drops"]
+    print(f"{arch} MoE on {card}: (1) layer by layer, teacher forced, "
+          f"{lay['layers_compared']} layers x prompts {MOE_PROMPTS}: "
+          f"attention {lay['attn']['max_rel_rms_err']:.5f} (bound "
+          f"{ATTN_TOL}), router probabilities max abs "
+          f"{lay['router_max_abs_err']:.3e}, rel RMS "
+          f"{lay['router_max_rel_rms_err']:.3e} (bound {ROUTER_TOL}), "
+          f"{lay['flipped_tokens']} of {lay['routes']} tokens took other "
+          f"experts (plain's k-th minus (k+1)-th there "
+          f"{[f'{g:.2e}' for g in lay['flip_gaps']]}), "
+          f"{lay['flips_outside_margin']} outside the margin "
+          f"{lay['margin']:.1e}; control: the kernels' experts relabelled, "
+          f"{lay['control_outside_margin']} outside it", flush=True)
+    ctl = par["control"]
+    print(f"{arch} MoE on {card}: (2) routes pinned, logits "
+          f"{par['max_abs_err']:.4f} (bound {par['tol']:.4f}, argmax "
+          f"{par['argmax_agree']}), MoE rows "
+          f"{par['moe_rows']['max_rel_rms_err']:.5f} (bound {ATTN_TOL}); "
+          f"router probabilities max abs {par['router_max_abs_err']:.3e}, "
+          f"rel RMS {par['router_max_rel_rms_err']:.3e} (bound "
+          f"{ROUTER_TOL}); {par['pinned_routes']} pinned routes, "
+          f"{par['pinned_unlike_own_top_k']} unlike the kernels' own "
+          f"top-k (own k-th minus (k+1)-th there "
+          f"{[f'{g:.2e}' for g in par['own_gaps']]}), "
+          f"{par['pinned_outside_margin']} outside the margin "
+          f"{par['margin']:.1e}, "
+          f"{par['pinned_outside_teacher_forced_margin']} outside (1)'s "
+          f"{par['teacher_forced_margin']:.1e} (reported); (3) shuffled "
+          f"control: {ctl['outside_margin']} routes outside the margin, "
+          f"logits {ctl['logits']['max_abs_err']:.4f} "
+          f"(argmax {ctl['logits']['argmax_agree']}, the logit rule "
+          f"{'passed' if ctl['logits']['ok'] else 'failed'}), MoE rows "
+          f"{ctl['attn']['max_rel_rms_err']:.4f} with "
+          f"{ctl['attn']['layers_over']} of "
+          f"{len(ctl['attn']['per_layer'])} over: fails as it must; floor "
+          f"(plain, one ulp at the input): logits "
+          f"{par['floor']['logits']['max_abs_err']:.4f} (argmax "
+          f"{par['floor']['logits']['argmax_agree']}), MoE rows "
+          f"{par['floor']['attn']['max_rel_rms_err']:.5f}; (4) "
+          f"{drops['tokens']}-token admission, capacity "
+          f"{drops['capacity']} of {drops['slots']} slots, dropped per "
+          f"layer {drops['dropped_per_layer']}", flush=True)
+    c = r["cost"]
+    print(f"{arch} MoE cost on {card}: a decode step's {c['layers']} MoE "
+          f"sublayers at {c['tokens']} tokens (capacity {c['capacity']}) "
+          f"{c['moe_sublayers_ms']:.3f} ms, their expert products alone "
+          f"{c['expert_products_ms']:.3f} ms (device spans of one graph "
+          f"each); the experts' {c['expert_bytes'] / 1e9:.2f} GB at "
+          f"3.35 TB/s {c['expert_bound_ms']:.3f} ms", flush=True)
+
+
 def families_child(flag: str) -> int:
     """Phase 3d (``python3 chip_smoke.py --families``) or 3e (``--vlm-mla``)
     in its own process, started by :func:`main`: the earlier phases'
@@ -2036,7 +2570,8 @@ def families_child(flag: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(("nmg_gemv", "nmg_spmm", "nmg_ffn"))
     t0 = time.perf_counter()
-    res = {"families": [family_phase(a, card) for a in archs]}
+    res = {"families": [family_phase(a, smoke, gr, card)
+                        for a, smoke, gr in archs]}
     res["wall_s"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3397,6 +3932,9 @@ def main() -> int:
     gen_e = torch.Generator(device="cuda").manual_seed(24)
     cases += kernel_phase(gen_e, "paligemma") + kernel_phase(gen_e,
                                                               "minicpm3")
+    # moonshot's widths, from a generator of their own as well
+    cases += kernel_phase(torch.Generator(device="cuda").manual_seed(26),
+                          "moonshot")
     print(f"kernel phase: {len(cases)} cases within bounds ({card})")
     for c in cases:
         lib = ("none" if c["library_ms"] is None
@@ -3509,8 +4047,11 @@ def main() -> int:
     fam = run_families("--families", 700)
     # (e) paligemma-3b and minicpm3-4b the same way, in another process
     vlm = run_families("--vlm-mla", 600)
+    # (h) moonshot-v1-16b-a3b at full width and arctic-480b at SMOKE
+    moe = run_families("--moe", 600)
     fam_counts = {r["label"]: r["counts"]
                   for f in fam["families"] + vlm["families"]
+                  + moe["families"]
                   for r in f["runs"] if r["label"].endswith("_sparse")}
     for r in tune["serve"]:
         report_tuned(r, card)
@@ -3573,6 +4114,7 @@ def main() -> int:
         "train_margins": margins,
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
+        "moe": moe,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -3682,8 +4224,42 @@ def main() -> int:
                         "max_rel_rms_err"],
                     "attn_layers_over": f[key]["control"]["attn"][
                         "layers_over"]}}
-               for key in ("prefix", "latent") if key in f}}
-            for f in fam["families"] + vlm["families"]},
+               for key in ("prefix", "latent") if key in f},
+            **({"moe": {
+                "router_max_abs_err": f["moe"]["layers"]["router_max_abs_err"],
+                "router_max_rel_rms_err":
+                    f["moe"]["layers"]["router_max_rel_rms_err"],
+                "attn_rel_err":
+                    f["moe"]["layers"]["attn"]["max_rel_rms_err"],
+                "margin": f["moe"]["layers"]["margin"],
+                "teacher_forced_flips": f["moe"]["layers"]["flipped_tokens"],
+                "pin_margin": f["moe"]["parity"]["margin"],
+                "pinned_outside_teacher_forced_margin": f["moe"]["parity"][
+                    "pinned_outside_teacher_forced_margin"],
+                "pinned_unlike_own_top_k":
+                    f["moe"]["parity"]["pinned_unlike_own_top_k"],
+                "moe_rows_rel_err":
+                    f["moe"]["parity"]["moe_rows"]["max_rel_rms_err"],
+                "control_logit_err":
+                    f["moe"]["parity"]["control"]["logits"]["max_abs_err"],
+                "control_logits_ok":
+                    f["moe"]["parity"]["control"]["logits"]["ok"],
+                "control_moe_rows_rel_err":
+                    f["moe"]["parity"]["control"]["attn"]["max_rel_rms_err"],
+                "floor_logit_err":
+                    f["moe"]["parity"]["floor"]["logits"]["max_abs_err"],
+                "floor_moe_rows_rel_err":
+                    f["moe"]["parity"]["floor"]["attn"]["max_rel_rms_err"],
+                "dropped_per_layer":
+                    f["moe"]["drops"]["dropped_per_layer"],
+                "cost_ms": {k: round(f["moe"]["cost"][k], 3) for k in (
+                    "moe_sublayers_ms", "expert_products_ms",
+                    "expert_bound_ms")},
+                "admission_ms": {p["label"]: {
+                    r["S"]: round(r["replay_wall_ms"], 3)
+                    for r in p["lens"]} for p in f["prefill"]}}}
+               if "moe" in f else {})}
+            for f in fam["families"] + vlm["families"] + moe["families"]},
         "tuning": {
             "wall_s": round(tune["wall_s"], 1),
             "crossover": {f"{r['model']}.{r['weight']}": {

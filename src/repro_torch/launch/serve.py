@@ -10,12 +10,16 @@ by side.
     python -m repro_torch.launch.serve --arch gemma2-9b --engine --sparse
     python -m repro_torch.launch.serve --arch paligemma-3b --engine --sparse
     python -m repro_torch.launch.serve --arch minicpm3-4b --engine --sparse
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --engine
 
 runs on the card (gemma2-9b's local layers keep a ring cache of its
 4096-token window, so ``--prompt-len`` may exceed it; paligemma-3b's
 synthetic requests are text alone, since an image prefix is admitted
 through ``prefill_into_slot(prefix_embeds=)``, not the engine; minicpm3-4b
-caches MLA's compressed latent); ``--device cpu``
+caches MLA's compressed latent; for a MoE model, moonshot-v1-16b-a3b or
+arctic-480b at ``--smoke``, ``--sparse`` serves a copy with nothing
+converted, as the reference's does: its conversion leaves attention
+dense and no glob matches an expert); ``--device cpu``
 runs the plain versions on the CPU (with ``--smoke`` for a size the CPU
 can take).  ``--tuning-table PATH``
 (or ``$REPRO_TUNE_TABLE``) routes through a table of ``python -m

@@ -1,5 +1,6 @@
-"""The ported model stack (dense decoder with GQA or MLA attention, a
-plain or gated MLP, an optional VLM prefix) and its training loss."""
+"""The ported model stack (a decoder with GQA or MLA attention, a plain
+or gated MLP or a mixture of experts, an optional VLM prefix) and its
+training loss."""
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (

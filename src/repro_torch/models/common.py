@@ -2,14 +2,17 @@
 ``repro/models/common.py``).
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field.
-``MLAConfig`` is the reference's too.  The port runs its dense-decoder
-subset: GQA or MLA (multi-head latent) attention, plain or gated MLP,
+``MLAConfig`` and ``MoEConfig`` are the reference's too.  The port runs
+its decoder subset: GQA or MLA (multi-head latent) attention, plain or
+gated MLP or a mixture of experts (``models/moe.py``, one device: the
+``pjit`` implementation with the ``gather`` or ``replicated`` combine),
 with or without QKV bias and the MLP's inline threshold, global layers or
 alternating local/global layer pairs with a sliding window, attention and
 logit softcaps, post-norms, a tied or separate head, and a prefix of
 precomputed embeddings under a prefix-LM mask (the VLM stub frontend).
 :meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
-other families (MoE, SSM, hybrid, enc-dec, int8 KV cache).
+other families (SSM, hybrid, enc-dec, int8 KV cache) and for the
+expert-parallel MoE strategies (``impl="shmap"``, ``combine="scatter"``).
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ import torch
 from repro_torch.core.layouts import DenseTensor, GroupedNMTensor, \
     SparsityLayout
 
-__all__ = ["MLAConfig", "ModelConfig", "mm", "mm_fused_qkv", "mm_gated",
-           "torch_dtype"]
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "mm", "mm_fused_qkv",
+           "mm_gated", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -102,6 +105,19 @@ def mm_gated(x: torch.Tensor, w, act: str, *, inline=None):
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    d_expert: int = 1024          # expert FFN hidden size
+    capacity_factor: float = 1.25
+    dense_residual: bool = False  # Arctic-style dense MLP in parallel
+    dense_residual_ff: int = 0
+    router_jitter: float = 0.0
+    combine: str = "gather"   # gather | scatter (EP combine strategy)
+    impl: str = "pjit"        # pjit | shmap (explicit shard_map EP)
+
+
+@dataclasses.dataclass(frozen=True)
 class MLAConfig:
     q_lora_rank: int = 768
     kv_lora_rank: int = 256
@@ -131,7 +147,7 @@ class ModelConfig:
     gated_mlp: bool = True
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[object] = None
     n_enc_layers: int = 0
@@ -158,18 +174,30 @@ class ModelConfig:
 
     def check_ported(self):
         """Raise NotImplementedError unless this config lies in the
-        ported subset: dense decoder with GQA attention or MLA (``attn_type
-        "mla"`` with an ``MLAConfig``), plain or gated MLP, optional QKV
-        bias and MLP inline threshold, global layers or local/global pairs
-        (``alt_local_global`` with ``local_window``, an even layer count),
-        softcaps, post-norms, a VLM prefix (``vision_prefix`` precomputed
-        embeddings); no MoE/SSM/hybrid/enc-dec/int8 KV."""
+        ported subset: a decoder with GQA attention or MLA (``attn_type
+        "mla"`` with an ``MLAConfig``), plain or gated MLP or a
+        ``MoEConfig`` mixture of experts (``impl="pjit"`` with the
+        ``gather`` or ``replicated`` combine, which on one device are the
+        same computation), optional QKV bias and MLP inline threshold,
+        global layers or local/global pairs (``alt_local_global`` with
+        ``local_window``, an even layer count), softcaps, post-norms, a
+        VLM prefix (``vision_prefix`` precomputed embeddings); no
+        SSM/hybrid/enc-dec/int8 KV.  ``impl="shmap"`` and
+        ``combine="scatter"`` are expert-parallel sharding strategies:
+        they wait for distribution."""
+        moe = self.moe
         unported = {
             "attn_type not in ('gqa', 'mla')":
                 self.attn_type not in ("gqa", "mla"),
             "mla without an MLAConfig":
                 self.attn_type == "mla" and self.mla is None,
-            "moe": self.moe is not None,
+            "moe without a MoEConfig":
+                moe is not None and not isinstance(moe, MoEConfig),
+            "moe impl 'shmap' (expert parallelism across devices)":
+                isinstance(moe, MoEConfig) and moe.impl != "pjit",
+            "moe combine 'scatter' (an expert-parallel combine)":
+                isinstance(moe, MoEConfig)
+                and moe.combine not in ("gather", "replicated"),
             "ssm": self.ssm is not None,
             "layer_pattern 'local'": self.layer_pattern == "local",
             "local/global pairs without local_window or of odd depth":

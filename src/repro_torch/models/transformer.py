@@ -1,7 +1,7 @@
-"""The ported LM stack: a dense decoder with GQA or MLA attention and a
-plain or gated MLP, optionally behind a prefix of precomputed embeddings
-(port of the dense decoder and VLM-prefix paths of
-``repro/models/transformer.py``).
+"""The ported LM stack: a decoder with GQA or MLA attention and a plain
+or gated MLP or a mixture of experts, optionally behind a prefix of
+precomputed embeddings (port of the dense decoder, MoE and VLM-prefix
+paths of ``repro/models/transformer.py``).
 
 Params are nested dicts with the reference's layout: layer leaves are
 stacked on a leading ``[L]`` axis, and a Python loop over ``L`` indexes
@@ -17,11 +17,14 @@ sublayer's output before its residual add.  ``prefix_embeds`` [B, P, D]
 embeddings, unscaled, and every layer attends bidirectionally over those
 P positions (the prefix-LM mask).  An MLA layer (``attn_type == "mla"``,
 minicpm3) caches the compressed latent ``{"ckv", "kr"}`` in place of
-``{"k", "v"}`` and decodes by the absorbed-latent attention.  Any
-projection may be a ``GroupedNMTensor`` (``mm`` routes it through the
-n:m:g kernels) or another layout (``FixedMaskTensor`` in masked
-training; ``NMTensor`` and ``DenseTensor`` through the dispatcher's
-lossless conversions).  The reference's three intermediate tag sites
+``{"k", "v"}`` and decodes by the absorbed-latent attention.  A config
+with ``cfg.moe`` (moonshot, arctic) holds a ``moe`` subtree in place of
+``mlp`` in every layer (``models/moe.py``); ``forward(with_aux=True)``
+and ``loss_fn`` sum its per-layer auxiliary loss as the reference's
+layer scan does.  Any projection may be a ``GroupedNMTensor`` (``mm``
+routes it through the n:m:g kernels) or another layout
+(``FixedMaskTensor`` in masked training; ``NMTensor`` and
+``DenseTensor`` through the dispatcher's lossless conversions).  The reference's three intermediate tag sites
 are here (``attn.out`` in the forward and prefill, ``mlp.act`` and
 ``mlp.out`` in every FFN): with no sparsity plan active ``tag`` returns
 its input itself, so they change nothing then.  With
@@ -60,6 +63,7 @@ from repro_torch.core.sparsifiers import ScalarThresholdSparsifier
 from repro_torch.device import resolve_device
 from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, mm, mm_gated
 
 __all__ = ["init_lm", "forward", "logits_of", "loss_fn", "init_cache",
@@ -116,16 +120,21 @@ def _group(tree, g):
 
 
 def _init_layers(gen, cfg: ModelConfig, L: int, dev):
+    """One stack of L layers; a MoE config draws ``moe`` in place of
+    ``mlp``, as the reference's init does."""
     D, F_, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
     init_attn = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
     p: dict[str, Any] = {
         "ln1": torch.zeros(L, D, dtype=dt, device=dev),
         "ln2": torch.zeros(L, D, dtype=dt, device=dev),
         "attn": init_attn(gen, cfg, L=L, device=dev),
-        "mlp": {"wi": dense_init(
-            gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
-                "wo": dense_init(gen, (L, F_, D), dt, dev)},
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(gen, cfg, L=L, device=dev)
+    else:
+        p["mlp"] = {"wi": dense_init(
+            gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
+            "wo": dense_init(gen, (L, F_, D), dt, dev)}
     if cfg.post_norms:
         p["post_ln1"] = torch.zeros(L, D, dtype=dt, device=dev)
         p["post_ln2"] = torch.zeros(L, D, dtype=dt, device=dev)
@@ -211,7 +220,15 @@ def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0):
 
 
 def _sublayer_ffn(lp, x, cfg):
+    """The FFN sublayer: (x + its output, the layer's MoE auxiliary loss
+    or None where the layer has an MLP)."""
     h = _rms(x, lp["ln2"])
+    if "moe" in lp:
+        f, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
+        f = tag("mlp.out", f)
+        if cfg.post_norms:
+            f = _rms(f, lp["post_ln2"])
+        return x + f, aux
     wi = lp["mlp"]["wi"]
     inline = None
     if cfg.mlp_inline_threshold is not None:
@@ -231,11 +248,12 @@ def _sublayer_ffn(lp, x, cfg):
     f = tag("mlp.out", mm(hh, lp["mlp"]["wo"]))
     if cfg.post_norms:
         f = _rms(f, lp["post_ln2"])
-    return x + f
+    return x + f, None
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-            prefix_embeds=None, collect_cache: bool = False):
+            prefix_embeds=None, collect_cache: bool = False,
+            with_aux: bool = False):
     """tokens [B, S] (or ``embeds`` [B, S, D], taken as they are, in
     place of the scaled token embeddings) -> hidden [B, P + S, D]
     (final-normed).  ``prefix_embeds`` [B, P, D] are cast to the
@@ -244,7 +262,9 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     per-layer cache contributions stacked on [L]: (hidden, {"k": [L, B,
     P + S, KV, hd], "v": ...}) (MLA: {"ckv": [L, B, P + S, r], "kr": [L,
     B, P + S, rd]}), for a pair layout {"local": {...}, "global": {...}}
-    on [L/2]."""
+    on [L/2].  With ``with_aux`` the f32 sum of the layers' MoE
+    auxiliary losses (0 without MoE) comes last: (hidden, aux) or
+    (hidden, cache, aux)."""
     x = _embed(params, cfg, tokens) if embeds is None else embeds
     prefix_len = 0
     if prefix_embeds is not None:
@@ -252,21 +272,28 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         prefix_len = prefix_embeds.shape[1]
     groups = _groups(cfg)
     contribs: dict = {g: {} for g in groups}
+    aux = None
     for body in zip(*(layer_list(_group(params["layers"], g))
                       for g in groups)):
         for g, lp in zip(groups, body):
             x, c = _sublayer_attn(lp, x, cfg, is_local=g == "local",
                                   prefix_len=prefix_len)
-            x = _sublayer_ffn(lp, x, cfg)
+            x, da = _sublayer_ffn(lp, x, cfg)
+            if da is not None:
+                aux = da if aux is None else aux + da
             if collect_cache:
                 for name, t in c.items():
                     contribs[g].setdefault(name, []).append(t)
     x = _rms(x, params["final_norm"])
-    if not collect_cache:
-        return x
-    cache = {g: {name: torch.stack(ts) for name, ts in c.items()}
-             for g, c in contribs.items()}
-    return x, (cache if _pair(cfg) else cache[None])
+    out = (x,)
+    if collect_cache:
+        cache = {g: {name: torch.stack(ts) for name, ts in c.items()}
+                 for g, c in contribs.items()}
+        out += (cache if _pair(cfg) else cache[None],)
+    if with_aux:
+        out += (torch.zeros((), dtype=torch.float32, device=x.device)
+                if aux is None else aux,)
+    return out[0] if len(out) == 1 else out
 
 
 def logits_of(params, cfg: ModelConfig, hidden):
@@ -283,15 +310,16 @@ def logits_of(params, cfg: ModelConfig, hidden):
     return logits
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
+def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
     """Mean next-token cross-entropy: batch {"tokens" [B, S], "labels"
     [B, S], optional "prefix_embeds" [B, P, D]}, labels < 0 masked out;
     the prefix rows of the hidden states are dropped before the head;
-    logits in f32.  Returns (loss, {"ce", "moe_aux"}); ``moe_aux`` is 0
-    (no MoE in the ported families), so the loss is the cross-entropy
-    alone."""
+    logits in f32.  Returns (ce + aux_weight · moe_aux, {"ce",
+    "moe_aux"}), ``moe_aux`` the layers' summed MoE auxiliary loss (0
+    without MoE, so the loss is the cross-entropy alone)."""
     prefix = batch.get("prefix_embeds")
-    hidden = forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
+    hidden, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
+                          with_aux=True)
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:]
     labels = batch["labels"].long()
@@ -300,8 +328,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
     mask = (labels >= 0).float()
     ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     loss = -(ll * mask).sum() / mask.sum().clamp(min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"ce": loss, "moe_aux": aux}
+    return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
 
 
 def cache_leaves(cache) -> list:
@@ -376,7 +403,7 @@ def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
                            is_local=is_local)
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
-    return _sublayer_ffn(lp, x + a, cfg)
+    return _sublayer_ffn(lp, x + a, cfg)[0]
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos):

@@ -64,7 +64,11 @@ def sparsify_for_serving(params, n: int = 1, m: int = 4, g: int = 16,
     [D, 2F] ``wi`` converts as one weight; when 2F needs no row padding
     and F is a multiple of ``gr`` (qwen1.5-4b: 2F = 13824 = 216 x 64; its
     SMOKE: 256 = 16 x 16), decode routes it through the fused FFN launch
-    (``fusable_ffn``), else through the GEMV and a separate gate."""
+    (``fusable_ffn``), else through the GEMV and a separate gate.  The
+    globs are the reference's and match no ``moe.*`` leaf: in a MoE model
+    (moonshot, arctic) the experts, router and dense residual stay dense
+    and are shared with ``params``, so n:m:g converts attention alone,
+    with ``attn=True``, and nothing without it."""
     sb = SparsityBuilder()
     sp = GroupedNMSparsifier(n, m, g, gr, sparse_dim=0)   # [K, N] weights
     sb.set_weight("*mlp.wi", sp, GroupedNMTensor)

@@ -1481,3 +1481,173 @@ def test_new_family_engine_replay_bitwise_eager(arch, fmt):
         assert (launches["nmg_qkv"] > 0) == (cfg.attn_type == "gqa")
     else:
         assert not any(launches.values()), launches
+
+
+# ---------------------------------------------------------------------------
+# MoE (moonshot-v1-16b-a3b, arctic-480b) at SMOKE: the capacity dispatch
+# inside the decode and admission graphs, the router's f32, pinned routes
+# ---------------------------------------------------------------------------
+
+MOE_ARCHES = ["moonshot-v1-16b-a3b", "arctic-480b"]
+
+
+@pytest.mark.parametrize("fmt", ["dense", "nmg"])
+@pytest.mark.parametrize("arch", MOE_ARCHES)
+def test_moe_engine_replay_bitwise_eager(arch, fmt):
+    """bf16 SMOKE (4 experts top-2; arctic with its dense residual)
+    served by an engine of 4 slots x 48 rows (prompts 20, 6, 20, 6, 9; 8
+    new tokens each, chunk 4), with graphs and with ``graphs=False``:
+    token streams and launch counts equal.  Then each admission length,
+    replayed into slot 1, bitwise eager ``prefill_into_slot`` (logits and
+    every leaf), and the decode chunk's replay bitwise the eager program
+    on a clone of the cache.  The capacity comes from the static token
+    count (4 slots at decode, the prompt length at admission), so nothing
+    in a step reads the device from the host."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve import Request, ServeEngine, warmup_engine
+    from repro_torch.serve.engine import _decode_chunk_fn
+
+    cfg, params = _new_family(arch, fmt)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 6, 20, 6, 9)]
+
+    def trace():
+        return [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(cache_leaves(a), cache_leaves(b)))
+
+    runs = {}
+    for graphs in (True, False):
+        eng = ServeEngine(params, cfg, max_slots=4, max_seq_len=48,
+                          decode_chunk=4, graphs=graphs)
+        warmup_engine(eng, trace())
+        ops.reset_kernel_counters()
+        outs = eng.run(trace())
+        runs[graphs] = ([o.tokens for o in outs], ops.counter_snapshot())
+        if not graphs:
+            continue
+        assert eng._decode_chunk.info["captured"]
+        assert sorted(eng.kv.prefill_graphs) == [6, 9, 20]
+        for S, g in eng.kv.prefill_graphs.items():
+            assert g.info["captured"], S
+            prompt = rng.integers(0, cfg.vocab, (1, S), dtype=np.int32)
+            ref = map_cache(torch.clone, eng.kv.data)
+            got = eng.kv.write_prefill(params, prompt, 1).clone()
+            want, _ = prefill_into_slot(
+                params, cfg, torch.as_tensor(prompt, device="cuda"), ref, 1)
+            assert torch.equal(got, want) and same(eng.kv.data, ref), S
+        tok = rng.integers(0, cfg.vocab, 4).astype(np.int32)
+        pos = np.array([20, 3, 9, 30], np.int32)
+        for _ in range(2):
+            ref = map_cache(torch.clone, eng.kv.data)
+            got = eng._decode_chunk.run(tok, pos).clone()
+            want = _decode_chunk_fn(cfg, 4)(
+                params, torch.as_tensor(tok[:, None], device="cuda"), ref,
+                torch.as_tensor(pos, device="cuda"))
+            assert torch.equal(got, want) and same(eng.kv.data, ref)
+            tok, pos = got[-1].cpu().numpy().astype(np.int32), pos + 4
+    assert runs[True] == runs[False]
+    assert all(len(t) == 8 for t in runs[True][0])
+    launches = runs[True][1]["launches"]
+    if fmt == "nmg":
+        for k in ("nmg_gemv", "nmg_qkv", "nmg_spmm"):
+            assert launches[k] > 0, (k, launches)
+        assert launches["nmg_ffn"] == 0, launches    # no mlp.wi
+    else:
+        assert not any(launches.values()), launches
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHES)
+def test_moe_router_is_full_f32_under_tf32(arch):
+    """With TF32 allowed for the whole process, the router's probabilities
+    (``route_log``) equal those with it off bit for bit and lie within
+    f32 rounding of a float64 product; the experts taken and the slots
+    kept are the same.  (The expert products follow the process's
+    setting, as the reference's einsums follow its default precision.)"""
+    _require_cuda()
+    from repro_torch.models import moe
+
+    cfg, params = _new_family(arch, "dense", dtype="float32")
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 40, cfg.d_model, generator=g, device="cuda")
+    runs = []
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with moe.route_log() as log:
+                moe.apply_moe(p, x, cfg)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        runs.append(log.calls[0])
+    c1, c2 = runs
+    for key in ("probs", "eidx", "keep"):
+        assert torch.equal(c1[key], c2[key]), key
+    want = torch.softmax(x.reshape(-1, cfg.d_model).double()
+                         @ p["router"].double(), -1)
+    torch.testing.assert_close(c1["probs"].double(), want, rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHES)
+def test_moe_kernels_match_plain_with_routes_pinned(arch, monkeypatch):
+    """f32 SMOKE, n:m:g 1:4:8 gr16 ``attn=True``: an admission of 20
+    tokens into slot 1 and 6 decode steps of both slots through the
+    plain versions with every MoE layer's experts recorded, then through
+    the kernels fed the same tokens with those experts pinned: logits
+    within rtol 1e-4, atol 1e-3 (f32 sums in another order), and every
+    pinned choice the kernels' own top-k but for near-ties (within 1e-5
+    in probability)."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_cache, moe, \
+        prefill_into_slot
+
+    cfg, params = _new_family(arch, "nmg", dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, 20), generator=g, device="cuda",
+                         dtype=torch.int32)
+
+    def run(feed=None):
+        cache = init_cache(cfg, 2, 40, device="cuda")
+        logits, _ = prefill_into_slot(params, cfg, toks, cache, 1)
+        outs, fed = [logits], []
+        tok = torch.stack([torch.zeros_like(logits[0, 0]).int(),
+                           logits[0].argmax().int()])[:, None]
+        for i in range(6):
+            if feed is not None:
+                tok = feed[i]
+            fed.append(tok)
+            logits, _ = decode_step(params, cfg, tok, cache, torch.tensor(
+                [i, 20 + i], device="cuda"))
+            outs.append(logits)
+            tok = logits.argmax(-1).int()[:, None]
+        return outs, fed
+
+    with monkeypatch.context() as m:
+        for mod, attr, plain in ops.KERNEL_WRAPPERS.values():
+            m.setattr(mod, attr, getattr(mod, plain))
+        with moe.route_log() as rec:
+            want, fed = run()
+    ops.reset_kernel_counters()
+    with moe.route_log(pin=rec.routes) as pin:
+        got, _ = run(fed)
+    launches = ops.counter_snapshot()["launches"]
+    for k in ("nmg_gemv", "nmg_qkv", "nmg_spmm"):
+        assert launches[k] > 0, (k, launches)
+    assert len(pin.calls) == len(rec.calls) == 7 * cfg.n_layers
+    for c in pin.calls:
+        taken = c["probs"].gather(1, c["eidx"]).min(1).values
+        others = c["probs"].scatter(1, c["eidx"], float("-inf")).max(1).values
+        assert bool((taken >= others - 1e-5).all())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)

@@ -43,7 +43,7 @@ from repro_torch.launch import serve as launch
 from repro_torch.launch import train as ttrain
 from repro_torch.models import decode_step, forward, init_cache, init_lm, \
     logits_of, prefill, prefill_into_slot
-from repro_torch.models.common import MLAConfig
+from repro_torch.models.common import MLAConfig, MoEConfig
 from repro_torch.models.transformer import cache_leaves
 from repro_torch.serve import Request, ServeEngine, sparsify_for_serving
 from repro_torch.serve.cache import SlotKVCache, _slot_prefill_fn
@@ -503,8 +503,13 @@ def test_configs_are_the_reference_s(arch):
     (dict(kv_cache_dtype="int8"), "kv_cache_dtype"),
     (dict(moe=object()), "moe"),
     (dict(ssm=object()), "ssm"),
+    (dict(moe=MoEConfig(impl="shmap")), "shmap"),
+    (dict(moe=MoEConfig(combine="scatter")), "scatter"),
 ])
 def test_check_ported_still_refuses_the_other_families(change, what):
+    """Families and strategies the port does not run: an untyped ``moe``
+    (not a ``MoEConfig``) and the expert-parallel MoE strategies among
+    them (a ``MoEConfig`` with the one-device defaults is ported)."""
     cfg = dataclasses.replace(get_smoke(MLA), **change)
     with pytest.raises(NotImplementedError, match=what):
         cfg.check_ported()
