@@ -16,8 +16,12 @@
    GEMV at K = 16384 and the SpMM at an image request's N = 288; at
    minicpm3-4b the silu FFN at [2560, 12800] and the GEMV at mlp.wo, K =
    6400, and attn.wo; at moonshot-v1-16b-a3b the GEMV and SpMM at
-   attn.wo [2048, 2048] and the fused QKV at R = 6144) and of the
-   training path (``nm_mask`` 2:4 on the stacked and per-layer
+   attn.wo [2048, 2048] and the fused QKV at R = 6144; at mamba2-370m the
+   GEMV and SpMM at ssm.in_proj [1024, 4384], whose rows pad to 4416 in
+   the layout, and ssm.out_proj [2048, 1024]; at hymba-1.5b the fused QKV
+   over 1600 + 320 + 320, the silu FFN at the packed [1600, 11008] wi,
+   the GEMV at attn.wo and mlp.wo, K = 5504, and the SpMM at both mlp
+   weights) and of the training path (``nm_mask`` 2:4 on the stacked and per-layer
    ``mlp.wo`` / ``attn.wo``, 16:32, 5:20, special values and a
    misaligned view, bitwise, each naming the body it took;
    ``matmul_threshold``
@@ -158,6 +162,29 @@
       the routes pinned must fail (2) and fall outside ``PIN_MARGIN``;
       (4) a 64-token admission's dropped slots per layer, each count the
       capacity rule's.
+   i. full-width, full-depth mamba2-370m (48 Mamba2 SSD layers, d_model
+      1024, state 128, heads of 64, chunk 256, vocab 50280; no attention,
+      no MLP) and hymba-1.5b (32 layers, each GQA 25/5 heads of 64 over a
+      2048-token window beside a Mamba2 mixer of state 16, mixed as (a +
+      s) / 2, gated silu d_ff 5504, vocab 32001), bf16, seeded random
+      weights, in a process of its own (``python3 chip_smoke.py --ssm``,
+      after (h)), through (d)'s sequence and the prefill phase (each
+      admission length replayed bitwise eager and timed); the n:m:g copy
+      of mamba2 converts ``ssm.in_proj`` / ``ssm.out_proj`` through a
+      ``SparsityBuilder`` plan (the serving globs match none of its
+      leaves), hymba's ``sparsify_for_serving(attn=True)`` (its mixer
+      stays dense).  The step's byte bound counts the recurrent state
+      (read and written once a step) beside the weights.  Then one long
+      request each through the graphs of a one-slot engine (mamba2 4096 +
+      32 tokens, 16 chunks of the scan; hymba 4160 + 32 at 4224 rows, past
+      its window, so its local layers attend over the window of a
+      full-length cache): the slot's state after a replayed admission
+      bitwise the classic prefill's, every step's logits held against a
+      teacher-forced full ``forward`` and the plain versions, and each
+      layer's mixer outputs (attention and SSM apart) at the last step
+      within 0.1 of the forward's RMS; controls that must fail that
+      check: the last step decoded from a zeroed ``ssm`` state, and
+      hymba's attention without its window.
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -188,7 +215,7 @@
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
    launches from its n:m:g run, and their launches on each n:m:g run of
-   (d), (e) and (h); training kernels at bert-base-sten training shapes with
+   (d), (e), (h) and (i); training kernels at bert-base-sten training shapes with
    launches from run (b)'s graph trainer),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Every ``torch.profiler`` session runs after all unprofiled timing
@@ -271,6 +298,21 @@ MODELS = {
     "moonshot": dict(shapes={"wq": (2048, 2048), "wo": (2048, 2048)},
                      gemv=("wo",), spmm=("wo",), spmm_n=(24, 32, 64),
                      ffn=None, decode_m=(4, 16)),
+    # mamba2-370m: n:m:g converts the mixer's projections (a builder plan
+    # on *ssm.in_proj / *ssm.out_proj); in_proj's 4384 rows pad to 4416
+    # in the layout and are cut back in the output
+    "mamba2": dict(shapes={"in_proj": (1024, 4384),
+                           "out_proj": (2048, 1024)},
+                   gemv=("in_proj", "out_proj"), spmm_n=(32,), ffn=None,
+                   decode_m=(4,)),
+    # hymba-1.5b: GQA 25/5 heads of 64 (q/k/v 1600 + 320 + 320), attn.wo,
+    # the silu FFN at the packed [1600, 11008] wi, mlp.wo K = 5504; its
+    # mixer stays dense (the serving globs match no ssm.* leaf)
+    "hymba": dict(shapes={"wq": (1600, 1600), "wo": (1600, 1600),
+                          "wi": (1600, 11008), "wo_ffn": (5504, 1600)},
+                  qkv=(1600, 320, 320), gemv=("wo", "wo_ffn"),
+                  spmm=("wo_ffn", "wi"), spmm_n=(32,), ffn="wi",
+                  act="silu", decode_m=(4,)),
 }
 DECODE_M = (1, 4, 8, 16)
 
@@ -1528,6 +1570,8 @@ FAMILY_RUNS = {
     # the CPU tests' gr16 format
     "--moe": ((("moonshot-v1-16b-a3b", False, 64), ("arctic-480b", True, 16)),
               "chip_smoke_moe.json"),
+    "--ssm": ((("mamba2-370m", False, 64), ("hymba-1.5b", False, 64)),
+              "chip_smoke_ssm.json"),
 }
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
@@ -1717,14 +1761,17 @@ def attn_rows(into: list, last: bool = True):
     """While inside, append to ``into`` every attention sublayer's output
     at the last position (before any post-norm), [B, D] in f32, in call
     order: a forward's (``apply_gqa`` / ``apply_mla``) last row, a decode
-    step's (``_decode_gqa_at`` / ``decode_mla``) row, one per layer; with
-    ``last`` false every position's, [B, S, D].  Python runs these only
+    step's (``_decode_gqa_at`` / ``decode_mla``) row, one per layer; an
+    SSM mixer's (``apply_ssm`` / ``decode_ssm``) likewise, after its
+    layer's attention in a hybrid layer; with ``last`` false every
+    position's, [B, S, D].  Python runs these only
     in eager programs: a graph replay records nothing."""
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, ssm, transformer
 
     hooks = ((attention, "apply_gqa", 0), (attention, "apply_mla", 0),
              (attention, "decode_mla", None),
-             (transformer, "_decode_gqa_at", None))
+             (transformer, "_decode_gqa_at", None),
+             (ssm, "apply_ssm", 0), (ssm, "decode_ssm", 0))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
 
     def recorder(fn, part):
@@ -1937,6 +1984,202 @@ def latent_phase(cfg, params) -> dict:
 
     return long_request(cfg, params, "minicpm3_latent", LATENT_PROMPT,
                         fault=drop_rope)
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: mamba2-370m and hymba-1.5b (the SSM mixer, recurrent state)
+# ---------------------------------------------------------------------------
+
+#: each SSM model's long request: prompt tokens and the engine's cache
+#: rows (LONG_NEW new tokens).  mamba2's prompt spans 16 chunks of the
+#: 256-step scan; hymba's 17, and with 4224 rows against its window of
+#: 2048 its local layers write at the position and attend over the window
+#: (the non-ring path)
+SSM_LONG = {"mamba2-370m": (4096, 4096 + LONG_NEW),
+            "hymba-1.5b": (4160, 4224)}
+
+
+def ssm_sparsify(params, gr: int):
+    """mamba2's n:m:g copy: 1:4:8 with ``gr`` group rows on the mixer's
+    ``in_proj`` and ``out_proj`` through a ``SparsityBuilder`` plan (the
+    serving globs, ``*mlp.*`` / ``*attn.*``, match no leaf of an
+    attention-free model)."""
+    from repro_torch.core.builder import SparsityBuilder
+    from repro_torch.core.layouts import GroupedNMTensor
+    from repro_torch.core.sparsifiers import GroupedNMSparsifier
+
+    sb = SparsityBuilder()
+    sp = GroupedNMSparsifier(1, 4, 8, gr, sparse_dim=0)
+    sb.set_weight("*ssm.in_proj", sp, GroupedNMTensor)
+    sb.set_weight("*ssm.out_proj", sp, GroupedNMTensor)
+    return sb.sparsify_params(params)
+
+
+def ssm_state_bytes(cfg, slots: int) -> int:
+    """Bytes of the recurrent state of ``slots`` slots (every layer's
+    ``conv`` and ``ssm`` leaves; 0 without an SSM): a decode step reads
+    it and writes it once.  A size from the config, not a measurement."""
+    from repro_torch.models import init_cache
+    from repro_torch.models.transformer import cache_leaves
+
+    if cfg.ssm is None:
+        return 0
+    st = init_cache(cfg, slots, 2, device="meta")["ssm_state"]
+    return sum(t.numel() * t.element_size() for t in cache_leaves(st))
+
+
+def ssm_long_request(cfg, params, label) -> dict:
+    """The model's long request (:data:`SSM_LONG`) in a one-slot engine,
+    warmed with the request itself (its admission's capture), then served
+    replayed.  Checks, each against bounds fixed here:
+
+    - the slot's ``conv`` / ``ssm`` state right after an admission (a
+      replay of the captured program) bitwise an eager classic
+      ``prefill``'s;
+    - the same tokens fed through eager ``prefill_into_slot`` and
+      ``decode_step`` on a fresh cache give the engine's stream; every
+      step's logits (the admission's and each decode step's) held by
+      :func:`hold_logits` against one teacher-forced ``forward`` over the
+      prompt and the fed tokens, and against the same steps through the
+      plain versions;
+    - the last step's mixer outputs (:func:`attn_rows`: attention and SSM
+      apart in a hybrid layer) each within :data:`ATTN_TOL` of the full
+      forward's (:func:`attn_gap`).
+
+    Controls, each of which must fail the per-layer check: the last step
+    decoded from a zeroed ``ssm`` state, and for hymba the last step's
+    attention without its window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, forward, init_cache, \
+        logits_of, prefill, prefill_into_slot
+    from repro_torch.serve import Request, ServeEngine, warmup_engine
+
+    prompt_len, rows = SSM_LONG[cfg.name]
+    new = LONG_NEW
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab, prompt_len,
+                                               dtype=np.int32)
+    prompt_d = torch.as_tensor(prompt[None], device="cuda")
+    res = {"label": label, "prompt": prompt_len, "new_tokens": new,
+           "cache_rows": rows}
+
+    def trace():
+        return [Request(uid=0, prompt=prompt, max_new_tokens=new)]
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, max_slots=1, max_seq_len=rows,
+                      decode_chunk=8, device="cuda")
+    t0 = time.perf_counter()
+    warmup_engine(eng, trace())
+    res["warmup_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    (out,) = eng.run(trace())
+    torch.cuda.synchronize()
+    res["counts"] = read_counts()
+    tokens = out.tokens
+    assert len(tokens) == new and out.finish_reason == "length"
+    g = eng.kv.prefill_graphs[prompt_len]
+    assert g.info["captured"] and g.info["replays"] == 1, g.info
+    assert eng._decode_chunk.info["captured"]
+    res.update(metrics=eng.metrics(label=label).to_dict(),
+               admission_graph=dict(g.info),
+               chunk_graph=dict(eng._decode_chunk.info),
+               serve_peak_gb=_gb_peak())
+    eng.kv.write_prefill(params, prompt[None], 0)
+    _, ref = prefill(params, cfg, prompt_d, cache_len=rows)
+    st, want = eng.kv.data["ssm_state"], ref["ssm_state"]
+    res["state_vs_classic_prefill"] = {
+        name: {"bitwise": torch.equal(st[name], want[name]),
+               "max_abs_err": (st[name].float() - want[name].float())
+               .abs().max().item()} for name in st}
+    assert all(v["bitwise"] for v in res["state_vs_classic_prefill"]
+               .values()), res["state_vs_classic_prefill"]
+    del eng, g, ref, st, want
+    torch.cuda.empty_cache()
+
+    def steps(record=None, edit=None, last_cfg=None):
+        """The request fed eagerly on a fresh cache: every step's logits
+        (the admission's first) and the stream; ``record`` gets the last
+        step's mixer rows, ``edit`` the cache before that step, which
+        runs under ``last_cfg`` if given."""
+        cache = init_cache(cfg, 1, rows, device="cuda")
+        logits, _ = prefill_into_slot(params, cfg, prompt_d, cache, 0)
+        outs, stream = [logits.float()], [int(logits.argmax(-1))]
+        for i in range(new - 1):
+            last = i == new - 2
+            if last and edit is not None:
+                edit(cache)
+            c = last_cfg if last and last_cfg is not None else cfg
+            with attn_rows(record) if last and record is not None \
+                    else contextlib.nullcontext():
+                logits, _ = decode_step(
+                    params, c, torch.tensor([[tokens[i]]], device="cuda"),
+                    cache, torch.tensor([prompt_len + i], device="cuda"))
+            outs.append(logits.float())
+            stream.append(int(logits.argmax(-1)))
+        return outs, stream
+
+    got_rows, full_rows = [], []
+    got, stream = steps(got_rows)
+    assert stream == tokens, f"{label}: eager steps and the engine differ"
+    fed = torch.as_tensor(np.concatenate(
+        [prompt, np.asarray(tokens[:-1], np.int32)])[None], device="cuda")
+    with attn_rows(full_rows):
+        hidden = forward(params, cfg, fed)
+    full = logits_of(params, cfg, hidden[:, prompt_len - 1:])[0].float()
+    del hidden
+    assert full.shape[0] == len(got) == new
+    teacher = [(gl, full[i:i + 1]) for i, gl in enumerate(got)]
+    res["vs_full_forward"] = {"logits": hold_logits(teacher),
+                              "attn": attn_gap(got_rows, full_rows)}
+    assert check_ok(res["vs_full_forward"]), (label, res["vs_full_forward"])
+    with plain_versions():
+        plain, _ = steps()
+    res["vs_plain"] = hold_logits(list(zip(got, plain)))
+
+    def zero_ssm(cache):
+        cache["ssm_state"]["ssm"].zero_()
+
+    controls = {"zeroed_ssm_state": dict(edit=zero_ssm)}
+    if cfg.attn_type == "hybrid":
+        # a window wider than the cache: the decode layer takes its cache
+        # for a ring and attends over every row written
+        controls["no_window"] = dict(
+            last_cfg=dataclasses.replace(cfg, local_window=10 ** 9))
+    res["controls"] = {}
+    for name, kw in controls.items():
+        bad_rows = []
+        bad, _ = steps(bad_rows, **kw)
+        c = res["controls"][name] = {
+            "logits": logit_stats([(bad[-1], full[-1:])]),
+            "attn": attn_gap(bad_rows, full_rows)}
+        c["weak"] = check_ok(c)
+        assert not c["weak"], (label, name, c)
+    return res
+
+
+def report_ssm_long(label, r, card) -> None:
+    m, ag, chk = r["metrics"], r["admission_graph"], r["vs_full_forward"]
+    print(f"{label} long request on {card}: {r['prompt']} + "
+          f"{r['new_tokens']} tokens, cache {r['cache_rows']} rows; TTFT "
+          f"{m['ttft_p50'] * 1e3:.3f} ms (replayed admission), per-token "
+          f"p50 {m['tok_latency_p50'] * 1e3:.3f} ms; admission capture "
+          f"{ag['capture_ms']:.1f} ms + instantiate "
+          f"{ag['instantiate_ms']:.1f} ms, pool "
+          f"{ag['pool_bytes'] / 2**20:.1f} MiB; peak "
+          f"{r['serve_peak_gb']:.2f} GB; state after admission vs classic "
+          f"prefill {r['state_vs_classic_prefill']}; every step's logits "
+          f"vs teacher-forced forward {chk['logits']}, mixer rows "
+          f"{chk['attn']}; vs plain {r['vs_plain']}; controls "
+          + "; ".join(f"{k}: logits {c['logits']}, mixer rows "
+                      f"{c['attn']['max_rel_rms_err']:.4f} with "
+                      f"{c['attn']['layers_over']} of "
+                      f"{len(c['attn']['per_layer'])} over "
+                      f"({'weak' if c['weak'] else 'fails as it must'})"
+                      for k, c in r["controls"].items())
+          + f"; launches {r['counts']}", flush=True)
 
 
 #: (1) of the MoE checks: fed the plain run's input to a layer, the
@@ -2344,16 +2587,19 @@ def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
     replay's CUDA-event span as its device time: no profiler session runs
     in this process), the n:m:g logits held against the plain versions
     (:func:`logit_parity`), and for gemma2 :func:`window_phase`, for
-    paligemma :func:`prefix_phase`, for minicpm3 :func:`latent_phase`.
-    A MoE model (moonshot; arctic at SMOKE) also runs :func:`prefill_phase`
+    paligemma :func:`prefix_phase`, for minicpm3 :func:`latent_phase`,
+    for an SSM model :func:`ssm_long_request`.
+    A MoE or SSM model also runs :func:`prefill_phase`
     without profiles (each admission length replayed bitwise eager, its
-    wall, dense and n:m:g) and its logits are held by :func:`moe_phase`
-    in place of :func:`logit_parity` (near-ties in the router make two
-    runs take other experts somewhere in 48 layers).  n:m:g converts a
-    MoE model's attention alone (``sparsify_for_serving``'s globs match
-    no expert).  Beside per-token p50 stands the step's byte bound: the
-    weights one decode step reads (:func:`step_weight_bytes`) at 3.35
-    TB/s."""
+    wall, dense and n:m:g), and a MoE model's logits are held by
+    :func:`moe_phase` in place of :func:`logit_parity` (near-ties in the
+    router make two runs take other experts somewhere in 48 layers).
+    n:m:g converts a MoE model's attention alone (``sparsify_for_serving``'s
+    globs match no expert), an attention-free model's mixer projections
+    (:func:`ssm_sparsify`).  Beside per-token p50 stands the step's byte
+    bound: the weights one decode step reads (:func:`step_weight_bytes`)
+    and twice the recurrent state (:func:`ssm_state_bytes`: read and
+    written) at 3.35 TB/s."""
     import torch
 
     from repro_torch.configs import get_config, get_smoke
@@ -2374,12 +2620,15 @@ def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
            "param_gb": torch.cuda.memory_allocated() / 1e9}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sparse = sparsify_for_serving(params, 1, 4, 8, gr=gr, attn=True)
+    sparse = (ssm_sparsify(params, gr) if cfg.attn_type == "none" else
+              sparsify_for_serving(params, 1, 4, 8, gr=gr, attn=True))
     torch.cuda.synchronize()
     res.update(convert_s=time.perf_counter() - t0, gr=gr,
                convert_peak_gb=_gb_peak(),
                step_bytes={"dense": step_weight_bytes(params),
-                           "sparse": step_weight_bytes(sparse)})
+                           "sparse": step_weight_bytes(sparse),
+                           "state": ssm_state_bytes(
+                               cfg, ENGINE_KW["max_slots"])})
     print(f"{label} on {card}: init {res['init_s']:.2f} s, peak "
           f"{res['init_peak_gb']:.2f} GB ({res['param_gb']:.2f} GB of "
           f"params); n:m:g conversion {res['convert_s']:.2f} s, peak "
@@ -2390,14 +2639,15 @@ def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
     runs = [serve_phase(cfg, params, f"{short}_dense")]
     graphs = [graph_phase(cfg, params, f"{short}_dense", profile=False)]
     prefills = []
-    if cfg.moe is not None:
+    timed_admissions = cfg.moe is not None or cfg.ssm is not None
+    if timed_admissions:
         prefills.append(prefill_phase(cfg, params, f"{short}_dense",
                                       profile=False))
     del params                 # the n:m:g copy is served alone
     torch.cuda.empty_cache()
     runs.append(serve_phase(cfg, sparse, f"{short}_sparse"))
     graphs.append(graph_phase(cfg, sparse, f"{short}_sparse", profile=False))
-    if cfg.moe is not None:
+    if timed_admissions:
         prefills.append(prefill_phase(cfg, sparse, f"{short}_sparse",
                                       profile=False))
     res["serve_peak_gb"] = _gb_peak()
@@ -2405,20 +2655,25 @@ def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
     assert all(dc[k] == 0 for k in KERNELS), dc
     for k in ("nmg_gemv", "nmg_spmm"):
         assert sc[k] > 0, f"{k} never launched on the {label} n:m:g path"
-    # a GQA model's q/k/v take the fused launch; MLA has no q/k/v group
-    # (its latent projections stay dense)
-    gqa = cfg.attn_type == "gqa"
+    # a GQA (or hybrid) model's q/k/v take the fused launch; MLA has no
+    # q/k/v group (its latent projections stay dense), mamba2 no attention
+    gqa = cfg.attn_type in ("gqa", "hybrid")
     assert (sc["nmg_qkv"] > 0) == gqa, (arch, sc)
-    # a MoE layer has no mlp.wi: no fused FFN
-    assert (sc["nmg_ffn"] > 0) == (cfg.gated_mlp and cfg.moe is None), sc
+    # a MoE layer has no mlp.wi, a pure SSM layer no MLP: no fused FFN
+    has_mlp = cfg.moe is None and cfg.attn_type != "none"
+    assert (sc["nmg_ffn"] > 0) == (cfg.gated_mlp and has_mlp), sc
     report_runs(runs, card)
+    state = res["step_bytes"]["state"]
     for r in runs:
         kind = r["label"].rsplit("_", 1)[1]
-        r["step_bound_ms"] = res["step_bytes"][kind] / HBM_BYTES_PER_S * 1e3
+        # an SSM step reads and writes its recurrent state once
+        r["step_bound_ms"] = ((res["step_bytes"][kind] + 2 * state)
+                              / HBM_BYTES_PER_S * 1e3)
         print(f"serve[{r['label']}] on {card}: per-token p50 "
               f"{r['metrics']['tok_latency_p50'] * 1e3:.3f} ms (graphs), "
               f"weights read a decode step {res['step_bytes'][kind] / 1e9:.2f}"
-              f" GB, byte bound {r['step_bound_ms']:.3f} ms at 3.35 TB/s")
+              f" GB, state read and written {state / 1e9:.3f} GB each, "
+              f"byte bound {r['step_bound_ms']:.3f} ms at 3.35 TB/s")
     for p in graphs:
         cg = p["chunk_graph"]
         print(f"decode chunk[{p['label']}] on {card}: 8 steps at 4 slots, "
@@ -2458,6 +2713,9 @@ def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
               f"{w['vs_full_forward']}, vs plain {w['vs_plain']}; cache "
               f"rows vs classic prefill {w['rows_vs_prefill']}; controls "
               f"{w['controls']}", flush=True)
+    if cfg.ssm is not None:
+        r = res["long"] = ssm_long_request(cfg, sparse, f"{short}_long")
+        report_ssm_long(label, r, card)
     requests = {}
     if cfg.vision_prefix:
         requests["prefix"] = prefix_phase
@@ -2555,8 +2813,8 @@ def report_moe(arch, r, card) -> None:
 
 
 def families_child(flag: str) -> int:
-    """Phase 3d (``python3 chip_smoke.py --families``) or 3e (``--vlm-mla``)
-    in its own process, started by :func:`main`: the earlier phases'
+    """Phase 3d (``python3 chip_smoke.py --families``), 3e
+    (``--vlm-mla``), 3h (``--moe``) or 3i (``--ssm``) in its own process, started by :func:`main`: the earlier phases'
     params, graphs, pools and profiler sessions are not in it.  Writes its
     results to ``chiprun_out/`` under the flag's file name
     (:data:`FAMILY_RUNS`)."""
@@ -3935,6 +4193,9 @@ def main() -> int:
     # moonshot's widths, from a generator of their own as well
     cases += kernel_phase(torch.Generator(device="cuda").manual_seed(26),
                           "moonshot")
+    # mamba2's and hymba's widths, from a generator of their own too
+    gen_i = torch.Generator(device="cuda").manual_seed(27)
+    cases += kernel_phase(gen_i, "mamba2") + kernel_phase(gen_i, "hymba")
     print(f"kernel phase: {len(cases)} cases within bounds ({card})")
     for c in cases:
         lib = ("none" if c["library_ms"] is None
@@ -4049,9 +4310,11 @@ def main() -> int:
     vlm = run_families("--vlm-mla", 600)
     # (h) moonshot-v1-16b-a3b at full width and arctic-480b at SMOKE
     moe = run_families("--moe", 600)
-    fam_counts = {r["label"]: r["counts"]
-                  for f in fam["families"] + vlm["families"]
-                  + moe["families"]
+    # (i) mamba2-370m and hymba-1.5b, recurrent state, in another process
+    ssm = run_families("--ssm", 500)
+    all_fams = (fam["families"] + vlm["families"] + moe["families"]
+                + ssm["families"])
+    fam_counts = {r["label"]: r["counts"] for f in all_fams
                   for r in f["runs"] if r["label"].endswith("_sparse")}
     for r in tune["serve"]:
         report_tuned(r, card)
@@ -4114,7 +4377,7 @@ def main() -> int:
         "train_margins": margins,
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
-        "moe": moe,
+        "moe": moe, "ssm": ssm,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -4186,6 +4449,7 @@ def main() -> int:
                 for r in f["runs"]},
             "step_bound_ms": {r["label"]: round(r["step_bound_ms"], 4)
                               for r in f["runs"]},
+            "step_bytes": f["step_bytes"],
             "chunk_ms": {p["label"]: {
                 "eager": round(p["eager_wall_ms"], 3),
                 "replay": round(p["replay_wall_ms"], 3),
@@ -4258,8 +4522,30 @@ def main() -> int:
                 "admission_ms": {p["label"]: {
                     r["S"]: round(r["replay_wall_ms"], 3)
                     for r in p["lens"]} for p in f["prefill"]}}}
-               if "moe" in f else {})}
-            for f in fam["families"] + vlm["families"] + moe["families"]},
+               if "moe" in f else {}),
+            **({"long": {
+                "ttft_ms": round(f["long"]["metrics"]["ttft_p50"] * 1e3, 3),
+                "tok_p50_ms": round(
+                    f["long"]["metrics"]["tok_latency_p50"] * 1e3, 4),
+                "state_bitwise": all(
+                    v["bitwise"] for v in
+                    f["long"]["state_vs_classic_prefill"].values()),
+                "logit_err": f["long"]["vs_full_forward"]["logits"][
+                    "max_abs_err"],
+                "logit_tol": f["long"]["vs_full_forward"]["logits"]["tol"],
+                "mixer_rel_err": f["long"]["vs_full_forward"]["attn"][
+                    "max_rel_rms_err"],
+                "vs_plain": f["long"]["vs_plain"]["max_abs_err"],
+                "controls": {k: {
+                    "mixer_rel_err": c["attn"]["max_rel_rms_err"],
+                    "layers_over": c["attn"]["layers_over"],
+                    "logits_ok": c["logits"]["ok"], "weak": c["weak"]}
+                    for k, c in f["long"]["controls"].items()},
+                "admission_ms": {p["label"]: {
+                    r["S"]: round(r["replay_wall_ms"], 3)
+                    for r in p["lens"]} for p in f["prefill"]}}}
+               if "long" in f else {})}
+            for f in all_fams},
         "tuning": {
             "wall_s": round(tune["wall_s"], 1),
             "crossover": {f"{r['model']}.{r['weight']}": {

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the wall time of a replayed decode chunk goes, on the card.
 
-    python3 scripts/graph_gaps.py [--arch bert-base-sten|qwen1.5-4b]
-        [--reps 10]
+    python3 scripts/graph_gaps.py [--arch bert-base-sten|qwen1.5-4b|
+        mamba2-370m|hymba-1.5b] [--reps 10]
 
 For each served configuration of the architecture (bert-base-sten: dense,
 n:m:g 1:4:8 gr64 on the FFN, gr64 and gr16 with ``attn=True``;
-qwen1.5-4b: dense and gr64 with ``attn=True``), at full width with
-seeded random weights, the engine's 8-step chunk program at 4 slots
+qwen1.5-4b and hymba-1.5b: dense and gr64 with ``attn=True``;
+mamba2-370m: dense and gr64 on its mixer's projections,
+``chip_smoke.py:ssm_sparsify``), at full width with seeded random
+weights, the engine's 8-step chunk program at 4 slots
 (``serve/graphs.py:DecodeGraph``) is captured and then replayed:
 
 - host phases of one ``DecodeGraph.run`` plus the token fetch (medians
@@ -18,8 +20,8 @@ seeded random weights, the engine's 8-step chunk program at 4 slots
   from the first kernel's start to the last one's end, and the idle time
   between consecutive kernels, in total and by the kind of kernel that
   follows the gap (the port's CUDA kernels, cuBLAS, PyTorch's own), with
-  the largest gaps; then the host phases again, after that profiler
-  session.
+  the largest gaps, and the kernels that take the most busy time, by
+  name; then the host phases again, after that profiler session.
 
 With ``--launch-cost`` it instead times the host's ``cudaGraphLaunch``
 of graphs of 256 launches of one kind: the decode GEMV (bf16, 1:4:8
@@ -43,6 +45,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 
 def kind_of(name: str) -> str:
@@ -83,16 +86,21 @@ def gaps(tl: list) -> dict:
         by_kind[k] = by_kind.get(k, 0.0) + gap
         top.append((gap, name[:60]))
         end = max(end, e)
-    counts = {}
-    for _, _, name in tl:
+    counts, by_name = {}, {}
+    for s, e, name in tl:
         counts[kind_of(name)] = counts.get(kind_of(name), 0) + 1
+        n, us = by_name.get(name[:60], (0, 0.0))
+        by_name[name[:60]] = (n + 1, us + e - s)
     top.sort(reverse=True)
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"kernels": len(tl), "kernels_by_kind": counts,
             "busy_ms": busy / 1e3, "span_ms": span / 1e3,
             "idle_ms": idle / 1e3,
             "idle_before_ms": {k: v / 1e3 for k, v in by_kind.items()},
             "idle_us_per_kernel": idle / max(1, len(tl) - 1),
-            "largest_gaps_us": [(round(g, 2), n) for g, n in top[:6]]}
+            "largest_gaps_us": [(round(g, 2), n) for g, n in top[:6]],
+            "top_kernels": [{"name": n, "count": c, "busy_ms": us / 1e3}
+                            for n, (c, us) in heavy]}
 
 
 def measure(cfg, params, label: str, reps: int) -> dict:
@@ -226,6 +234,11 @@ def configs(arch: str):
     cfg = get_config(arch)
     params = init_lm(cfg, seed=0, device="cuda")
     yield cfg, params, "dense"
+    if cfg.attn_type == "none":
+        from chip_smoke import ssm_sparsify
+
+        yield cfg, ssm_sparsify(params, 64), "sparse_ssm"
+        return
     if arch == "bert-base-sten":
         yield cfg, sparsify_for_serving(params, 1, 4, 8, gr=64), "sparse_ffn"
     yield cfg, sparsify_for_serving(params, 1, 4, 8, gr=64, attn=True), \
@@ -242,7 +255,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="bert-base-sten",
-                    choices=["bert-base-sten", "qwen1.5-4b"])
+                    choices=["bert-base-sten", "qwen1.5-4b", "mamba2-370m",
+                             "hymba-1.5b"])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--launch-cost", action="store_true")
     args = ap.parse_args(argv)
@@ -275,7 +289,10 @@ def main(argv=None) -> int:
               f"{t['idle_ms']:.3f} ({t['idle_us_per_kernel']:.2f} us a "
               f"kernel; before " + ", ".join(
                   f"{k} {v:.3f}" for k, v in t["idle_before_ms"].items())
-              + f"); largest gaps {t['largest_gaps_us'][:3]}")
+              + f"); largest gaps {t['largest_gaps_us'][:3]}; most busy "
+              + ", ".join(f"{k['name'][:40]} x{k['count']} "
+                          f"{k['busy_ms']:.3f} ms"
+                          for k in t["top_kernels"][:5]))
         a = r["phases_after_profile_ms"]
         print(f"    after its profiler session: wall {a['wall']:.3f} ms, "
               f"enqueue {a['enqueue']:.3f}, event span "

@@ -11,6 +11,8 @@ by side.
     python -m repro_torch.launch.serve --arch paligemma-3b --engine --sparse
     python -m repro_torch.launch.serve --arch minicpm3-4b --engine --sparse
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --engine
+    python -m repro_torch.launch.serve --arch mamba2-370m --engine
+    python -m repro_torch.launch.serve --arch hymba-1.5b --engine --sparse
 
 runs on the card (gemma2-9b's local layers keep a ring cache of its
 4096-token window, so ``--prompt-len`` may exceed it; paligemma-3b's
@@ -19,7 +21,12 @@ through ``prefill_into_slot(prefix_embeds=)``, not the engine; minicpm3-4b
 caches MLA's compressed latent; for a MoE model, moonshot-v1-16b-a3b or
 arctic-480b at ``--smoke``, ``--sparse`` serves a copy with nothing
 converted, as the reference's does: its conversion leaves attention
-dense and no glob matches an expert); ``--device cpu``
+dense and no glob matches an expert; likewise for mamba2-370m, whose
+layers hold no ``attn`` or ``mlp`` leaf; hymba-1.5b's ``--sparse``
+converts its attention and MLP, not its SSM mixer, and its all-local
+layers keep a full-length cache attended over the 2048-token window;
+an SSM model serves prompts of at least its ``conv_width - 1`` = 3
+tokens); ``--device cpu``
 runs the plain versions on the CPU (with ``--smoke`` for a size the CPU
 can take).  ``--tuning-table PATH``
 (or ``$REPRO_TUNE_TABLE``) routes through a table of ``python -m

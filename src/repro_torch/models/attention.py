@@ -107,11 +107,14 @@ def chunked_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Single-token decode: q [B, 1, H, hd]; caches [B, S, KV, hd];
     ``cache_len`` [] or [B] valid length(s), the new token included;
-    ``softcap`` as in :func:`chunked_attention`.  A local layer's window
-    is its ring's length (``models/transformer.py:init_cache``)."""
+    ``softcap`` as in :func:`chunked_attention`.  ``window``: only the
+    last ``window`` valid rows are attended (a local layer over a
+    full-length cache); a ring's window is its length
+    (``models/transformer.py:init_cache``)."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -125,6 +128,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if cl.ndim == 1:
         cl = cl[:, None, None, None]
     valid = pos[None, None, None, :] < cl
+    if window is not None:
+        valid &= pos[None, None, None, :] > (cl - 1 - window)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())

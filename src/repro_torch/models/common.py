@@ -2,17 +2,20 @@
 ``repro/models/common.py``).
 
 ``ModelConfig`` is a copy of the reference's dataclass, field for field.
-``MLAConfig`` and ``MoEConfig`` are the reference's too.  The port runs
-its decoder subset: GQA or MLA (multi-head latent) attention, plain or
-gated MLP or a mixture of experts (``models/moe.py``, one device: the
-``pjit`` implementation with the ``gather`` or ``replicated`` combine),
-with or without QKV bias and the MLP's inline threshold, global layers or
-alternating local/global layer pairs with a sliding window, attention and
-logit softcaps, post-norms, a tied or separate head, and a prefix of
-precomputed embeddings under a prefix-LM mask (the VLM stub frontend).
-:meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
-other families (SSM, hybrid, enc-dec, int8 KV cache) and for the
-expert-parallel MoE strategies (``impl="shmap"``, ``combine="scatter"``).
+``MLAConfig``, ``MoEConfig`` and ``SSMConfig`` are the reference's too.
+The port runs its decoder subset: GQA or MLA (multi-head latent)
+attention, a Mamba2 SSD mixer alone (``attn_type "none"``) or beside GQA
+attention (``"hybrid"``, hymba; ``models/ssm.py``), plain or gated MLP or
+a mixture of experts (``models/moe.py``, one device: the ``pjit``
+implementation with the ``gather`` or ``replicated`` combine), with or
+without QKV bias and the MLP's inline threshold, global layers, all-local
+layers or alternating local/global layer pairs with a sliding window,
+attention and logit softcaps, post-norms, a tied or separate head, and a
+prefix of precomputed embeddings under a prefix-LM mask (the VLM stub
+frontend).  :meth:`ModelConfig.check_ported` raises
+``NotImplementedError`` for the other families (enc-dec, int8 KV cache)
+and for the expert-parallel MoE strategies (``impl="shmap"``,
+``combine="scatter"``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from repro_torch.core.layouts import DenseTensor, GroupedNMTensor, \
     SparsityLayout
 
-__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "mm", "mm_fused_qkv",
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "mm", "mm_fused_qkv",
            "mm_gated", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -127,6 +130,22 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+    acc_dtype: str = "float32"   # SSD intra-chunk product dtype
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     vocab: int = 32000
@@ -149,7 +168,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    ssm: Optional[object] = None
+    ssm: Optional[SSMConfig] = None
     n_enc_layers: int = 0
     vision_prefix: int = 0
     attn_chunk_q: int = 512
@@ -178,17 +197,20 @@ class ModelConfig:
         "mla"`` with an ``MLAConfig``), plain or gated MLP or a
         ``MoEConfig`` mixture of experts (``impl="pjit"`` with the
         ``gather`` or ``replicated`` combine, which on one device are the
-        same computation), optional QKV bias and MLP inline threshold,
-        global layers or local/global pairs (``alt_local_global`` with
-        ``local_window``, an even layer count), softcaps, post-norms, a
-        VLM prefix (``vision_prefix`` precomputed embeddings); no
-        SSM/hybrid/enc-dec/int8 KV.  ``impl="shmap"`` and
+        same computation), a Mamba2 mixer alone or beside GQA attention
+        (``attn_type "none"`` / ``"hybrid"`` with an ``SSMConfig``),
+        optional QKV bias and MLP inline threshold, global layers,
+        all-local layers (``local`` with ``local_window``) or
+        local/global pairs (``alt_local_global`` with ``local_window``,
+        an even layer count), softcaps, post-norms, a VLM prefix
+        (``vision_prefix`` precomputed embeddings); no enc-dec or int8
+        KV.  ``impl="shmap"`` and
         ``combine="scatter"`` are expert-parallel sharding strategies:
         they wait for distribution."""
         moe = self.moe
         unported = {
-            "attn_type not in ('gqa', 'mla')":
-                self.attn_type not in ("gqa", "mla"),
+            "attn_type not in ('gqa', 'mla', 'none', 'hybrid')":
+                self.attn_type not in ("gqa", "mla", "none", "hybrid"),
             "mla without an MLAConfig":
                 self.attn_type == "mla" and self.mla is None,
             "moe without a MoEConfig":
@@ -198,8 +220,13 @@ class ModelConfig:
             "moe combine 'scatter' (an expert-parallel combine)":
                 isinstance(moe, MoEConfig)
                 and moe.combine not in ("gather", "replicated"),
-            "ssm": self.ssm is not None,
-            "layer_pattern 'local'": self.layer_pattern == "local",
+            "ssm without an SSMConfig":
+                self.ssm is not None and not isinstance(self.ssm, SSMConfig),
+            "attn_type 'none' / 'hybrid' without an SSMConfig":
+                self.attn_type in ("none", "hybrid")
+                and not isinstance(self.ssm, SSMConfig),
+            "layer_pattern 'local' without local_window":
+                self.layer_pattern == "local" and self.local_window is None,
             "local/global pairs without local_window or of odd depth":
                 self.layer_pattern == "alt_local_global"
                 and (self.local_window is None or self.n_layers % 2),

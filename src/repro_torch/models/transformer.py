@@ -1,6 +1,7 @@
-"""The ported LM stack: a decoder with GQA or MLA attention and a plain
-or gated MLP or a mixture of experts, optionally behind a prefix of
-precomputed embeddings (port of the dense decoder, MoE and VLM-prefix
+"""The ported LM stack: a decoder with GQA or MLA attention, a Mamba2
+SSD mixer (``models/ssm.py``) or both side by side, and a plain or gated
+MLP or a mixture of experts, optionally behind a prefix of precomputed
+embeddings (port of the dense decoder, MoE, SSM, hybrid and VLM-prefix
 paths of ``repro/models/transformer.py``).
 
 Params are nested dicts with the reference's layout: layer leaves are
@@ -21,7 +22,11 @@ minicpm3) caches the compressed latent ``{"ckv", "kr"}`` in place of
 with ``cfg.moe`` (moonshot, arctic) holds a ``moe`` subtree in place of
 ``mlp`` in every layer (``models/moe.py``); ``forward(with_aux=True)``
 and ``loss_fn`` sum its per-layer auxiliary loss as the reference's
-layer scan does.  Any projection may be a ``GroupedNMTensor`` (``mm``
+layer scan does.  ``attn_type "none"`` (mamba2) gives each layer an
+``ssm`` mixer in place of attention and no MLP; ``"hybrid"`` (hymba) an
+``ssm`` beside GQA attention on the same normed input, mixed as ``(a +
+s) * 0.5``.  With ``layer_pattern "local"`` every layer attends over
+``local_window`` keys.  Any projection may be a ``GroupedNMTensor`` (``mm``
 routes it through the n:m:g kernels) or another layout
 (``FixedMaskTensor`` in masked training; ``NMTensor`` and
 ``DenseTensor`` through the dispatcher's lossless conversions).  The reference's three intermediate tag sites
@@ -36,7 +41,8 @@ are autograd-safe (the training path); remat is not ported.
 The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]; for a pair layout
 ``{"local": {"k", "v"}, "global": {...}}`` on [L/2], the local leaves a
 ring of ``min(S, local_window)`` rows; for MLA ``{"ckv" [L, B, S, r],
-"kr" [L, B, S, rd]}``) is updated **in place**
+"kr" [L, B, S, rd]}``; an SSM's recurrent state ``{"ssm_state":
+{"conv", "ssm"}}``, which has no sequence axis) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
 array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
 cache for the reference's calling convention.  The serving engine's decode
@@ -44,7 +50,9 @@ and admission graphs (``serve/graphs.py``) replay against these very
 tensors, so no path may reallocate them, and neither the decode step
 nor slot prefill reads anything from the host (positions, slot and
 write offset may be device tensors).  A ring leaf takes position ``p`` at
-row ``p % S_cache``.  Decode writes past the end of a full-length leaf
+row ``p % S_cache``; a state leaf is overwritten whole (the decode step
+copies the new state into it, an admission writes its slot's).  Decode
+writes past the end of a full-length leaf
 are clamped onto its last row where the reference drops them: only a
 slot that already finished writes there (its tokens are discarded on the
 host), and a later occupant rewrites every row before reading it.
@@ -52,6 +60,7 @@ host), and a later occupant rewrites every row before reading it.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -64,6 +73,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig, mm, mm_gated
 
 __all__ = ["init_lm", "forward", "logits_of", "loss_fn", "init_cache",
@@ -119,19 +129,39 @@ def _group(tree, g):
     return tree if g is None else tree[g]
 
 
+def _is_local(cfg: ModelConfig, g) -> bool:
+    """Whether the layers of group ``g`` attend over a sliding window: a
+    pair layout's local group, or every layer of an all-local model."""
+    return g == "local" or cfg.layer_pattern == "local"
+
+
+def _stack(trees: list):
+    """The per-layer contributions (tensors, or dicts of them such as an
+    SSM's ``{"conv", "ssm"}``) stacked on a new leading [L] axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def _init_layers(gen, cfg: ModelConfig, L: int, dev):
-    """One stack of L layers; a MoE config draws ``moe`` in place of
-    ``mlp``, as the reference's init does."""
+    """One stack of L layers, the reference's leaves: ``attn`` for GQA,
+    MLA and the hybrid, ``ssm`` for an SSM or hybrid model, ``moe`` in
+    place of ``mlp`` for a MoE config, no ``mlp`` in an attention-free
+    (pure SSM) layer."""
     D, F_, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
-    init_attn = attn.init_mla if cfg.attn_type == "mla" else attn.init_gqa
     p: dict[str, Any] = {
         "ln1": torch.zeros(L, D, dtype=dt, device=dev),
         "ln2": torch.zeros(L, D, dtype=dt, device=dev),
-        "attn": init_attn(gen, cfg, L=L, device=dev),
     }
+    if cfg.attn_type in ("gqa", "hybrid"):
+        p["attn"] = attn.init_gqa(gen, cfg, L=L, device=dev)
+    elif cfg.attn_type == "mla":
+        p["attn"] = attn.init_mla(gen, cfg, L=L, device=dev)
+    if cfg.attn_type in ("none", "hybrid"):
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, L=L, device=dev)
     if cfg.moe is not None:
         p["moe"] = moe_mod.init_moe(gen, cfg, L=L, device=dev)
-    else:
+    elif cfg.attn_type != "none":
         p["mlp"] = {"wi": dense_init(
             gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
             "wo": dense_init(gen, (L, F_, D), dt, dev)}
@@ -202,17 +232,29 @@ def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return x * scale
 
 
-def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0):
-    """The attention sublayer; returns (x, this layer's cache
-    contribution: {"k", "v"}, or MLA's {"ckv", "kr" [B, S, rd]})."""
+def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0,
+                   collect=False):
+    """The mixer sublayer: attention, the SSM mixer, or (hybrid) the mean
+    of both, ``(a + s) * 0.5`` in the activation dtype.  Returns (x, this
+    layer's cache contribution: {"k", "v"}, MLA's {"ckv", "kr" [B, S,
+    rd]}, and an SSM's {"ssm_state": {"conv", "ssm"}}, the latter only
+    with ``collect``)."""
     h = _rms(x, lp["ln1"])
+    contrib: dict[str, Any] = {}
+    a = None
     if cfg.attn_type == "mla":
         a, ckv, kr = attn.apply_mla(lp["attn"], h, cfg)
         contrib = {"ckv": ckv, "kr": kr.reshape(kr.shape[0], kr.shape[1], -1)}
-    else:
+    elif "attn" in lp:
         a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg, is_local=is_local,
                                    prefix_len=prefix_len)
         contrib = {"k": k, "v": v}
+    if "ssm" in lp:
+        s_out, state = ssm_mod.apply_ssm(lp["ssm"], h, cfg,
+                                         return_state=collect)
+        if collect:
+            contrib["ssm_state"] = state
+        a = s_out if a is None else (a + s_out) * 0.5
     a = tag("attn.out", a)
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
@@ -221,7 +263,10 @@ def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0):
 
 def _sublayer_ffn(lp, x, cfg):
     """The FFN sublayer: (x + its output, the layer's MoE auxiliary loss
-    or None where the layer has an MLP)."""
+    or None where the layer has an MLP); a layer with neither (a pure SSM
+    layer) returns x."""
+    if "moe" not in lp and "mlp" not in lp:    # a pure SSM layer
+        return x, None
     h = _rms(x, lp["ln2"])
     if "moe" in lp:
         f, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
@@ -261,8 +306,10 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     positions bidirectionally.  With ``collect_cache`` also returns the
     per-layer cache contributions stacked on [L]: (hidden, {"k": [L, B,
     P + S, KV, hd], "v": ...}) (MLA: {"ckv": [L, B, P + S, r], "kr": [L,
-    B, P + S, rd]}), for a pair layout {"local": {...}, "global": {...}}
-    on [L/2].  With ``with_aux`` the f32 sum of the layers' MoE
+    B, P + S, rd]}; an SSM or hybrid layer's decode state after the last
+    position, {"ssm_state": {"conv": [L, B, W - 1, C], "ssm": [L, B, H,
+    P, N]}}), for a pair layout {"local": {...}, "global": {...}} on
+    [L/2].  With ``with_aux`` the f32 sum of the layers' MoE
     auxiliary losses (0 without MoE) comes last: (hidden, aux) or
     (hidden, cache, aux)."""
     x = _embed(params, cfg, tokens) if embeds is None else embeds
@@ -276,8 +323,9 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     for body in zip(*(layer_list(_group(params["layers"], g))
                       for g in groups)):
         for g, lp in zip(groups, body):
-            x, c = _sublayer_attn(lp, x, cfg, is_local=g == "local",
-                                  prefix_len=prefix_len)
+            x, c = _sublayer_attn(lp, x, cfg, is_local=_is_local(cfg, g),
+                                  prefix_len=prefix_len,
+                                  collect=collect_cache)
             x, da = _sublayer_ffn(lp, x, cfg)
             if da is not None:
                 aux = da if aux is None else aux + da
@@ -287,7 +335,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     x = _rms(x, params["final_norm"])
     out = (x,)
     if collect_cache:
-        cache = {g: {name: torch.stack(ts) for name, ts in c.items()}
+        cache = {g: {name: _stack(ts) for name, ts in c.items()}
                  for g, c in contribs.items()}
         out += (cache if _pair(cfg) else cache[None],)
     if with_aux:
@@ -350,57 +398,81 @@ def map_cache(fn, *caches):
 
 def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
     """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros; an MLA
-    model's the compressed {"ckv": [L, B, S, r], "kr": [L, B, S, rd]}.  A
-    pair layout's is {"local": ..., "global": ...}, each on [L/2], its
-    local leaves a ring of ``min(S, local_window)`` rows (the reference's
-    ``local_window_cache``)."""
+    model's the compressed {"ckv": [L, B, S, r], "kr": [L, B, S, rd]}; an
+    SSM model's {"ssm_state": {"conv": [L, B, W - 1, C] in the model
+    dtype, "ssm": [L, B, H, P, N] in f32}}, a hybrid's both K/V and
+    ``ssm_state``.  A pair layout's is {"local": ..., "global": ...},
+    each on [L/2], its local leaves a ring of ``min(S, local_window)``
+    rows (the reference's ``local_window_cache``); an all-local model's
+    K/V leaves are full length S, as the reference's are."""
     dev = resolve_device(device)
 
-    def kv(L, rows):
+    def layer_cache(L, rows):
         if cfg.attn_type == "mla":
             shapes = {"ckv": (L, B, rows, cfg.mla.kv_lora_rank),
                       "kr": (L, B, rows, cfg.mla.qk_rope_head_dim)}
-        else:
+        elif cfg.attn_type in ("gqa", "hybrid"):
             shape = (L, B, rows, cfg.n_kv_heads, cfg.hd)
             shapes = {"k": shape, "v": shape}
-        return {name: torch.zeros(shape, dtype=cfg.tdtype, device=dev)
-                for name, shape in shapes.items()}
+        else:
+            shapes = {}
+        c: dict[str, Any] = {
+            name: torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+            for name, shape in shapes.items()}
+        if cfg.attn_type in ("none", "hybrid"):
+            c["ssm_state"] = ssm_mod.init_ssm_state(cfg, B, L=L, device=dev)
+        return c
 
     if _pair(cfg):
         L = cfg.n_layers // 2
-        return {"local": kv(L, min(S, cfg.local_window)), "global": kv(L, S)}
-    return kv(cfg.n_layers, S)
+        return {"local": layer_cache(L, min(S, cfg.local_window)),
+                "global": layer_cache(L, S)}
+    return layer_cache(cfg.n_layers, S)
 
 
 def _decode_gqa_at(p, x, cfg, kc, vc, pv, *, is_local=False):
     """GQA decode of one layer; writes this token's K/V into the layer's
-    cache views ``kc``/``vc`` [B, S_c, KV, hd] in place: a local layer's
-    (a ring of at most ``local_window`` rows, :func:`init_cache`) at row
-    ``pv % S_c``, attending over its ``min(pv + 1, S_c)`` rows; a global
-    layer's at ``pv`` clamped onto its last row, attending over ``pv + 1``
-    rows."""
+    cache views ``kc``/``vc`` [B, S_c, KV, hd] in place.  A local layer
+    whose cache is no longer than its window (a pair layout's ring,
+    :func:`init_cache`) writes row ``pv % S_c`` and attends over its
+    ``min(pv + 1, S_c)`` rows; any other layer writes at ``pv`` clamped
+    onto its last row and attends over ``pv + 1`` rows, a local one (an
+    all-local model's full-length cache) over the last ``local_window``
+    of them (the reference's rule, ``ring = is_local and S_c <=
+    window``)."""
     B = x.shape[0]
     q, k, v = attn._qkv(p, x, cfg, pv[:, None])
     rows = torch.arange(B, device=x.device)
     S_c = kc.shape[1]
-    assert not is_local or S_c <= cfg.local_window, (S_c, cfg.local_window)
-    wpos = (pv % S_c if is_local else pv.clamp(max=S_c - 1)).long()
+    ring = is_local and S_c <= cfg.local_window
+    wpos = (pv % S_c if ring else pv.clamp(max=S_c - 1)).long()
     kc.index_put_((rows, wpos), k[:, 0].to(kc.dtype))
     vc.index_put_((rows, wpos), v[:, 0].to(vc.dtype))
-    n_valid = (pv + 1).clamp(max=S_c) if is_local else pv + 1
-    out = attn.decode_attention(q, kc, vc, n_valid, softcap=cfg.attn_softcap)
+    n_valid = (pv + 1).clamp(max=S_c) if ring else pv + 1
+    window = cfg.local_window if is_local and not ring else None
+    out = attn.decode_attention(q, kc, vc, n_valid, softcap=cfg.attn_softcap,
+                                window=window)
     return mm(out.reshape(B, 1, -1), p["wo"])
 
 
 def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
     """One layer's decode step over ``c``, the layer's cache views
-    ({"k", "v"}, or MLA's {"ckv", "kr"}), written in place."""
+    ({"k", "v"}, MLA's {"ckv", "kr"}, an SSM's {"ssm_state": {"conv",
+    "ssm"}}), every leaf written in place (the SSM state by ``copy_``);
+    a hybrid layer mixes attention and SSM as the forward does."""
     h = _rms(x, lp["ln1"])
+    a = None
     if cfg.attn_type == "mla":
         a = attn.decode_mla(lp["attn"], h, cfg, c["ckv"], c["kr"], pv)
-    else:
+    elif "attn" in lp:
         a = _decode_gqa_at(lp["attn"], h, cfg, c["k"], c["v"], pv,
                            is_local=is_local)
+    if "ssm" in lp:
+        st = c["ssm_state"]
+        s_out, new = ssm_mod.decode_ssm(lp["ssm"], h, cfg, st)
+        st["conv"].copy_(new["conv"])
+        st["ssm"].copy_(new["ssm"])
+        a = s_out if a is None else (a + s_out) * 0.5
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
     return _sublayer_ffn(lp, x + a, cfg)[0]
@@ -412,12 +484,13 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     x = _embed(params, cfg, token)
     pv = attn.pos_vec(pos, token.shape[0], device=token.device)
     groups = _groups(cfg)
+    # every leaf, a state leaf too, is stacked on [L] (or [L/2])
     for i in range(cache_leaves(_group(cache, groups[0]))[0].shape[0]):
         for g in groups:
-            c = _group(cache, g)
             x = _decode_layer(layer_params(_group(params["layers"], g), i),
-                              x, cfg, {k: v[i] for k, v in c.items()}, pv,
-                              is_local=g == "local")
+                              x, cfg,
+                              map_cache(lambda t: t[i], _group(cache, g)),
+                              pv, is_local=_is_local(cfg, g))
     x = _rms(x, params["final_norm"])
     return logits_of(params, cfg, x)[:, 0], cache
 
@@ -432,14 +505,31 @@ def _rows(S_src: int, S_c: int, offset, device) -> torch.Tensor:
             + (offset + (S_src - take))) % S_c
 
 
-def _write_slot_leaf(dst, src, slot, offset=0):
+@functools.lru_cache(maxsize=None)
+def _seq_leaf_kinds(cfg: ModelConfig):
+    """Which cache leaves carry a sequence axis (the reference's structural
+    rule): ``init_cache`` probed at two lengths on the meta device, a leaf
+    whose shape moves is a sequence leaf (K/V, MLA latents, ring leaves
+    too at these small lengths); an SSM's ``conv`` / ``ssm`` state leaves
+    are not.  A tree of bools in the cache's nesting."""
+    a, b = (init_cache(cfg, 1, S, device="meta") for S in (2, 3))
+    return map_cache(lambda x, y: x.shape != y.shape, a, b)
+
+
+def _write_slot_leaf(dst, src, slot, offset, is_seq):
     """Write one request's collected cache leaf into batch row ``slot`` of
     ``dst`` [L, B_slots, S_cache, ...] at seq offset ``offset``, in place,
     as one indexed write (rows by :func:`_rows`; a prompt longer than the
-    cache keeps its tail).  ``slot`` and ``offset`` are Python ints or
-    0-dim integer tensors on ``dst``'s device; neither is read back to the
+    cache keeps its tail).  A state leaf (``is_seq`` false: an SSM's
+    ``conv`` / ``ssm``) is overwritten whole at ``slot``, and ``offset``
+    does not touch it.  ``slot`` and ``offset`` are Python ints or 0-dim
+    integer tensors on ``dst``'s device; neither is read back to the
     host, so a captured program writes whichever slot its buffers name at
     replay."""
+    if not is_seq:
+        assert dst.shape[2:] == src.shape[2:], (dst.shape, src.shape)
+        idx = torch.as_tensor(slot, device=dst.device).reshape(1).long()
+        return dst.index_copy_(1, idx, src.to(dst.dtype))
     src = src[:, 0]                                     # [L, S_src, ...]
     S_c, S_src = dst.shape[2], src.shape[1]
     rows = _rows(S_src, S_c, offset, dst.device)
@@ -449,9 +539,12 @@ def _write_slot_leaf(dst, src, slot, offset=0):
     return dst
 
 
-def _write_leaf(dst, src):
+def _write_leaf(dst, src, is_seq):
     """Write a batch's collected cache leaf src [L, B, S_src, ...] into a
-    fresh ``dst`` [L, B, S_cache, ...] by :func:`_rows` from offset 0."""
+    fresh ``dst`` [L, B, S_cache, ...] by :func:`_rows` from offset 0; a
+    state leaf whole."""
+    if not is_seq:
+        return dst.copy_(src)
     rows = _rows(src.shape[2], dst.shape[2], 0, dst.device)
     dst.index_copy_(2, rows, src[:, :, src.shape[2] - rows.shape[0]:]
                     .to(dst.dtype))
@@ -479,7 +572,12 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
 
     ``prefix_embeds`` [B, P, D] are prepended as in :func:`forward`, and
     their P rows are written ahead of the prompt's (P + S rows, from
-    ``write_offset``); the next decode position is P + S."""
+    ``write_offset``); the next decode position is P + S.
+
+    An SSM's state leaves (the decode state after the last position) are
+    written whole in both modes.  A prompt shorter than the conv window's
+    ``conv_width - 1`` raises ``ValueError`` in both (ROADMAP C11:
+    :func:`~repro_torch.models.ssm.apply_ssm`)."""
     B, S = tokens.shape
     hidden, contribs = forward(params, cfg, tokens,
                                prefix_embeds=prefix_embeds,
@@ -488,12 +586,13 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     if cache is not None:
         assert slot is not None, "slot-mode prefill needs a slot index"
         assert B == 1, "slot-mode prefill admits one request at a time"
-        map_cache(lambda d, s: _write_slot_leaf(d, s, slot, write_offset),
-                  cache, contribs)
+        map_cache(lambda d, s, isq: _write_slot_leaf(d, s, slot,
+                                                     write_offset, isq),
+                  cache, contribs, _seq_leaf_kinds(cfg))
         return logits, cache
     assert cache_len is not None, "prefill needs cache_len or cache+slot"
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
-    map_cache(_write_leaf, cache, contribs)
+    map_cache(_write_leaf, cache, contribs, _seq_leaf_kinds(cfg))
     return logits, cache
 
 

@@ -4,10 +4,12 @@ of ``SlotKVCache``, ``reset_slot`` and ``gather_slots`` in
 
 One ``init_cache(cfg, max_slots, max_seq_len)`` tree whose batch axis is a
 pool of slots.  A request owns a slot from admission to completion;
-admission writes its prefill K/V into the slot through
-``prefill_into_slot``, decode advances every slot at its own position, and
-a freed slot is overwritten by the next admission.  ``decode_attention``
-masks each slot to its own valid prefix, so stale rows are never read.
+admission writes its prefill K/V (and an SSM's recurrent state, whole)
+into the slot through ``prefill_into_slot``, decode advances every slot
+at its own position, and a freed slot is overwritten by the next
+admission.  ``decode_attention`` masks each slot to its own valid prefix,
+so stale rows are never read; ``reset`` and ``compact`` walk every leaf,
+the state leaves too (their slot axis is axis 1 like every leaf's).
 
 The cache tensors are updated in place and never reallocated: the
 engine's graphs (``serve/graphs.py``) read and write this very storage,

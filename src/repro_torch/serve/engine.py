@@ -68,7 +68,10 @@ def sparsify_for_serving(params, n: int = 1, m: int = 4, g: int = 16,
     globs are the reference's and match no ``moe.*`` leaf: in a MoE model
     (moonshot, arctic) the experts, router and dense residual stay dense
     and are shared with ``params``, so n:m:g converts attention alone,
-    with ``attn=True``, and nothing without it."""
+    with ``attn=True``, and nothing without it.  Nor do they match an
+    SSM mixer's ``ssm.*`` leaves: hymba's stay dense and nothing of
+    mamba2 is converted (a ``SparsityBuilder`` plan on ``*ssm.in_proj``
+    / ``*ssm.out_proj`` converts those)."""
     sb = SparsityBuilder()
     sp = GroupedNMSparsifier(n, m, g, gr, sparse_dim=0)   # [K, N] weights
     sb.set_weight("*mlp.wi", sp, GroupedNMTensor)

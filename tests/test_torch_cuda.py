@@ -1651,3 +1651,187 @@ def test_moe_kernels_match_plain_with_routes_pinned(arch, monkeypatch):
         assert bool((taken >= others - 1e-5).all())
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+SSM_ARCHES = ["mamba2-370m", "hymba-1.5b"]
+
+
+def _ssm_family(arch, fmt, dtype=None):
+    """The SMOKE config of ``arch`` (``dtype`` if given, else its bf16)
+    with seeded weights on the card: dense, or n:m:g 1:4:8 gr16 (mamba2:
+    ``*ssm.in_proj`` / ``*ssm.out_proj`` through a ``SparsityBuilder``
+    plan; hymba: ``sparsify_for_serving(attn=True)``)."""
+    if arch != "mamba2-370m" or fmt == "dense":
+        return _new_family(arch, fmt, dtype)
+    from repro_torch.core.builder import SparsityBuilder
+    from repro_torch.core.layouts import GroupedNMTensor
+    from repro_torch.core.sparsifiers import GroupedNMSparsifier
+
+    cfg, params = _new_family(arch, "dense", dtype)
+    sb = SparsityBuilder()
+    sp = GroupedNMSparsifier(1, 4, 8, 16, sparse_dim=0)
+    sb.set_weight("*ssm.in_proj", sp, GroupedNMTensor)
+    sb.set_weight("*ssm.out_proj", sp, GroupedNMTensor)
+    return cfg, sb.sparsify_params(params)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "nmg"])
+@pytest.mark.parametrize("arch", SSM_ARCHES)
+def test_ssm_engine_replay_bitwise_eager(arch, fmt):
+    """bf16 SMOKE served by an engine of 4 slots x 40 rows (hymba: longer
+    than its window of 16, so local layers attend over the window of a
+    full-length cache; prompts 20, 6, 20, 6, 9; 8 new tokens each, chunk
+    4), with graphs and with ``graphs=False``: token streams and launch
+    counts equal.  Then each admission length, replayed into slot 1,
+    bitwise eager ``prefill_into_slot`` (logits and every leaf, the
+    ``ssm_state`` leaves among them), and the decode chunk's replay
+    bitwise the eager program on a clone of the cache.  Every leaf keeps
+    its storage (``data_ptr``) from the engine's start: the state is
+    written in place by every replay, and the replays do move it."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve import Request, ServeEngine, warmup_engine
+    from repro_torch.serve.engine import _decode_chunk_fn
+
+    cfg, params = _ssm_family(arch, fmt)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 6, 20, 6, 9)]
+
+    def trace():
+        return [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(cache_leaves(a), cache_leaves(b)))
+
+    runs = {}
+    for graphs in (True, False):
+        eng = ServeEngine(params, cfg, max_slots=4, max_seq_len=40,
+                          decode_chunk=4, graphs=graphs)
+        ptrs = [t.data_ptr() for t in cache_leaves(eng.kv.data)]
+        warmup_engine(eng, trace())
+        ops.reset_kernel_counters()
+        outs = eng.run(trace())
+        runs[graphs] = ([o.tokens for o in outs], ops.counter_snapshot())
+        assert [t.data_ptr() for t in cache_leaves(eng.kv.data)] == ptrs
+        if not graphs:
+            continue
+        assert eng._decode_chunk.info["captured"]
+        assert sorted(eng.kv.prefill_graphs) == [6, 9, 20]
+        for S, g in eng.kv.prefill_graphs.items():
+            assert g.info["captured"], S
+            prompt = rng.integers(0, cfg.vocab, (1, S), dtype=np.int32)
+            ref = map_cache(torch.clone, eng.kv.data)
+            got = eng.kv.write_prefill(params, prompt, 1).clone()
+            want, _ = prefill_into_slot(
+                params, cfg, torch.as_tensor(prompt, device="cuda"), ref, 1)
+            assert torch.equal(got, want) and same(eng.kv.data, ref), S
+        tok = rng.integers(0, cfg.vocab, 4).astype(np.int32)
+        pos = np.array([20, 3, 9, 30], np.int32)
+        for _ in range(2):
+            ref = map_cache(torch.clone, eng.kv.data)
+            before = eng.kv.data["ssm_state"]["ssm"].clone()
+            got = eng._decode_chunk.run(tok, pos).clone()
+            want = _decode_chunk_fn(cfg, 4)(
+                params, torch.as_tensor(tok[:, None], device="cuda"), ref,
+                torch.as_tensor(pos, device="cuda"))
+            assert torch.equal(got, want) and same(eng.kv.data, ref)
+            assert not torch.equal(eng.kv.data["ssm_state"]["ssm"], before)
+            tok, pos = got[-1].cpu().numpy().astype(np.int32), pos + 4
+        assert [t.data_ptr() for t in cache_leaves(eng.kv.data)] == ptrs
+    assert runs[True] == runs[False]
+    assert all(len(t) == 8 for t in runs[True][0])
+    launches = runs[True][1]["launches"]
+    if fmt == "nmg":
+        for k in ("nmg_gemv", "nmg_spmm"):
+            assert launches[k] > 0, (k, launches)
+        fused = arch == "hymba-1.5b"      # mamba2 has no q/k/v, no mlp.wi
+        assert (launches["nmg_qkv"] > 0) == fused, launches
+        assert (launches["nmg_ffn"] > 0) == fused, launches
+    else:
+        assert not any(launches.values()), launches
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHES)
+def test_ssm_decode_kernels_match_plain(arch, monkeypatch):
+    """f32 SMOKE, n:m:g 1:4:8 gr16: an admission of 20 tokens (the SpMM;
+    two chunks of 16) into slot 1 and 6 decode steps of both slots through
+    the kernels, against the same steps fed the same tokens with every
+    wrapper swapped for its plain version: logits and every cache leaf
+    (the state leaves too) within rtol 1e-4, atol 1e-3."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_cache, \
+        prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves
+
+    cfg, params = _ssm_family(arch, "nmg", dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, 20), generator=g, device="cuda",
+                         dtype=torch.int32)
+
+    def run(feed=None):
+        cache = init_cache(cfg, 2, 40, device="cuda")
+        logits, _ = prefill_into_slot(params, cfg, toks, cache, 1)
+        outs, fed = [logits], []
+        tok = torch.stack([torch.zeros_like(logits[0, 0]).int(),
+                           logits[0].argmax().int()])[:, None]
+        for i in range(6):
+            if feed is not None:
+                tok = feed[i]
+            fed.append(tok)
+            logits, _ = decode_step(params, cfg, tok, cache, torch.tensor(
+                [i, 20 + i], device="cuda"))
+            outs.append(logits)
+            tok = logits.argmax(-1).int()[:, None]
+        return outs, fed, cache
+
+    ops.reset_kernel_counters()
+    got, fed, cache = run()
+    launches = ops.counter_snapshot()["launches"]
+    for k in ("nmg_gemv", "nmg_spmm"):
+        assert launches[k] > 0, (k, launches)
+    for mod, attr, plain in ops.KERNEL_WRAPPERS.values():
+        monkeypatch.setattr(mod, attr, getattr(mod, plain))
+    want, _, ref = run(fed)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    for a, b in zip(cache_leaves(cache), cache_leaves(ref)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemv_and_spmm_on_padded_in_proj(dtype):
+    """mamba2-370m's ``in_proj`` [1024, 4384] at gr64: its 4384 rows pad to
+    4416 in the layout.  The GEMV (M = 4, decode) and the SpMM (N = 32,
+    admission), as ``nmg_linear`` calls them, give [M, 4384] (the pad rows
+    cut off) and agree with the plain versions; ``out_proj`` [2048, 1024]
+    alike."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+
+    for K, R, M in ((1024, 4384, 4), (1024, 4384, 32), (2048, 1024, 4)):
+        w = _card_weight(K, R, dtype)
+        assert w.val.shape[0] == -(-R // 64) * 64
+        g = torch.Generator(device="cuda").manual_seed(M)
+        x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        ops.reset_kernel_counters()
+        got = ops.nmg_linear(x, w)
+        kern = "nmg_gemv" if M <= 16 else "nmg_spmm"
+        assert ops.counter_snapshot()["launches"][kern] == 1
+        assert got.shape == (M, R) and got.dtype == dtype
+        want = (x.float() @ w.to_dense().float())
+        tol = TOL if dtype == torch.float32 else dict(rtol=2 ** -7,
+                                                      atol=2e-3)
+        torch.testing.assert_close(got.float(), want, **tol)
+        plain = (nmg_gemv.nmg_gemv_plain(w, x.T, out_dtype=dtype,
+                                         transpose_out=True) if M <= 16
+                 else nmg_spmm.nmg_spmm_plain(w, x.T, out_dtype=dtype,
+                                              transpose_out=True))
+        torch.testing.assert_close(got.float(), plain.float(), **tol)

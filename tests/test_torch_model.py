@@ -210,7 +210,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
         init_lm(int8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mamba2-370m")
+        get_config("whisper-large-v3")
     full = get_config("bert-base-sten")
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab, full.dtype) \
         == (12, 768, 3072, 30522, "bfloat16")
