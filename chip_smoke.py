@@ -21,8 +21,11 @@
    the layout, and ssm.out_proj [2048, 1024]; at hymba-1.5b the fused QKV
    over 1600 + 320 + 320, the silu FFN at the packed [1600, 11008] wi,
    the GEMV at attn.wo and mlp.wo, K = 5504, and the SpMM at both mlp
-   weights) and of the training path (``nm_mask`` 2:4 on the stacked and per-layer
-   ``mlp.wo`` / ``attn.wo``, 16:32, 5:20, special values and a
+   weights; at whisper-large-v3 the GEMV at mlp.wi [1280, 5120], mlp.wo
+   and wq [1280, 1280], the fused QKV over 3 x 1280 and the SpMM at those
+   three at N = 32 and at the encoder's N = 1500) and of the training
+   path (``nm_mask`` 2:4 on the stacked and per-layer ``mlp.wo`` /
+   ``attn.wo``, 16:32, 5:20, special values and a
    misaligned view, bitwise, each naming the body it took;
    ``matmul_threshold``
    at 1024 tokens x 768 x 3072): each kernel's wrapper against its plain
@@ -185,6 +188,29 @@
       within 0.1 of the forward's RMS; controls that must fail that
       check: the last step decoded from a zeroed ``ssm`` state, and
       hymba's attention without its window.
+   j. full-width, full-depth whisper-large-v3 (32 encoder layers over a
+      request's 1500 frames, 32 decoder layers each with cross-attention,
+      d_model 1280, MHA 20 x 64, non-gated gelu d_ff 5120, vocab 51866),
+      bf16, seeded random weights and frames, in a process of its own
+      (``python3 chip_smoke.py --encdec``, after (i)).  Dense and n:m:g
+      1:4:8 gr64 ``attn=True`` (16 leaf kinds: the encoder's, the
+      decoder's and its ``xattn``) each serve the trace through a loop of
+      this script's own over a ``SlotKVCache(enc_len=1500)`` (the engine
+      takes no encoder inputs): admissions eager by
+      ``prefill_into_slot(enc_embeds=)``, the engine's 8-step chunk
+      program replayed and eager (streams and counts equal); the chunk
+      replayed bitwise eager across an admission; an admission's wall
+      time and device span (and its encoder's); the n:m:g logits held
+      against the plain versions; the device span of a step's 32
+      cross-attention sublayers beside the cross K/V's bytes, which the
+      step's byte bound counts.  Then one full-context request (224 + 224
+      tokens at 448 rows, beside another request in a second slot): its
+      cross K/V bitwise a classic prefill's, every step's logits held
+      against one teacher-forced ``forward``, each decoder layer's self-
+      and cross-attention output at the last step within 0.1 of the
+      forward's RMS; controls that must fail the cross-attention rows:
+      the slot's cross K/V zeroed, the other slot's copied in, and a
+      causal encoder in the forward.
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -215,8 +241,8 @@
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
    launches from its n:m:g run, and their launches on each n:m:g run of
-   (d), (e), (h) and (i); training kernels at bert-base-sten training shapes with
-   launches from run (b)'s graph trainer),
+   (d), (e), (h), (i) and (j); training kernels at bert-base-sten
+   training shapes with launches from run (b)'s graph trainer),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Every ``torch.profiler`` session runs after all unprofiled timing
    (one session slows every later launch of the process).
@@ -313,6 +339,14 @@ MODELS = {
                   qkv=(1600, 320, 320), gemv=("wo", "wo_ffn"),
                   spmm=("wo_ffn", "wi"), spmm_n=(32,), ffn="wi",
                   act="silu", decode_m=(4,)),
+    # whisper-large-v3: MHA 20 x 64 (q/k/v 1280 each; xattn.wq and
+    # xattn.wo at decode alike), the non-gated gelu mlp.wi [1280, 5120],
+    # mlp.wo K = 5120; the SpMM at a decoder prompt's width and at the
+    # encoder's 1500 frames (its every projection, and xattn.wk / wv)
+    "whisper": dict(shapes={"wi": (1280, 5120), "wo_ffn": (5120, 1280),
+                            "wq": (1280, 1280)},
+                    gemv=("wi", "wo_ffn", "wq"), spmm_n=(32, 1500),
+                    ffn=None, decode_m=(4,)),
 }
 DECODE_M = (1, 4, 8, 16)
 
@@ -1187,14 +1221,16 @@ def uncapped(cfg):
     return dataclasses.replace(cfg, logit_softcap=None)
 
 
-def logit_parity(cfg, params, reference=None) -> dict:
+def logit_parity(cfg, params, reference=None, frames: int = 0) -> dict:
     """Prefill (a 32-token prompt: SpMM; a 16-token prompt: GEMV, fused
     QKV and, for a gated MLP, fused FFN) and 4 decode steps, through the
     kernels and through the plain versions (or under ``reference``, a
     context manager, in their place), fed the same tokens, held by
     :func:`hold_logits` (logits before any logit softcap:
     :func:`uncapped`; under a tied head each step's input token names its
-    own column)."""
+    own column).  With ``frames`` (an enc-dec model) each prompt comes
+    with seeded frame embeddings of that length, the same for both runs
+    (the encoder's projections: the SpMM at N = ``frames``)."""
     import numpy as np
     import torch
 
@@ -1206,9 +1242,12 @@ def logit_parity(cfg, params, reference=None) -> dict:
     for S in (32, 16):
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
                                device="cuda")
+        enc = ({"enc_embeds": encdec_frames(cfg, 2000 + S, frames)}
+               if frames else {})
 
         def steps(feed=None):
-            logits, cache = prefill(params, cfg, toks, cache_len=S + 8)
+            logits, cache = prefill(params, cfg, toks, cache_len=S + 8,
+                                    **enc)
             out = [logits.float()]
             fed = []
             tok = torch.argmax(logits, -1)[:, None]
@@ -1230,7 +1269,8 @@ def logit_parity(cfg, params, reference=None) -> dict:
     return hold_logits(pairs, cap, own if cfg.tie_embeddings else None)
 
 
-def graph_phase(cfg, params, label, profile: bool = True) -> dict:
+def graph_phase(cfg, params, label, profile: bool = True,
+                enc_len: int = 0) -> dict:
     """The engine's decode programs (``serve/graphs.py``) replayed as CUDA
     graphs against the same programs run eagerly, at 4 slots prefilled
     with 32-token prompts (decode chunk 8):
@@ -1249,13 +1289,17 @@ def graph_phase(cfg, params, label, profile: bool = True) -> dict:
       shares and the eager host cost per launch come from
       :func:`finish_graph` once :func:`run_profiles` has run the
       sessions this phase queues (with ``profile`` false none is queued,
-      and the replay's device time is its CUDA-event span)."""
+      and the replay's device time is its CUDA-event span).
+
+    With ``enc_len`` (an enc-dec model) the cache holds cross K/V of
+    that many frames and each admission brings seeded frames.  Every
+    cache leaf keeps its storage across the admissions and replays."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.models import init_cache, prefill_into_slot
-    from repro_torch.models.transformer import map_cache
+    from repro_torch.models.transformer import cache_leaves, map_cache
     from repro_torch.serve.engine import _decode_chunk_fn, _decode_fn
     from repro_torch.serve.graphs import DecodeGraph
 
@@ -1266,9 +1310,15 @@ def graph_phase(cfg, params, label, profile: bool = True) -> dict:
         return torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
                                dtype=torch.int32, device="cuda")
 
-    cache = init_cache(cfg, B, 96, device="cuda")
+    def enc(seed):
+        return ({"enc_embeds": encdec_frames(cfg, seed, enc_len)}
+                if enc_len else {})
+
+    cache = init_cache(cfg, B, 96, enc_len=enc_len, device="cuda")
+    ptrs = [t.data_ptr() for t in cache_leaves(cache)]
     for slot in range(B):
-        prefill_into_slot(params, cfg, prompt(32), cache, slot)
+        prefill_into_slot(params, cfg, prompt(32), cache, slot,
+                          **enc(3000 + slot))
     ref = map_cache(torch.clone, cache)
     pool = torch.cuda.graph_pool_handle()
     chunk_fn, step_fn = _decode_chunk_fn(cfg, T), _decode_fn(cfg)
@@ -1297,14 +1347,15 @@ def graph_phase(cfg, params, label, profile: bool = True) -> dict:
         got, chunk_counts = held(chunk, chunk_fn, f"chunk {turn}")
         tok, pos = got[-1].cpu().numpy().copy(), pos + T
         if turn == 0:
-            p = prompt(24)
+            p, kw = prompt(24), enc(3010)
             for c in (cache, ref):
-                prefill_into_slot(params, cfg, p, c, 1)
+                prefill_into_slot(params, cfg, p, c, 1, **kw)
             tok[1], pos[1] = int(got[-1, 1]), 24
     for turn in range(2):
         got, _ = held(step, step_fn, f"step {turn}")
         tok, pos = got.argmax(-1).int().cpu().numpy(), pos + 1
     assert chunk.info["replays"] == 2 and step.info["replays"] == 1
+    assert [t.data_ptr() for t in cache_leaves(cache)] == ptrs, label
 
     # timing at fixed inputs (each run rewrites the same cache rows)
     tok, pos = np.zeros(B, np.int32), np.full(B, 40, np.int32)
@@ -1572,6 +1623,8 @@ FAMILY_RUNS = {
               "chip_smoke_moe.json"),
     "--ssm": ((("mamba2-370m", False, 64), ("hymba-1.5b", False, 64)),
               "chip_smoke_ssm.json"),
+    "--encdec": ((("whisper-large-v3", False, 64),),
+                 "chip_smoke_encdec.json"),
 }
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
@@ -1584,10 +1637,12 @@ ATTN_TOL = 0.1
 
 def step_weight_bytes(params) -> int:
     """Bytes of weights one decode step reads: every layer leaf (an n:m:g
-    leaf's values and gather plan, a dense leaf whole), the final norm and
-    the head (a tied embedding whole; an untied model's embedding is read
-    only at the batch's rows and left out).  A size from the params, not
-    a measurement."""
+    leaf's values and gather plan, a dense leaf whole) but an enc-dec
+    decoder's ``xattn.wk`` / ``wv`` (they make the cross K/V at admission;
+    decode reads the cache), the final norm and the head (a tied
+    embedding whole; an untied model's embedding is read only at the
+    batch's rows and left out); an encoder's layers are not read at
+    decode.  A size from the params, not a measurement."""
     from repro_torch.core.layouts import GroupedNMTensor
 
     def nbytes(t):
@@ -1597,7 +1652,11 @@ def step_weight_bytes(params) -> int:
             return storage_bytes(t)
         return t.numel() * t.element_size()
 
-    return (nbytes(params["layers"]) + nbytes(params["final_norm"])
+    layers = params["layers"]
+    if "xattn" in layers:
+        layers = {**layers, "xattn": {k: v for k, v in layers["xattn"]
+                                      .items() if k not in ("wk", "wv")}}
+    return (nbytes(layers) + nbytes(params["final_norm"])
             + nbytes(params.get("lm_head", params["embedding"])))
 
 
@@ -2576,6 +2635,607 @@ def moe_phase(cfg, params) -> dict:
             "drops": moe_drops(cfg, params), "cost": moe_cost(cfg, params)}
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: whisper-large-v3 (enc-dec: an encoder over 1500 frames,
+# cross-attention over cross K/V held per slot)
+# ---------------------------------------------------------------------------
+
+#: a request's frame embeddings: 30 s of audio at 50 Hz after the stub
+#: frontend (``configs/whisper_large_v3.py:ENC_LEN``)
+ENC_FRAMES = 1500
+#: the full-context request: the decoder's published 448 positions
+#: (openai/whisper-large-v3 ``max_target_positions``) as 224 prompt tokens
+#: and 224 new tokens, in a 2-slot cache of 448 rows
+FULL_PROMPT, FULL_NEW, FULL_ROWS = 224, 224, 448
+
+
+def encdec_frames(cfg, seed: int, frames: int = 0):
+    """One request's frame embeddings [1, frames (default
+    :data:`ENC_FRAMES`), D]: N(0, 1) from a seeded generator on the card,
+    in the model dtype (the encoder norms them first, so their scale is
+    the frontend's business)."""
+    import torch
+
+    frames = frames or ENC_FRAMES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(1, frames, cfg.d_model, generator=gen,
+                       device="cuda").to(cfg.tdtype)
+
+
+def cross_kv_bytes(cfg, slots: int) -> int:
+    """Bytes of the cross K/V of ``slots`` slots (``xk`` and ``xv`` of
+    every decoder layer, the model dtype): a decode step reads them once.
+    A size from the config, not a measurement."""
+    return (2 * cfg.n_layers * slots * ENC_FRAMES * cfg.n_kv_heads * cfg.hd
+            * cfg.tdtype.itemsize)
+
+
+def encdec_serve(cfg, params, label, *, graphs: bool) -> dict:
+    """The trace (:func:`requests_for`: 8 requests, prompts 32/24/64/16,
+    32 new tokens, all due at once), each request with its own seeded
+    frames, served by a loop of this script's own over a
+    ``SlotKVCache(cfg, 4, 96, enc_len=1500)`` (the engine takes no
+    encoder inputs): a request is admitted eagerly by
+    ``prefill_into_slot(enc_embeds=)`` into the lowest free slot, its
+    first token the admission's argmax; then the engine's 8-step greedy
+    chunk program (``_decode_chunk_fn`` in a ``DecodeGraph``, replayed
+    with ``graphs``, else eager) decodes every slot, one host fetch a
+    chunk, tokens past a request's end discarded, as the engine's loop
+    does.  Warmed first with one 2-token request per prompt length (the
+    chunk's capture); the counts are zeroed right before the measured
+    run and read right after.  The cache keeps its storage throughout.
+    Returns the engine's metrics (``serve/metrics.py``), counts, streams
+    and each admission's wall time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves
+    from repro_torch.serve import Request, SlotKVCache
+    from repro_torch.serve.engine import _decode_chunk_fn
+    from repro_torch.serve.graphs import DecodeGraph
+    from repro_torch.serve.metrics import summarize
+    from repro_torch.serve.queue import RequestOutput
+
+    B, T = ENGINE_KW["max_slots"], ENGINE_KW["decode_chunk"]
+    kv = SlotKVCache(cfg, B, ENGINE_KW["max_seq_len"], enc_len=ENC_FRAMES,
+                     device="cuda", graphs=False)
+    pool = torch.cuda.graph_pool_handle() if graphs else None
+    chunk = DecodeGraph(_decode_chunk_fn(cfg, T), params, kv.data, B,
+                        name="decode_chunk", capture=graphs, pool=pool)
+    ptrs = [t.data_ptr() for t in cache_leaves(kv.data)]
+    trace = requests_for(cfg)
+    warm = [Request(uid=100 + i, prompt=r.prompt, max_new_tokens=2)
+            for i, r in enumerate(trace[:len(PROMPT_LENS)])]
+    frames = {r.uid: encdec_frames(cfg, 1000 + r.uid) for r in trace + warm}
+
+    def serve(reqs):
+        t0 = time.perf_counter()
+
+        def now():
+            return time.perf_counter() - t0
+
+        queue, slots = list(reqs), [None] * B
+        pos, tok = np.zeros(B, np.int32), np.zeros(B, np.int32)
+        outs, admit_ms, steps = [], [], 0
+
+        def finish(s):
+            st = slots[s]
+            outs.append(RequestOutput(
+                uid=st["req"].uid, prompt_len=int(st["req"].prompt.size),
+                tokens=st["tokens"], finish_reason="length",
+                arrival_time=0.0, admitted_time=st["admitted"],
+                finish_time=now(), token_times=st["times"]))
+            slots[s] = None
+            pos[s] = tok[s] = 0
+
+        while queue or any(s is not None for s in slots):
+            for s in range(B):
+                if slots[s] is None and queue:
+                    r = queue.pop(0)
+                    ta = now()
+                    logits, _ = prefill_into_slot(
+                        params, cfg, torch.as_tensor(r.prompt[None],
+                                                     device="cuda"),
+                        kv.data, s, enc_embeds=frames[r.uid])
+                    first = int(logits[0].argmax())
+                    admit_ms.append((now() - ta) * 1e3)
+                    slots[s] = {"req": r, "tokens": [first],
+                                "times": [now()], "admitted": ta}
+                    pos[s], tok[s] = r.prompt.size, first
+            active = [s for s in range(B) if slots[s] is not None]
+            tc0 = now()
+            block = chunk.run(tok, pos).cpu().numpy()
+            tc1 = now()
+            steps += T
+            for s in active:
+                st = slots[s]
+                for t in range(T):
+                    st["tokens"].append(int(block[t, s]))
+                    st["times"].append(tc0 + (t + 1) * (tc1 - tc0) / T)
+                    pos[s] += 1
+                    tok[s] = block[t, s]
+                    if len(st["tokens"]) >= st["req"].max_new_tokens:
+                        finish(s)
+                        break
+        return sorted(outs, key=lambda o: o.uid), now(), admit_ms, steps
+
+    serve(warm)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, wall, admit_ms, steps = serve(trace)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert [t.data_ptr() for t in cache_leaves(kv.data)] == ptrs, label
+    assert len(outs) == 8 and all(len(o.tokens) == 32 for o in outs), label
+    assert all(0 <= t < cfg.vocab for o in outs for t in o.tokens)
+    assert not any(k.endswith("/plain") for k in counts["routes"]), counts
+    assert chunk.info["captured"] == graphs, chunk.info
+    return {"metrics": summarize(outs, wall, label=label).to_dict(),
+            "counts": counts, "tokens": [o.tokens for o in outs],
+            "decode_steps": steps,
+            "admission_wall_ms": admit_ms,
+            "chunk_graph": dict(chunk.info)}
+
+
+def encdec_serve_phase(cfg, params, label) -> dict:
+    """:func:`encdec_serve` replayed and eager: token streams and launch
+    counts (replays included) equal."""
+    g = encdec_serve(cfg, params, label, graphs=True)
+    e = encdec_serve(cfg, params, label, graphs=False)
+    assert g["tokens"] == e["tokens"], f"{label}: streams differ"
+    assert g["counts"] == e["counts"], (label, g["counts"], e["counts"])
+    return {"label": label, "metrics": g["metrics"],
+            "eager_metrics": e["metrics"], "counts": g["counts"],
+            "decode_steps": g["decode_steps"],
+            "chunk_graph": g["chunk_graph"],
+            "admission_wall_ms": {"graph": g["admission_wall_ms"],
+                                  "eager": e["admission_wall_ms"]},
+            "first_tokens": [t[:4] for t in g["tokens"]]}
+
+
+def encdec_admission(cfg, params, label) -> dict:
+    """One 32-token admission with its frames into slot 2 of a 4-slot
+    cache: wall time (median of 5, ending in the logits' host fetch),
+    eager, and the device span of the same admission and of the encoder
+    alone, each captured as one CUDA graph (:func:`_graph_span_ms`), with
+    the launches of one admission."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_cache, prefill_into_slot
+    from repro_torch.models import transformer as tf
+
+    cache = init_cache(cfg, 4, 96, enc_len=ENC_FRAMES, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab, (1, 32)), device="cuda")
+    frames = encdec_frames(cfg, 11)
+    slot = torch.tensor(2, device="cuda")   # no host copy under capture
+
+    def admit():
+        return prefill_into_slot(params, cfg, toks, cache, slot,
+                                 enc_embeds=frames)[0]
+
+    def one():
+        t0 = time.perf_counter()
+        admit().cpu()
+        return time.perf_counter() - t0
+
+    one()
+    wall = statistics.median(one() for _ in range(5))
+    torch.cuda.synchronize()
+    reset_counts()
+    admit()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    return {"label": label, "prompt": 32, "frames": ENC_FRAMES,
+            "eager_wall_ms": wall * 1e3,
+            "span_ms": _graph_span_ms(admit),
+            "encoder_span_ms": _graph_span_ms(
+                lambda: tf._run_encoder(params, cfg, frames, cfg.tdtype)),
+            "launches": {k: launches[k] for k in KERNELS}}
+
+
+def xattn_cost(cfg, params) -> dict:
+    """Where a decode step's cross-attention goes, without a profiler:
+    the device span (:func:`_graph_span_ms`) of every decoder layer's
+    cross-attention sublayer at a step's 4 tokens over 4 slots of seeded
+    cross K/V (1500 frames), and of its attention alone (the
+    ``chunked_attention`` call: the f32 casts and repeats of ``xk`` /
+    ``xv``, scores, softmax, values), beside the cross K/V's bytes at
+    3.35 TB/s.  Set beside the decode chunk's span a step
+    (:func:`graph_phase`)."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tf
+
+    B, L, dt = ENGINE_KW["max_slots"], cfg.n_layers, cfg.tdtype
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    shape = (L, B, ENC_FRAMES, cfg.n_kv_heads, cfg.hd)
+    xk = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    xv = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    x = torch.randn(B, 1, cfg.d_model, generator=gen, device="cuda").to(dt)
+    q = torch.randn(B, 1, cfg.n_heads, cfg.hd, generator=gen,
+                    device="cuda").to(dt)
+    ps = [lp["xattn"] for lp in tf.layer_list(params["layers"])]
+
+    def sublayers():
+        for i, p in enumerate(ps):
+            tf._cross_attn_cached(p, x, xk[i], xv[i], cfg)
+
+    def attention_alone():
+        for i in range(L):
+            attention.chunked_attention(q, xk[i], xv[i], causal=False,
+                                        chunk_q=cfg.attn_chunk_q)
+
+    nbytes = cross_kv_bytes(cfg, B)
+    assert nbytes == (xk.numel() + xv.numel()) * xk.element_size()
+    return {"tokens": B, "frames": ENC_FRAMES, "layers": L,
+            "xattn_sublayers_ms": _graph_span_ms(sublayers),
+            "xattn_attention_ms": _graph_span_ms(attention_alone),
+            "cross_kv_bytes": nbytes,
+            "cross_kv_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+@contextlib.contextmanager
+def encdec_rows(self_rows: list, cross_rows: list):
+    """While inside, append each decoder layer's self-attention output
+    (before any post-norm) and cross-attention output at the last
+    position of batch row 0, [1, D] in f32, in call order: a forward's
+    (``apply_gqa`` outside the encoder; ``_cross_attn_cached``, which
+    ``_cross_attn`` calls) and a decode step's (``_decode_gqa_at``,
+    ``_cross_attn_cached``), one each per layer.  The encoder's layers
+    are skipped.  Eager programs only: a graph replay records nothing."""
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tf
+
+    saved = {(attention, "apply_gqa"): attention.apply_gqa,
+             (tf, "_decode_gqa_at"): tf._decode_gqa_at,
+             (tf, "_cross_attn_cached"): tf._cross_attn_cached,
+             (tf, "_run_encoder"): tf._run_encoder}
+    inside = [False]
+
+    def recorder(fn, into, part):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            if not inside[0]:
+                a = out if part is None else out[part]
+                into.append(a[0:1, -1].float())
+            return out
+        return rec
+
+    def encoder(*args, **kw):
+        inside[0] = True
+        try:
+            return saved[(tf, "_run_encoder")](*args, **kw)
+        finally:
+            inside[0] = False
+
+    attention.apply_gqa = recorder(saved[(attention, "apply_gqa")],
+                                   self_rows, 0)
+    tf._decode_gqa_at = recorder(saved[(tf, "_decode_gqa_at")], self_rows,
+                                 None)
+    tf._cross_attn_cached = recorder(saved[(tf, "_cross_attn_cached")],
+                                     cross_rows, None)
+    tf._run_encoder = encoder
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def causal_encoder():
+    """While inside, the encoder's layers attend causally (a control: the
+    frames seen as a prefix-free sequence)."""
+    from repro_torch.models import transformer as tf
+
+    run, sub = tf._run_encoder, tf._sublayer_attn
+
+    def causal_run(*args, **kw):
+        tf._sublayer_attn = lambda *a, **k: sub(*a, **{**k, "causal": True})
+        try:
+            return run(*args, **kw)
+        finally:
+            tf._sublayer_attn = sub
+
+    tf._run_encoder = causal_run
+    try:
+        yield
+    finally:
+        tf._run_encoder = run
+
+
+def encdec_full_context(cfg, params, label) -> dict:
+    """One request of :data:`FULL_PROMPT` tokens and :data:`FULL_NEW` new
+    ones at :data:`FULL_ROWS` rows (the decoder's whole published
+    context) in slot 0 of a 2-slot cache whose slot 1 holds a 32-token
+    request with other frames: both admitted eagerly with their frames,
+    then decoded by the engine's chunk program replayed (27 chunks of 8)
+    and its single-step program replayed (the last 7 steps).  Checks,
+    each against bounds fixed here:
+
+    - the slot's ``xk`` / ``xv`` right after admission bitwise an eager
+      classic ``prefill``'s of the same request;
+    - the same tokens (both slots') fed through eager ``decode_step`` on a
+      fresh cache give the replayed streams and, at the last step,
+      bitwise the replayed logits; every step's logits (the admission's
+      and each decode step's) held by :func:`hold_logits` against one
+      teacher-forced ``forward`` over the prompt and the fed tokens with
+      the same frames;
+    - at the last step each decoder layer's self-attention and
+      cross-attention output (:func:`encdec_rows`) within
+      :data:`ATTN_TOL` of the forward's (:func:`attn_gap`).
+
+    Controls, each of which must fail the cross-attention rows: the last
+    step decoded with the slot's ``xk`` / ``xv`` zeroed, or with the
+    other slot's copied in (another request's frames), and the forward
+    run with a causal encoder."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, forward, init_cache, \
+        logits_of, prefill, prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve.engine import _decode_chunk_fn, _decode_fn
+    from repro_torch.serve.graphs import DecodeGraph
+
+    rng = np.random.default_rng(12)
+    prompt = rng.integers(0, cfg.vocab, FULL_PROMPT, dtype=np.int32)
+    other = rng.integers(0, cfg.vocab, 32, dtype=np.int32)
+    prompt_d = torch.as_tensor(prompt[None], device="cuda")
+    other_d = torch.as_tensor(other[None], device="cuda")
+    fa, fb = encdec_frames(cfg, 12), encdec_frames(cfg, 13)
+    new, rows = FULL_NEW, FULL_ROWS
+    chunks = (new - 1) // 8
+    singles = new - 1 - 8 * chunks
+    res = {"label": label, "prompt": FULL_PROMPT, "new_tokens": new,
+           "cache_rows": rows, "frames": ENC_FRAMES}
+
+    def admit(cache):
+        lo, _ = prefill_into_slot(params, cfg, other_d, cache, 1,
+                                  enc_embeds=fb)
+        la, _ = prefill_into_slot(params, cfg, prompt_d, cache, 0,
+                                  enc_embeds=fa)
+        return la, lo
+
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_cache(cfg, 2, rows, enc_len=ENC_FRAMES, device="cuda")
+    ptrs = [t.data_ptr() for t in cache_leaves(cache)]
+    pool = torch.cuda.graph_pool_handle()
+    chunk = DecodeGraph(_decode_chunk_fn(cfg, 8), params, cache, 2,
+                        name="decode_chunk", pool=pool)
+    step = DecodeGraph(_decode_fn(cfg), params, cache, 2, pool=pool)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    la, lo = admit(cache)
+    streams = [[int(la[0].argmax())], [int(lo[0].argmax())]]
+    t1 = time.perf_counter()
+    _, ref = prefill(params, cfg, prompt_d, cache_len=rows, enc_embeds=fa)
+    res["cross_kv_vs_classic_prefill"] = {
+        name: torch.equal(cache[name][:, 0], ref[name][:, 0])
+        for name in ("xk", "xv")}
+    assert all(res["cross_kv_vs_classic_prefill"].values()), res
+    del ref
+    tok = np.array([streams[0][0], streams[1][0]], np.int32)
+    pos = np.array([FULL_PROMPT, 32], np.int32)
+    t2 = time.perf_counter()
+    for _ in range(chunks):
+        blk = chunk.run(tok, pos).cpu().numpy()
+        for s in range(2):
+            streams[s] += [int(t) for t in blk[:, s]]
+        tok, pos = blk[-1].astype(np.int32), pos + 8
+    for _ in range(singles):
+        last = step.run(tok, pos)
+        tok = last.argmax(-1).int().cpu().numpy()
+        for s in range(2):
+            streams[s].append(int(tok[s]))
+        pos = pos + 1
+    replayed = last[0:1].float().clone()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    assert chunk.info["replays"] == chunks - 1 and \
+        step.info["replays"] == singles - 1, (chunk.info, step.info)
+    assert [t.data_ptr() for t in cache_leaves(cache)] == ptrs
+    tokens = streams[0]
+    assert len(tokens) == new
+    res.update(admission_ms=(t1 - t0) * 1e3, counts=read_counts(),
+               decode_ms_per_step=(t3 - t2) * 1e3 / (new - 1),
+               chunk_graph=dict(chunk.info), step_graph=dict(step.info),
+               serve_peak_gb=_gb_peak())
+    del cache, chunk, step
+    torch.cuda.empty_cache()
+
+    # the same tokens fed eagerly on a fresh cache, up to the last step
+    cache = init_cache(cfg, 2, rows, enc_len=ENC_FRAMES, device="cuda")
+    la, lo = admit(cache)
+    got = [la.float()]
+    for i in range(new - 2):
+        feed = torch.tensor([[streams[0][i]], [streams[1][i]]],
+                            device="cuda")
+        logits, _ = decode_step(params, cfg, feed, cache, torch.tensor(
+            [FULL_PROMPT + i, 32 + i], device="cuda"))
+        got.append(logits[0:1].float())
+        for s in range(2):
+            assert int(logits[s].argmax()) == streams[s][i + 1], (label, i)
+    before_last = map_cache(torch.clone, cache)
+    feed = torch.tensor([[streams[0][new - 2]], [streams[1][new - 2]]],
+                        device="cuda")
+    last_pos = torch.tensor([FULL_PROMPT + new - 2, 32 + new - 2],
+                            device="cuda")
+
+    def last_step(edit=None, record=None):
+        c = map_cache(torch.clone, before_last)
+        if edit is not None:
+            edit(c)
+        with encdec_rows(*record) if record else contextlib.nullcontext():
+            logits, _ = decode_step(params, cfg, feed, c, last_pos)
+        return logits[0:1].float()
+
+    got_self, got_cross = [], []
+    got.append(last_step(record=(got_self, got_cross)))
+    assert torch.equal(got[-1], replayed), f"{label}: replay differs"
+    fed = torch.as_tensor(np.concatenate(
+        [prompt, np.asarray(tokens[:-1], np.int32)])[None], device="cuda")
+
+    def full_forward(record):
+        with encdec_rows(*record):
+            hidden = forward(params, cfg, fed, enc_embeds=fa)
+        return logits_of(params, cfg, hidden[:, FULL_PROMPT - 1:])[0].float()
+
+    full_self, full_cross = [], []
+    full = full_forward((full_self, full_cross))
+    assert full.shape[0] == len(got) == new
+    teacher = [(g, full[i:i + 1]) for i, g in enumerate(got)]
+    res["vs_full_forward"] = {
+        "logits": hold_logits(teacher),
+        "self_attn": attn_gap(got_self, full_self),
+        "cross_attn": attn_gap(got_cross, full_cross)}
+    chk = res["vs_full_forward"]
+    assert chk["self_attn"]["layers_over"] == 0, (label, chk)
+    assert chk["cross_attn"]["layers_over"] == 0, (label, chk)
+
+    def zero_cross(c):
+        c["xk"][:, 0].zero_()
+        c["xv"][:, 0].zero_()
+
+    def other_frames(c):
+        c["xk"][:, 0].copy_(c["xk"][:, 1])
+        c["xv"][:, 0].copy_(c["xv"][:, 1])
+
+    res["controls"] = {}
+    for name, edit in (("zeroed_cross_kv", zero_cross),
+                       ("other_slot_cross_kv", other_frames)):
+        bad_self, bad_cross = [], []
+        bad = last_step(edit, (bad_self, bad_cross))
+        res["controls"][name] = {
+            "logits": logit_stats([(bad, full[-1:])]),
+            "cross_attn": attn_gap(bad_cross, full_cross)}
+    causal_self, causal_cross = [], []
+    with causal_encoder():
+        causal = full_forward((causal_self, causal_cross))
+    res["controls"]["causal_encoder"] = {
+        "logits": logit_stats([(got[-1], causal[-1:])]),
+        "cross_attn": attn_gap(got_cross, causal_cross)}
+    for name, c in res["controls"].items():
+        c["weak"] = c["cross_attn"]["layers_over"] == 0
+        assert not c["weak"], (label, name, c)
+    return res
+
+
+def report_encdec(label, r, card) -> None:
+    adm, cost, fc = r["admissions"], r["xattn_cost"], r["full_context"]
+    for a in adm:
+        print(f"{a['label']} admission on {card}: {a['prompt']} tokens over "
+              f"{a['frames']} frames, eager {a['eager_wall_ms']:.3f} ms wall, "
+              f"device span {a['span_ms']:.3f} ms (encoder "
+              f"{a['encoder_span_ms']:.3f} ms), launches {a['launches']}",
+              flush=True)
+    print(f"{label} cross-attention on {card}: a decode step's "
+          f"{cost['layers']} sublayers at {cost['tokens']} tokens over "
+          f"{cost['frames']} frames {cost['xattn_sublayers_ms']:.3f} ms, "
+          f"their attention alone {cost['xattn_attention_ms']:.3f} ms "
+          f"(device spans of one graph each); the cross K/V's "
+          f"{cost['cross_kv_bytes'] / 1e9:.3f} GB at 3.35 TB/s "
+          f"{cost['cross_kv_bound_ms']:.3f} ms", flush=True)
+    chk = fc["vs_full_forward"]
+    print(f"{label} full-context request on {card}: {fc['prompt']} + "
+          f"{fc['new_tokens']} tokens at {fc['cache_rows']} rows beside "
+          f"another slot; admission {fc['admission_ms']:.3f} ms (eager), "
+          f"decode {fc['decode_ms_per_step']:.3f} ms a step (replayed); "
+          f"peak {fc['serve_peak_gb']:.2f} GB; cross K/V vs classic "
+          f"prefill {fc['cross_kv_vs_classic_prefill']}; every step's "
+          f"logits vs teacher-forced forward {chk['logits']}, self-attention "
+          f"rows {chk['self_attn']['max_rel_rms_err']:.5f}, cross-attention "
+          f"rows {chk['cross_attn']['max_rel_rms_err']:.5f} (bound "
+          f"{ATTN_TOL}); controls "
+          + "; ".join(f"{k}: cross rows "
+                      f"{c['cross_attn']['max_rel_rms_err']:.4f} with "
+                      f"{c['cross_attn']['layers_over']} of "
+                      f"{len(c['cross_attn']['per_layer'])} over, logits "
+                      f"{c['logits']['max_abs_err']:.4f} "
+                      f"({'weak' if c['weak'] else 'fails as it must'})"
+                      for k, c in fc["controls"].items())
+          + f"; launches {fc['counts']}", flush=True)
+
+
+def encdec_phase(cfg, params, sparse, short, card, res) -> dict:
+    """Phase (j)'s serving of an enc-dec model (``res`` holds
+    :func:`family_phase`'s init and conversion): dense and n:m:g each
+    through :func:`encdec_serve_phase` (the trace replayed and eager) and
+    :func:`graph_phase` over a cache with cross K/V (the 8-step chunk
+    replay bitwise eager across an admission), their admissions timed
+    (:func:`encdec_admission`); beside per-token p50 the step's byte
+    bound: the weights a decode step reads (``xattn.wk`` / ``wv`` left
+    out: they run at admission only) and the cross K/V of 4 slots, read
+    once.  Then on the n:m:g copy: the logits against the plain versions
+    (:func:`logit_parity`, with frames), the cross-attention's cost
+    (:func:`xattn_cost`) and the full-context request
+    (:func:`encdec_full_context`)."""
+    import torch
+
+    from repro_torch.core.layouts import GroupedNMTensor
+
+    def converted(tree):
+        if isinstance(tree, dict):
+            return sum(converted(v) for v in tree.values())
+        return int(isinstance(tree, GroupedNMTensor))
+
+    # the encoder's q/k/v/o and MLP, the decoder's and its xattn's
+    res["converted_leaves"] = converted(sparse)
+    assert res["converted_leaves"] == 16, res["converted_leaves"]
+    cross = cross_kv_bytes(cfg, ENGINE_KW["max_slots"])
+    res["step_bytes"]["cross_kv"] = cross
+    torch.cuda.reset_peak_memory_stats()
+    runs, graphs, adm = [], [], []
+    for kind, p in (("dense", params), ("sparse", sparse)):
+        label = f"{short}_{kind}"
+        runs.append(encdec_serve_phase(cfg, p, label))
+        graphs.append(graph_phase(cfg, p, label, profile=False,
+                                  enc_len=ENC_FRAMES))
+        adm.append(encdec_admission(cfg, p, label))
+    res["serve_peak_gb"] = _gb_peak()
+    dc, sc = runs[0]["counts"], runs[1]["counts"]
+    assert all(dc[k] == 0 for k in KERNELS), dc
+    for k in ("nmg_gemv", "nmg_qkv", "nmg_spmm"):
+        assert sc[k] > 0, f"{k} never launched on the {short} n:m:g path"
+    assert sc["nmg_ffn"] == 0, sc          # whisper's MLP is not gated
+    report_runs(runs, card)
+    for r in runs:
+        kind = r["label"].rsplit("_", 1)[1]
+        adm_ms = r["admission_wall_ms"]["graph"]
+        r["step_bound_ms"] = ((res["step_bytes"][kind] + cross)
+                              / HBM_BYTES_PER_S * 1e3)
+        print(f"serve[{r['label']}] on {card}: per-token p50 "
+              f"{r['metrics']['tok_latency_p50'] * 1e3:.3f} ms (graphs), "
+              f"weights read a decode step {res['step_bytes'][kind] / 1e9:.3f}"
+              f" GB, cross K/V read {cross / 1e9:.3f} GB, byte bound "
+              f"{r['step_bound_ms']:.3f} ms at 3.35 TB/s; admissions "
+              f"(eager) {[round(a, 3) for a in adm_ms]} ms", flush=True)
+    for p in graphs:
+        cg = p["chunk_graph"]
+        print(f"decode chunk[{p['label']}] on {card}: 8 steps at 4 slots, "
+              f"replay bitwise eager ({p['bitwise']}); eager "
+              f"{p['eager_wall_ms']:.2f} ms wall, replayed "
+              f"{p['replay_wall_ms']:.3f} ms wall, device (event span) "
+              f"{p['replay_event_span_ms']:.3f} ms; capture "
+              f"{cg['capture_ms']:.1f} ms + instantiate "
+              f"{cg['instantiate_ms']:.1f} ms, pool "
+              f"{cg['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    res["parity"] = logit_parity(cfg, sparse, frames=ENC_FRAMES)
+    print(f"logit parity ({cfg.name} attn=True gr{res['gr']}, kernels vs "
+          f"plain, with frames): {res['parity']}", flush=True)
+    res["encdec"] = {"admissions": adm, "xattn_cost": xattn_cost(cfg, sparse),
+                     "full_context": encdec_full_context(
+                         cfg, sparse, f"{short}_full_context")}
+    report_encdec(cfg.name, res["encdec"], card)
+    res["runs"], res["graphs"] = runs, graphs
+    return res
+
+
 def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
     """One model at full width and depth, or with ``smoke`` its SMOKE
     config (seeded random weights, bf16): ``init_lm`` (seconds, peak),
@@ -2635,6 +3295,8 @@ def family_phase(arch: str, smoke: bool, gr: int, card: str) -> dict:
           f"{res['convert_peak_gb']:.2f} GB", flush=True)
     if cfg.moe is not None:
         res["step_bytes"]["moe"] = moe_step_bytes(cfg, params)
+    if cfg.n_enc_layers > 0:
+        return encdec_phase(cfg, params, sparse, short, card, res)
     torch.cuda.reset_peak_memory_stats()
     runs = [serve_phase(cfg, params, f"{short}_dense")]
     graphs = [graph_phase(cfg, params, f"{short}_dense", profile=False)]
@@ -2814,7 +3476,8 @@ def report_moe(arch, r, card) -> None:
 
 def families_child(flag: str) -> int:
     """Phase 3d (``python3 chip_smoke.py --families``), 3e
-    (``--vlm-mla``), 3h (``--moe``) or 3i (``--ssm``) in its own process, started by :func:`main`: the earlier phases'
+    (``--vlm-mla``), 3h (``--moe``), 3i (``--ssm``) or 3j (``--encdec``)
+    in its own process, started by :func:`main`: the earlier phases'
     params, graphs, pools and profiler sessions are not in it.  Writes its
     results to ``chiprun_out/`` under the flag's file name
     (:data:`FAMILY_RUNS`)."""
@@ -4196,6 +4859,9 @@ def main() -> int:
     # mamba2's and hymba's widths, from a generator of their own too
     gen_i = torch.Generator(device="cuda").manual_seed(27)
     cases += kernel_phase(gen_i, "mamba2") + kernel_phase(gen_i, "hymba")
+    # whisper's widths (the SpMM at the encoder's 1500 frames among them)
+    cases += kernel_phase(torch.Generator(device="cuda").manual_seed(28),
+                          "whisper")
     print(f"kernel phase: {len(cases)} cases within bounds ({card})")
     for c in cases:
         lib = ("none" if c["library_ms"] is None
@@ -4312,8 +4978,10 @@ def main() -> int:
     moe = run_families("--moe", 600)
     # (i) mamba2-370m and hymba-1.5b, recurrent state, in another process
     ssm = run_families("--ssm", 500)
+    # (j) whisper-large-v3, enc-dec, in another process
+    encdec = run_families("--encdec", 400)
     all_fams = (fam["families"] + vlm["families"] + moe["families"]
-                + ssm["families"])
+                + ssm["families"] + encdec["families"])
     fam_counts = {r["label"]: r["counts"] for f in all_fams
                   for r in f["runs"] if r["label"].endswith("_sparse")}
     for r in tune["serve"]:
@@ -4377,7 +5045,7 @@ def main() -> int:
         "train_margins": margins,
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
-        "moe": moe, "ssm": ssm,
+        "moe": moe, "ssm": ssm, "encdec": encdec,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -4544,7 +5212,42 @@ def main() -> int:
                 "admission_ms": {p["label"]: {
                     r["S"]: round(r["replay_wall_ms"], 3)
                     for r in p["lens"]} for p in f["prefill"]}}}
-               if "long" in f else {})}
+               if "long" in f else {}),
+            **({"encdec": {
+                "ttft_ms": {r["label"]: [
+                    round(r["metrics"]["ttft_p50"] * 1e3, 3),
+                    round(r["metrics"]["ttft_p99"] * 1e3, 3)]
+                    for r in f["runs"]},
+                "admission_ms": {a["label"]: {
+                    "eager_wall": round(a["eager_wall_ms"], 3),
+                    "span": round(a["span_ms"], 3),
+                    "encoder_span": round(a["encoder_span_ms"], 3)}
+                    for a in f["encdec"]["admissions"]},
+                "xattn_ms": {k: round(f["encdec"]["xattn_cost"][k], 3)
+                             for k in ("xattn_sublayers_ms",
+                                       "xattn_attention_ms",
+                                       "cross_kv_bound_ms")},
+                "full_context": {
+                    "cross_kv_bitwise": all(f["encdec"]["full_context"][
+                        "cross_kv_vs_classic_prefill"].values()),
+                    "decode_ms_per_step": round(f["encdec"]["full_context"][
+                        "decode_ms_per_step"], 3),
+                    "logit_err": f["encdec"]["full_context"][
+                        "vs_full_forward"]["logits"]["max_abs_err"],
+                    "logit_tol": f["encdec"]["full_context"][
+                        "vs_full_forward"]["logits"]["tol"],
+                    "self_attn_rel_err": f["encdec"]["full_context"][
+                        "vs_full_forward"]["self_attn"]["max_rel_rms_err"],
+                    "cross_attn_rel_err": f["encdec"]["full_context"][
+                        "vs_full_forward"]["cross_attn"]["max_rel_rms_err"],
+                    "controls": {k: {
+                        "cross_attn_rel_err":
+                            c["cross_attn"]["max_rel_rms_err"],
+                        "layers_over": c["cross_attn"]["layers_over"],
+                        "weak": c["weak"]}
+                        for k, c in f["encdec"]["full_context"][
+                            "controls"].items()}}}}
+               if "encdec" in f else {})}
             for f in all_fams},
         "tuning": {
             "wall_s": round(tune["wall_s"], 1),

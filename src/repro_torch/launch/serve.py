@@ -26,7 +26,8 @@ layers hold no ``attn`` or ``mlp`` leaf; hymba-1.5b's ``--sparse``
 converts its attention and MLP, not its SSM mixer, and its all-local
 layers keep a full-length cache attended over the 2048-token window;
 an SSM model serves prompts of at least its ``conv_width - 1`` = 3
-tokens); ``--device cpu``
+tokens; whisper-large-v3, an enc-dec model, exits non-zero: the engine
+takes no encoder frames); ``--device cpu``
 runs the plain versions on the CPU (with ``--smoke`` for a size the CPU
 can take).  ``--tuning-table PATH``
 (or ``$REPRO_TUNE_TABLE``) routes through a table of ``python -m
@@ -44,6 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import init_lm
 from repro_torch.serve import Request, SamplingParams, ServeEngine, \
     compare_dense_sparse, warmup_engine
+from repro_torch.serve.engine import check_servable
 from repro_torch.tune import load_table_cli
 from repro_torch.tune.table import device_kind
 
@@ -103,6 +105,10 @@ def main(argv=None) -> int:
     # --tuning-table or $REPRO_TUNE_TABLE, before any model is built
     load_table_cli(args.tuning_table, device=device_kind(device))
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    try:
+        check_servable(cfg)
+    except ValueError as e:
+        ap.error(str(e))
     params = init_lm(cfg, args.seed, device=device)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen_len,
                          args.seed)

@@ -1,6 +1,7 @@
 """The ported model stack (a decoder with GQA or MLA attention, a Mamba2
 SSD mixer or both, a plain or gated MLP or a mixture of experts, an
-optional VLM prefix) and its training loss."""
+optional VLM prefix, an optional encoder with cross-attention) and its
+training loss."""
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import (

@@ -12,10 +12,12 @@ without QKV bias and the MLP's inline threshold, global layers, all-local
 layers or alternating local/global layer pairs with a sliding window,
 attention and logit softcaps, post-norms, a tied or separate head, and a
 prefix of precomputed embeddings under a prefix-LM mask (the VLM stub
-frontend).  :meth:`ModelConfig.check_ported` raises
-``NotImplementedError`` for the other families (enc-dec, int8 KV cache)
-and for the expert-parallel MoE strategies (``impl="shmap"``,
-``combine="scatter"``).
+frontend), and an encoder over precomputed frame embeddings with
+cross-attention in every decoder layer (enc-dec, whisper's shape: GQA,
+global layers).  :meth:`ModelConfig.check_ported` raises
+``NotImplementedError`` for the other families (int8 KV cache, enc-dec
+beside anything but whisper's shape) and for the expert-parallel MoE
+strategies (``impl="shmap"``, ``combine="scatter"``).
 """
 
 from __future__ import annotations
@@ -203,11 +205,14 @@ class ModelConfig:
         all-local layers (``local`` with ``local_window``) or
         local/global pairs (``alt_local_global`` with ``local_window``,
         an even layer count), softcaps, post-norms, a VLM prefix
-        (``vision_prefix`` precomputed embeddings); no enc-dec or int8
-        KV.  ``impl="shmap"`` and
+        (``vision_prefix`` precomputed embeddings), an encoder stack with
+        cross-attention (``n_enc_layers > 0``) on whisper's shape alone
+        (GQA attention, global layers, no MoE, SSM or prefix; any other
+        enc-dec combination is refused by a name that says ``enc-dec``);
+        no int8 KV.  ``impl="shmap"`` and
         ``combine="scatter"`` are expert-parallel sharding strategies:
         they wait for distribution."""
-        moe = self.moe
+        moe, encdec = self.moe, self.n_enc_layers > 0
         unported = {
             "attn_type not in ('gqa', 'mla', 'none', 'hybrid')":
                 self.attn_type not in ("gqa", "mla", "none", "hybrid"),
@@ -230,7 +235,14 @@ class ModelConfig:
             "local/global pairs without local_window or of odd depth":
                 self.layer_pattern == "alt_local_global"
                 and (self.local_window is None or self.n_layers % 2),
-            "enc-dec": self.n_enc_layers > 0,
+            f"enc-dec with attn_type {self.attn_type!r}":
+                encdec and self.attn_type != "gqa",
+            f"enc-dec with layer_pattern {self.layer_pattern!r}":
+                encdec and self.layer_pattern != "global",
+            "enc-dec with a MoE": encdec and moe is not None,
+            "enc-dec with an SSM": encdec and self.ssm is not None,
+            "enc-dec with a vision prefix":
+                encdec and self.vision_prefix > 0,
             "kv_cache_dtype": self.kv_cache_dtype is not None,
         }
         bad = [k for k, v in unported.items() if v]

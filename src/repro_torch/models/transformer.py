@@ -26,7 +26,13 @@ layer scan does.  ``attn_type "none"`` (mamba2) gives each layer an
 ``ssm`` mixer in place of attention and no MLP; ``"hybrid"`` (hymba) an
 ``ssm`` beside GQA attention on the same normed input, mixed as ``(a +
 s) * 0.5``.  With ``layer_pattern "local"`` every layer attends over
-``local_window`` keys.  Any projection may be a ``GroupedNMTensor`` (``mm``
+``local_window`` keys.  An enc-dec config (``n_enc_layers > 0``,
+whisper) runs ``enc_layers``, the same layer body non-causal, over
+``enc_embeds`` [B, F, D] (precomputed frames, the reference's stub
+frontend) and ``enc_norm``; each decoder layer then cross-attends over
+the encoder's output after its self-attention (``xattn`` behind its own
+norm ``lnx``: no RoPE, no fused QKV, f32 scores, as the reference's
+``_cross_attn``).  Any projection may be a ``GroupedNMTensor`` (``mm``
 routes it through the n:m:g kernels) or another layout
 (``FixedMaskTensor`` in masked training; ``NMTensor`` and
 ``DenseTensor`` through the dispatcher's lossless conversions).  The reference's three intermediate tag sites
@@ -42,7 +48,9 @@ The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]; for a pair layout
 ``{"local": {"k", "v"}, "global": {...}}`` on [L/2], the local leaves a
 ring of ``min(S, local_window)`` rows; for MLA ``{"ckv" [L, B, S, r],
 "kr" [L, B, S, rd]}``; an SSM's recurrent state ``{"ssm_state":
-{"conv", "ssm"}}``, which has no sequence axis) is updated **in place**
+{"conv", "ssm"}}``, which has no sequence axis; an enc-dec model's cross
+K/V ``{"xk", "xv"}`` [L, B, enc_len, KV, hd], sized by the frames, written
+whole at admission and only read by decode) is updated **in place**
 (``index_put_`` / ``index_copy_``) where the reference returns a new
 array from ``.at[].set``; ``decode_step`` and ``prefill`` still return the
 cache for the reference's calling convention.  The serving engine's decode
@@ -143,11 +151,12 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def _init_layers(gen, cfg: ModelConfig, L: int, dev):
+def _init_layers(gen, cfg: ModelConfig, L: int, dev, *, cross=False):
     """One stack of L layers, the reference's leaves: ``attn`` for GQA,
     MLA and the hybrid, ``ssm`` for an SSM or hybrid model, ``moe`` in
     place of ``mlp`` for a MoE config, no ``mlp`` in an attention-free
-    (pure SSM) layer."""
+    (pure SSM) layer; with ``cross`` (an enc-dec decoder) the
+    cross-attention ``xattn`` and its norm ``lnx``."""
     D, F_, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
     p: dict[str, Any] = {
         "ln1": torch.zeros(L, D, dtype=dt, device=dev),
@@ -165,6 +174,9 @@ def _init_layers(gen, cfg: ModelConfig, L: int, dev):
         p["mlp"] = {"wi": dense_init(
             gen, (L, D, 2 * F_ if cfg.gated_mlp else F_), dt, dev),
             "wo": dense_init(gen, (L, F_, D), dt, dev)}
+    if cross:
+        p["xattn"] = attn.init_gqa(gen, cfg, L=L, device=dev)
+        p["lnx"] = torch.zeros(L, D, dtype=dt, device=dev)
     if cfg.post_norms:
         p["post_ln1"] = torch.zeros(L, D, dtype=dt, device=dev)
         p["post_ln2"] = torch.zeros(L, D, dtype=dt, device=dev)
@@ -174,7 +186,9 @@ def _init_layers(gen, cfg: ModelConfig, L: int, dev):
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Random params for ``cfg`` from a seeded ``torch.Generator`` on
     ``device``, in the reference's layout (a pair layout for
-    ``alt_local_global``; different numbers: the reference draws from
+    ``alt_local_global``; an enc-dec config's ``enc_layers`` and
+    ``enc_norm`` beside the decoder's ``layers``, which hold ``xattn``
+    and ``lnx``; different numbers: the reference draws from
     ``jax.random``), each stacked leaf drawn a layer at a time."""
     cfg.validate()
     dev = resolve_device(device)
@@ -188,7 +202,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
         params["layers"] = {g: _init_layers(gen, cfg, L // 2, dev)
                             for g in _groups(cfg)}
     else:
-        params["layers"] = _init_layers(gen, cfg, L, dev)
+        params["layers"] = _init_layers(gen, cfg, L, dev,
+                                        cross=cfg.n_enc_layers > 0)
+    if cfg.n_enc_layers > 0:
+        params["enc_layers"] = _init_layers(gen, cfg, cfg.n_enc_layers, dev)
+        params["enc_norm"] = torch.zeros(D, dtype=dt, device=dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, cfg.vocab), dt, dev)
     return params
@@ -233,21 +251,25 @@ def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
 
 
 def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0,
-                   collect=False):
+                   collect=False, causal=True, enc_out=None):
     """The mixer sublayer: attention, the SSM mixer, or (hybrid) the mean
-    of both, ``(a + s) * 0.5`` in the activation dtype.  Returns (x, this
+    of both, ``(a + s) * 0.5`` in the activation dtype; then, in an
+    enc-dec decoder layer (``enc_out`` given), the cross-attention over
+    the encoder's output, ``x + xattn(rms(x, lnx))``.  Returns (x, this
     layer's cache contribution: {"k", "v"}, MLA's {"ckv", "kr" [B, S,
-    rd]}, and an SSM's {"ssm_state": {"conv", "ssm"}}, the latter only
-    with ``collect``)."""
+    rd]}, the cross K/V {"xk", "xv"} [B, F, KV, hd], and an SSM's
+    {"ssm_state": {"conv", "ssm"}}, the latter only with ``collect``).
+    ``causal`` false: every position attends over every other (the
+    encoder)."""
     h = _rms(x, lp["ln1"])
     contrib: dict[str, Any] = {}
     a = None
     if cfg.attn_type == "mla":
-        a, ckv, kr = attn.apply_mla(lp["attn"], h, cfg)
+        a, ckv, kr = attn.apply_mla(lp["attn"], h, cfg, causal=causal)
         contrib = {"ckv": ckv, "kr": kr.reshape(kr.shape[0], kr.shape[1], -1)}
     elif "attn" in lp:
         a, (k, v) = attn.apply_gqa(lp["attn"], h, cfg, is_local=is_local,
-                                   prefix_len=prefix_len)
+                                   prefix_len=prefix_len, causal=causal)
         contrib = {"k": k, "v": v}
     if "ssm" in lp:
         s_out, state = ssm_mod.apply_ssm(lp["ssm"], h, cfg,
@@ -258,7 +280,38 @@ def _sublayer_attn(lp, x, cfg, *, is_local=False, prefix_len=0,
     a = tag("attn.out", a)
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
-    return x + a, contrib
+    x = x + a
+    if enc_out is not None and "xattn" in lp:
+        xa, (xk, xv) = _cross_attn(lp["xattn"], _rms(x, lp["lnx"]), enc_out,
+                                   cfg)
+        contrib["xk"], contrib["xv"] = xk, xv
+        x = x + xa
+    return x, contrib
+
+
+def _cross_attn(p, x, enc_out, cfg):
+    """Cross-attention of x [B, S, D] over the encoder's output enc_out
+    [B, F, D], as the reference's ``_cross_attn``: q, k and v by plain
+    products (no RoPE, no fused QKV launch, no bias), every frame visible,
+    scores in f32 (``chunked_attention``'s default, which the reference
+    keeps here whatever ``attn_dtype``).  Returns (y, (k, v) [B, F, KV,
+    hd]), the latter what decode caches as ``xk`` / ``xv``."""
+    B = x.shape[0]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = mm(enc_out, p["wk"]).reshape(B, -1, KV, hd)
+    v = mm(enc_out, p["wv"]).reshape(B, -1, KV, hd)
+    return _cross_attn_cached(p, x, k, v, cfg), (k, v)
+
+
+def _cross_attn_cached(p, x, xk, xv, cfg):
+    """Cross-attention of x [B, S, D] over cached cross K/V ``xk`` /
+    ``xv`` [B, F, KV, hd] (read only): the decode step's, and the
+    forward's once its k and v are formed."""
+    B, S, _ = x.shape
+    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    out = attn.chunked_attention(q, xk, xv, causal=False,
+                                 chunk_q=cfg.attn_chunk_q)
+    return mm(out.reshape(B, S, -1), p["wo"])
 
 
 def _sublayer_ffn(lp, x, cfg):
@@ -296,19 +349,41 @@ def _sublayer_ffn(lp, x, cfg):
     return x + f, None
 
 
+def _run_encoder(params, cfg: ModelConfig, enc_embeds, dtype):
+    """The encoder stack over the frames ``enc_embeds`` [B, F, D], cast to
+    the activation dtype (no embedding scale): every ``enc_layers`` layer
+    non-causal, then ``enc_norm`` (the reference's ``_run_encoder``)."""
+    e = enc_embeds.to(dtype)
+    for lp in layer_list(params["enc_layers"]):
+        e, _ = _sublayer_attn(lp, e, cfg, causal=False)
+        e, _ = _sublayer_ffn(lp, e, cfg)
+    return _rms(e, params["enc_norm"])
+
+
+def _need_frames(cfg: ModelConfig, enc_embeds) -> None:
+    if cfg.n_enc_layers > 0 and enc_embeds is None:
+        raise ValueError(
+            f"{cfg.name!r} is an enc-dec model: pass enc_embeds [B, F, "
+            f"{cfg.d_model}], the encoder's frame embeddings")
+
+
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-            prefix_embeds=None, collect_cache: bool = False,
-            with_aux: bool = False):
+            prefix_embeds=None, enc_embeds=None,
+            collect_cache: bool = False, with_aux: bool = False):
     """tokens [B, S] (or ``embeds`` [B, S, D], taken as they are, in
     place of the scaled token embeddings) -> hidden [B, P + S, D]
     (final-normed).  ``prefix_embeds`` [B, P, D] are cast to the
     activation dtype and prepended, and every layer attends over those P
-    positions bidirectionally.  With ``collect_cache`` also returns the
+    positions bidirectionally.  An enc-dec config runs its encoder over
+    ``enc_embeds`` [B, F, D] (required: ``ValueError`` without them; a
+    config without an encoder ignores them) and every decoder layer
+    cross-attends over its output.  With ``collect_cache`` also returns the
     per-layer cache contributions stacked on [L]: (hidden, {"k": [L, B,
     P + S, KV, hd], "v": ...}) (MLA: {"ckv": [L, B, P + S, r], "kr": [L,
-    B, P + S, rd]}; an SSM or hybrid layer's decode state after the last
-    position, {"ssm_state": {"conv": [L, B, W - 1, C], "ssm": [L, B, H,
-    P, N]}}), for a pair layout {"local": {...}, "global": {...}} on
+    B, P + S, rd]}; enc-dec also {"xk", "xv": [L, B, F, KV, hd]}; an SSM
+    or hybrid layer's decode state after the last position,
+    {"ssm_state": {"conv": [L, B, W - 1, C], "ssm": [L, B, H, P, N]}}),
+    for a pair layout {"local": {...}, "global": {...}} on
     [L/2].  With ``with_aux`` the f32 sum of the layers' MoE
     auxiliary losses (0 without MoE) comes last: (hidden, aux) or
     (hidden, cache, aux)."""
@@ -317,6 +392,9 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         prefix_len = prefix_embeds.shape[1]
+    _need_frames(cfg, enc_embeds)
+    enc_out = (_run_encoder(params, cfg, enc_embeds, x.dtype)
+               if cfg.n_enc_layers > 0 else None)
     groups = _groups(cfg)
     contribs: dict = {g: {} for g in groups}
     aux = None
@@ -325,7 +403,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         for g, lp in zip(groups, body):
             x, c = _sublayer_attn(lp, x, cfg, is_local=_is_local(cfg, g),
                                   prefix_len=prefix_len,
-                                  collect=collect_cache)
+                                  collect=collect_cache, enc_out=enc_out)
             x, da = _sublayer_ffn(lp, x, cfg)
             if da is not None:
                 aux = da if aux is None else aux + da
@@ -360,14 +438,15 @@ def logits_of(params, cfg: ModelConfig, hidden):
 
 def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
     """Mean next-token cross-entropy: batch {"tokens" [B, S], "labels"
-    [B, S], optional "prefix_embeds" [B, P, D]}, labels < 0 masked out;
+    [B, S], optional "prefix_embeds" [B, P, D] and "enc_embeds" [B, F, D]
+    (an enc-dec model's frames)}, labels < 0 masked out;
     the prefix rows of the hidden states are dropped before the head;
     logits in f32.  Returns (ce + aux_weight · moe_aux, {"ce",
     "moe_aux"}), ``moe_aux`` the layers' summed MoE auxiliary loss (0
     without MoE, so the loss is the cross-entropy alone)."""
     prefix = batch.get("prefix_embeds")
     hidden, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
-                          with_aux=True)
+                          enc_embeds=batch.get("enc_embeds"), with_aux=True)
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:]
     labels = batch["labels"].long()
@@ -396,7 +475,8 @@ def map_cache(fn, *caches):
     return fn(*caches)
 
 
-def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
+def init_cache(cfg: ModelConfig, B: int, S: int, *, enc_len: int = 0,
+               device="cuda"):
     """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros; an MLA
     model's the compressed {"ckv": [L, B, S, r], "kr": [L, B, S, rd]}; an
     SSM model's {"ssm_state": {"conv": [L, B, W - 1, C] in the model
@@ -404,7 +484,10 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
     ``ssm_state``.  A pair layout's is {"local": ..., "global": ...},
     each on [L/2], its local leaves a ring of ``min(S, local_window)``
     rows (the reference's ``local_window_cache``); an all-local model's
-    K/V leaves are full length S, as the reference's are."""
+    K/V leaves are full length S, as the reference's are.  With
+    ``enc_len`` an enc-dec model's also holds the cross K/V {"xk", "xv":
+    [L, B, enc_len, KV, hd]} in the model dtype (none without it, as in
+    the reference)."""
     dev = resolve_device(device)
 
     def layer_cache(L, rows):
@@ -421,6 +504,10 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, device="cuda"):
             for name, shape in shapes.items()}
         if cfg.attn_type in ("none", "hybrid"):
             c["ssm_state"] = ssm_mod.init_ssm_state(cfg, B, L=L, device=dev)
+        if enc_len and cfg.n_enc_layers > 0:
+            shape = (L, B, enc_len, cfg.n_kv_heads, cfg.hd)
+            c["xk"] = torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+            c["xv"] = torch.zeros(shape, dtype=cfg.tdtype, device=dev)
         return c
 
     if _pair(cfg):
@@ -459,7 +546,9 @@ def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
     """One layer's decode step over ``c``, the layer's cache views
     ({"k", "v"}, MLA's {"ckv", "kr"}, an SSM's {"ssm_state": {"conv",
     "ssm"}}), every leaf written in place (the SSM state by ``copy_``);
-    a hybrid layer mixes attention and SSM as the forward does."""
+    a hybrid layer mixes attention and SSM as the forward does; an
+    enc-dec layer then cross-attends over its ``xk`` / ``xv``, read
+    only."""
     h = _rms(x, lp["ln1"])
     a = None
     if cfg.attn_type == "mla":
@@ -475,15 +564,28 @@ def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
         a = s_out if a is None else (a + s_out) * 0.5
     if cfg.post_norms:
         a = _rms(a, lp["post_ln1"])
-    return _sublayer_ffn(lp, x + a, cfg)[0]
+    x = x + a
+    if "xattn" in lp:
+        x = x + _cross_attn_cached(lp["xattn"], _rms(x, lp["lnx"]), c["xk"],
+                                   c["xv"], cfg)
+    return _sublayer_ffn(lp, x, cfg)[0]
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos):
     """token [B, 1] int; pos [] or [B] (per-slot positions); returns
-    (logits [B, V], cache) with the cache updated in place."""
+    (logits [B, V], cache) with the cache updated in place.  An enc-dec
+    config needs a cache with cross K/V (``init_cache(enc_len=)``) and
+    raises ``ValueError`` over one without: the reference's step runs
+    without cross-attention there (a deliberate difference, ROADMAP
+    C12)."""
+    groups = _groups(cfg)
+    if cfg.n_enc_layers > 0 and "xk" not in _group(cache, groups[0]):
+        raise ValueError(
+            f"decode_step on the enc-dec model {cfg.name!r} over a cache "
+            f"without cross K/V: build it with init_cache(..., enc_len=) "
+            f"and admit with enc_embeds")
     x = _embed(params, cfg, token)
     pv = attn.pos_vec(pos, token.shape[0], device=token.device)
-    groups = _groups(cfg)
     # every leaf, a state leaf too, is stacked on [L] (or [L/2])
     for i in range(cache_leaves(_group(cache, groups[0]))[0].shape[0]):
         for g in groups:
@@ -506,13 +608,15 @@ def _rows(S_src: int, S_c: int, offset, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _seq_leaf_kinds(cfg: ModelConfig):
+def _seq_leaf_kinds(cfg: ModelConfig, enc_len: int = 0):
     """Which cache leaves carry a sequence axis (the reference's structural
-    rule): ``init_cache`` probed at two lengths on the meta device, a leaf
-    whose shape moves is a sequence leaf (K/V, MLA latents, ring leaves
-    too at these small lengths); an SSM's ``conv`` / ``ssm`` state leaves
-    are not.  A tree of bools in the cache's nesting."""
-    a, b = (init_cache(cfg, 1, S, device="meta") for S in (2, 3))
+    rule): ``init_cache(enc_len=)`` probed at two lengths on the meta
+    device, a leaf whose shape moves is a sequence leaf (K/V, MLA
+    latents, ring leaves too at these small lengths); an SSM's ``conv`` /
+    ``ssm`` state leaves and the cross K/V ``xk`` / ``xv`` (sized by
+    ``enc_len``) are not.  A tree of bools in the cache's nesting."""
+    a, b = (init_cache(cfg, 1, S, enc_len=enc_len, device="meta")
+            for S in (2, 3))
     return map_cache(lambda x, y: x.shape != y.shape, a, b)
 
 
@@ -521,11 +625,11 @@ def _write_slot_leaf(dst, src, slot, offset, is_seq):
     ``dst`` [L, B_slots, S_cache, ...] at seq offset ``offset``, in place,
     as one indexed write (rows by :func:`_rows`; a prompt longer than the
     cache keeps its tail).  A state leaf (``is_seq`` false: an SSM's
-    ``conv`` / ``ssm``) is overwritten whole at ``slot``, and ``offset``
-    does not touch it.  ``slot`` and ``offset`` are Python ints or 0-dim
-    integer tensors on ``dst``'s device; neither is read back to the
-    host, so a captured program writes whichever slot its buffers name at
-    replay."""
+    ``conv`` / ``ssm``, an enc-dec model's ``xk`` / ``xv``) is
+    overwritten whole at ``slot``, and ``offset`` does not touch it.
+    ``slot`` and ``offset`` are Python ints or 0-dim integer tensors on
+    ``dst``'s device; neither is read back to the host, so a captured
+    program writes whichever slot its buffers name at replay."""
     if not is_seq:
         assert dst.shape[2:] == src.shape[2:], (dst.shape, src.shape)
         idx = torch.as_tensor(slot, device=dst.device).reshape(1).long()
@@ -552,7 +656,8 @@ def _write_leaf(dst, src, is_seq):
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
-            *, cache=None, slot=None, write_offset=0, prefix_embeds=None):
+            *, cache=None, slot=None, write_offset=0, prefix_embeds=None,
+            enc_embeds=None):
     """Parallel forward that also fills the decode cache; returns
     (last-position logits [B, V], cache).  With ``cache_len`` a fresh
     cache is allocated and positions [0, S) written for the batch; with
@@ -574,33 +679,51 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int | None = None,
     their P rows are written ahead of the prompt's (P + S rows, from
     ``write_offset``); the next decode position is P + S.
 
+    An enc-dec model takes its frames ``enc_embeds`` [B, F, D]; the cross
+    K/V of every layer are written whole (a classic cache is built with
+    ``enc_len`` F; a slot cache must hold F frames: ``ValueError``
+    naming both lengths otherwise), ``write_offset`` does not touch them.
+
     An SSM's state leaves (the decode state after the last position) are
     written whole in both modes.  A prompt shorter than the conv window's
     ``conv_width - 1`` raises ``ValueError`` in both (ROADMAP C11:
     :func:`~repro_torch.models.ssm.apply_ssm`)."""
     B, S = tokens.shape
+    _need_frames(cfg, enc_embeds)
+    enc_len = enc_embeds.shape[1] if cfg.n_enc_layers > 0 else 0
+    if cache is not None and enc_len:
+        xk = _group(cache, _groups(cfg)[0]).get("xk")
+        held = 0 if xk is None else xk.shape[2]
+        if held != enc_len:
+            raise ValueError(
+                f"frames of length {enc_len} into a cache whose cross K/V "
+                f"hold enc_len {held}")
     hidden, contribs = forward(params, cfg, tokens,
                                prefix_embeds=prefix_embeds,
-                               collect_cache=True)
+                               enc_embeds=enc_embeds, collect_cache=True)
     logits = logits_of(params, cfg, hidden[:, -1:])[:, 0]
+    kinds = _seq_leaf_kinds(cfg, enc_len)
     if cache is not None:
         assert slot is not None, "slot-mode prefill needs a slot index"
         assert B == 1, "slot-mode prefill admits one request at a time"
         map_cache(lambda d, s, isq: _write_slot_leaf(d, s, slot,
                                                      write_offset, isq),
-                  cache, contribs, _seq_leaf_kinds(cfg))
+                  cache, contribs, kinds)
         return logits, cache
     assert cache_len is not None, "prefill needs cache_len or cache+slot"
-    cache = init_cache(cfg, B, cache_len, device=tokens.device)
-    map_cache(_write_leaf, cache, contribs, _seq_leaf_kinds(cfg))
+    cache = init_cache(cfg, B, cache_len, enc_len=enc_len,
+                       device=tokens.device)
+    map_cache(_write_leaf, cache, contribs, kinds)
     return logits, cache
 
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens, cache, slot, *,
-                      write_offset=0, prefix_embeds=None):
+                      write_offset=0, prefix_embeds=None, enc_embeds=None):
     """Admit one request: prefill ``tokens`` [1, S] (behind
-    ``prefix_embeds`` [1, P, D], if given) into batch row ``slot`` of
-    ``cache`` at seq offset ``write_offset`` (ints or 0-dim device
-    tensors); returns (last-position logits [1, V], cache)."""
+    ``prefix_embeds`` [1, P, D], if given; an enc-dec model over its
+    frames ``enc_embeds`` [1, F, D]) into batch row ``slot`` of ``cache``
+    at seq offset ``write_offset`` (ints or 0-dim device tensors);
+    returns (last-position logits [1, V], cache)."""
     return prefill(params, cfg, tokens, cache=cache, slot=slot,
-                   write_offset=write_offset, prefix_embeds=prefix_embeds)
+                   write_offset=write_offset, prefix_embeds=prefix_embeds,
+                   enc_embeds=enc_embeds)

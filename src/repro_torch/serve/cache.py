@@ -10,6 +10,12 @@ at its own position, and a freed slot is overwritten by the next
 admission.  ``decode_attention`` masks each slot to its own valid prefix,
 so stale rows are never read; ``reset`` and ``compact`` walk every leaf,
 the state leaves too (their slot axis is axis 1 like every leaf's).
+With ``enc_len`` an enc-dec model's cache also holds each slot's cross
+K/V (``xk`` / ``xv``, the reference's ``SlotKVCache(enc_len=)``); such a
+request is admitted by ``prefill_into_slot(enc_embeds=)`` into
+``data``, eagerly: the admission program takes no frames, as the
+reference's takes none, so :meth:`SlotKVCache.write_prefill` refuses an
+enc-dec model.
 
 The cache tensors are updated in place and never reallocated: the
 engine's graphs (``serve/graphs.py``) read and write this very storage,
@@ -73,11 +79,13 @@ class SlotKVCache:
     eagerly."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_seq_len: int,
-                 *, device="cuda", graphs: bool = True, pool=None):
+                 *, enc_len: int = 0, device="cuda", graphs: bool = True,
+                 pool=None):
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
-        self.data = init_cache(cfg, max_slots, max_seq_len, device=device)
+        self.data = init_cache(cfg, max_slots, max_seq_len, enc_len=enc_len,
+                               device=device)
         self.graphs = graphs
         self.pool = pool
         self._fn = _slot_prefill_fn(cfg)
@@ -90,7 +98,13 @@ class SlotKVCache:
         ``slot`` at seq offset ``write_offset``.  Returns the last-position
         logits [1, V]: the program's static output, valid until its next
         run.  A program holds the params it was built with; other params
-        build it anew."""
+        build it anew.  An enc-dec model raises ``ValueError``: the
+        program takes no frames."""
+        if self.cfg.n_enc_layers > 0:
+            raise ValueError(
+                f"{self.cfg.name!r} is an enc-dec model and the admission "
+                f"program takes no encoder frames: admit with "
+                f"`prefill_into_slot(enc_embeds=)` into this cache's data")
         assert tokens.ndim == 2 and tokens.shape[0] == 1
         S = int(tokens.shape[1])
         if S > self.max_seq_len:

@@ -25,6 +25,14 @@ the programs with example arguments, as the reference's does.
 ``sparsify_for_serving`` converts weights to :class:`GroupedNMTensor`
 through the ordinary :class:`SparsityBuilder`; the engine serves dense and
 n:m:g params alike.
+
+An enc-dec model (whisper) is refused at construction
+(:func:`check_servable`): requests carry no encoder frames, so the
+reference's engine fails at its first admission.  Its requests are
+admitted by ``prefill_into_slot(enc_embeds=)`` into a
+``SlotKVCache(enc_len=)`` and decoded by this module's decode programs
+(``_decode_fn`` / ``_decode_chunk_fn`` in a ``DecodeGraph``) over that
+cache.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ from repro_torch.serve.queue import Request, RequestOutput, RequestQueue, \
     sample_token
 
 __all__ = ["ServeEngine", "sparsify_for_serving", "compare_dense_sparse",
-           "warmup_engine", "decode_chunk", "serve_programs"]
+           "warmup_engine", "decode_chunk", "serve_programs",
+           "check_servable"]
 
 DEFAULT_MAX_SLOTS = 8
 
@@ -59,7 +68,8 @@ def sparsify_for_serving(params, n: int = 1, m: int = 4, g: int = 16,
     """Convert the FFN weights (and with ``attn=True`` also wq/wk/wv/wo) to
     the n:m:g serving layout, ``gr`` rows sharing each chunk permutation
     (the globs match a pair layout's ``layers.local.*`` and
-    ``layers.global.*`` too).  With ``attn=True`` q/k/v share one format over one contraction axis and
+    ``layers.global.*`` too; ``*attn.wq`` matches an enc-dec decoder's
+    ``layers.xattn.wq`` as well, and the encoder's ``enc_layers.*``).  With ``attn=True`` q/k/v share one format over one contraction axis and
     decode routes them through the fused QKV launch.  A gated MLP's packed
     [D, 2F] ``wi`` converts as one weight; when 2F needs no row padding
     and F is a multiple of ``gr`` (qwen1.5-4b: 2F = 13824 = 216 x 64; its
@@ -156,6 +166,18 @@ class _SlotState:
     max_new: int  # request budget clamped to the slot's cache capacity
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a model the engine cannot serve: an
+    enc-dec model, whose requests would need encoder frames."""
+    if cfg.n_enc_layers > 0:
+        raise ValueError(
+            f"{cfg.name!r} is an enc-dec model and the engine takes no "
+            f"encoder inputs: admit each request with "
+            f"`prefill_into_slot(enc_embeds=)` into a "
+            f"`SlotKVCache(enc_len=)` and decode with the engine's decode "
+            f"programs")
+
+
 def _param_device(params) -> torch.device:
     return params["embedding"].device
 
@@ -168,7 +190,8 @@ class ServeEngine:
     ``decode_chunk`` is the number of device-resident greedy steps per
     host sync (1 = the per-token reference loop).  ``graphs=False`` runs
     the decode and admission programs eagerly on the card instead of
-    replaying them."""
+    replaying them.  An enc-dec model raises ``ValueError``
+    (:func:`check_servable`)."""
 
     def __init__(self, params, cfg: ModelConfig, *,
                  max_slots: int = DEFAULT_MAX_SLOTS,
@@ -176,6 +199,7 @@ class ServeEngine:
                  clock: Callable[[], float] = time.perf_counter,
                  device="cuda", graphs: bool = True):
         cfg.check_ported()
+        check_servable(cfg)
         self.device = resolve_device(device)
         if _param_device(params).type != self.device.type:
             raise ValueError(f"params lie on {_param_device(params)}, the "

@@ -1835,3 +1835,105 @@ def test_gemv_and_spmm_on_padded_in_proj(dtype):
                  else nmg_spmm.nmg_spmm_plain(w, x.T, out_dtype=dtype,
                                               transpose_out=True))
         torch.testing.assert_close(got.float(), plain.float(), **tol)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "nmg"])
+def test_encdec_chunk_replay_bitwise_eager_over_cross_kv(fmt):
+    """bf16 whisper SMOKE, a ``SlotKVCache`` of 4 slots x 40 rows with
+    cross K/V of 24 frames: two requests admitted with their frames by
+    ``prefill_into_slot(enc_embeds=)``, then the engine's 4-step chunk
+    program captured and replayed three times, each replay bitwise the
+    eager program on a clone of the cache (tokens and every leaf), with a
+    third admission between the first and second replay.  Every leaf
+    keeps its storage (``data_ptr``) across admissions, capture and
+    replays; an admission rewrites its slot's ``xk`` / ``xv``, decode only
+    reads them."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve import SlotKVCache
+    from repro_torch.serve.engine import _decode_chunk_fn
+    from repro_torch.serve.graphs import DecodeGraph
+
+    cfg, params = _new_family("whisper-large-v3", fmt)
+    kv = SlotKVCache(cfg, 4, 40, enc_len=24, device="cuda")
+    ptrs = [t.data_ptr() for t in cache_leaves(kv.data)]
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def admit(slot, S):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                               device="cuda")
+        frames = torch.randn(1, 24, cfg.d_model, generator=g,
+                             device="cuda").to(cfg.tdtype)
+        before = kv.data["xk"][:, slot].clone()
+        logits, _ = prefill_into_slot(params, cfg, toks, kv.data, slot,
+                                      enc_embeds=frames)
+        assert not torch.equal(kv.data["xk"][:, slot], before)
+        return int(logits[0].argmax())
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(cache_leaves(a), cache_leaves(b)))
+
+    tok = np.zeros(4, np.int32)
+    pos = np.zeros(4, np.int32)
+    for slot, S in ((0, 12), (2, 7)):
+        tok[slot], pos[slot] = admit(slot, S), S
+    chunk = DecodeGraph(_decode_chunk_fn(cfg, 4), params, kv.data, 4,
+                        name="decode_chunk",
+                        pool=torch.cuda.graph_pool_handle())
+    chunk.run(tok, pos)                       # the eager run, then capture
+    assert chunk.info["captured"]
+    for turn in range(3):
+        if turn == 1:
+            tok[1], pos[1] = admit(1, 9), 9
+        ref = map_cache(torch.clone, kv.data)
+        cross = [kv.data[n].clone() for n in ("xk", "xv")]
+        ops.reset_kernel_counters()
+        got = chunk.run(tok, pos).clone()
+        replayed = ops.counter_snapshot()
+        ops.reset_kernel_counters()
+        want = _decode_chunk_fn(cfg, 4)(
+            params, torch.as_tensor(tok[:, None], device="cuda"), ref,
+            torch.as_tensor(pos, device="cuda"))
+        assert torch.equal(got, want) and same(kv.data, ref), turn
+        assert replayed == ops.counter_snapshot(), turn
+        assert all(torch.equal(kv.data[n], c)
+                   for n, c in zip(("xk", "xv"), cross)), turn
+        tok, pos = got[-1].cpu().numpy().astype(np.int32), pos + 4
+    assert chunk.info["replays"] == 3
+    assert [t.data_ptr() for t in cache_leaves(kv.data)] == ptrs
+    launches = replayed["launches"]
+    if fmt == "nmg":
+        for k in ("nmg_gemv", "nmg_qkv"):
+            assert launches[k] > 0, (k, launches)
+        assert launches["nmg_ffn"] == 0, launches   # whisper's MLP is plain
+    else:
+        assert not any(launches.values()), launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_at_whisper_encoder_width(dtype):
+    """whisper-large-v3's ``mlp.wi`` [1280, 5120] at gr64 over the
+    encoder's 1500 frames: ``nmg_linear`` takes the SpMM once and agrees
+    with the plain version and with the dense product."""
+    _require_cuda()
+    from repro_torch.kernels import ops
+
+    w = _card_weight(1280, 5120, dtype)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(1500, 1280, generator=g, device="cuda").to(dtype)
+    ops.reset_kernel_counters()
+    got = ops.nmg_linear(x, w)
+    assert ops.counter_snapshot()["launches"]["nmg_spmm"] == 1
+    assert got.shape == (1500, 5120) and got.dtype == dtype
+    want = x.float() @ w.to_dense().float()
+    tol = TOL if dtype == torch.float32 else dict(rtol=2 ** -7, atol=2e-3)
+    torch.testing.assert_close(got.float(), want, **tol)
+    plain = nmg_spmm.nmg_spmm_plain(w, x.T, out_dtype=dtype,
+                                    transpose_out=True)
+    torch.testing.assert_close(got.float(), plain.float(), **tol)

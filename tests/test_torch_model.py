@@ -209,8 +209,16 @@ def test_unported_families_raise():
     int8 = dataclasses.replace(get_smoke("qwen1.5-4b"), kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
         init_lm(int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-large-v3")
+    # whisper (enc-dec) is ported: its config is the reference's
+    from repro.configs import get_arch as j_config
+
+    wh = get_config("whisper-large-v3")
+    assert dataclasses.asdict(wh) == dataclasses.asdict(
+        j_config("whisper-large-v3"))
+    assert (wh.n_layers, wh.n_enc_layers, wh.d_model, wh.d_ff, wh.vocab,
+            wh.n_heads, wh.n_kv_heads, wh.hd, wh.act, wh.gated_mlp) \
+        == (32, 32, 1280, 5120, 51866, 20, 20, 64, "gelu", False)
+    assert wh.check_ported() is wh
     full = get_config("bert-base-sten")
     assert (full.n_layers, full.d_model, full.d_ff, full.vocab, full.dtype) \
         == (12, 768, 3072, 30522, "bfloat16")

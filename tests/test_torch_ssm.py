@@ -582,9 +582,16 @@ def test_check_ported_boundary_at_hymba(change, what):
         cfg.check_ported()
 
 
-def test_whisper_stays_unported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-large-v3")
+def test_whisper_is_ported_as_the_reference_s():
+    """The next family after the SSMs, enc-dec: whisper's config is the
+    reference's field for field, and the port runs it."""
+    from repro.configs import get_arch as j_config
+
+    cfg = get_config("whisper-large-v3")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        j_config("whisper-large-v3"))
+    assert (cfg.n_enc_layers, cfg.attn_type, cfg.ssm) == (32, "gqa", None)
+    assert cfg.check_ported() is cfg
 
 
 def test_sparsify_for_serving_on_ssm_models():
