@@ -211,6 +211,34 @@
       forward's RMS; controls that must fail the cross-attention rows:
       the slot's cross K/V zeroed, the other slot's copied in, and a
       causal encoder in the forward.
+   k. the int8 KV cache and paged serving, in a process of its own
+      (``python3 chip_smoke.py --kvcache``, after (j)): full-width,
+      full-depth qwen1.5-4b, dense and n:m:g 1:4:8 gr64 ``attn=True``,
+      and minicpm3-4b n:m:g at 16 of its 62 layers, bf16, seeded random
+      weights.  (k1) the trace
+      through ``ServeEngine(paged=True, page_size=16)`` beside the slot
+      engine: tokens and launch counts equal, ``paged_prefill`` 4 and
+      ``paged_decode_chunk`` 1 built in the warm-up and none in the
+      measured run; at the cache level (``paged_programs``) the four
+      admissions' logits and every slot's rows read through the page
+      table bitwise the slot cache's, again after one chunk, and each
+      admission length, three chunks (an admission after the second) and
+      two single steps replayed bitwise eager.  n:m:g: (k2) 8 requests
+      sharing a 64-token prefix, sharing on and off, tokens equal and
+      prompt tokens shared; (k3) half the default pages: every request
+      finished with (k1)'s tokens, with a deferred admission or a
+      preemption.  (k4) ``kv_cache_dtype="int8"`` (qwen's K/V, minicpm3's
+      latents) in both layouts: tokens equal, ``paged_programs`` bitwise;
+      the fixed check (``fixed_check``): a 64 + 32-token teacher-forced
+      request, every step's logits with the int8 cache bitwise those over
+      a bf16 cache into which every write was fake-quantized, and the
+      control (a bare ``.to(torch.int8)`` for the quantizer) fails it;
+      codes at +-127 and the distance from a bf16 cache reported.  (k5)
+      per-token p50 and TTFT p50 replayed of slot and paged, bf16 and
+      int8, cache bytes, a paged chunk's device span beside the slot
+      chunk's, and four 1536-token prompts at 2048 rows through bf16 and
+      int8 slot caches beside the step's byte bound (weights and the
+      cache rows read).
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -241,7 +269,7 @@
    ``{"kernels": [...]}`` line (one entry per TPU kernel, naming the body
    and gr it was timed at: serving kernels at qwen1.5-4b shapes with
    launches from its n:m:g run, and their launches on each n:m:g run of
-   (d), (e), (h), (i) and (j); training kernels at bert-base-sten
+   (d), (e), (h), (i), (j) and (k); training kernels at bert-base-sten
    training shapes with launches from run (b)'s graph trainer),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
    Every ``torch.profiler`` session runs after all unprofiled timing
@@ -1625,6 +1653,8 @@ FAMILY_RUNS = {
               "chip_smoke_ssm.json"),
     "--encdec": ((("whisper-large-v3", False, 64),),
                  "chip_smoke_encdec.json"),
+    # phase 3k runs its own sequence (kvcache_phase), not family_phase
+    "--kvcache": ((), "chip_smoke_kvcache.json"),
 }
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
@@ -3476,11 +3506,11 @@ def report_moe(arch, r, card) -> None:
 
 def families_child(flag: str) -> int:
     """Phase 3d (``python3 chip_smoke.py --families``), 3e
-    (``--vlm-mla``), 3h (``--moe``), 3i (``--ssm``) or 3j (``--encdec``)
-    in its own process, started by :func:`main`: the earlier phases'
-    params, graphs, pools and profiler sessions are not in it.  Writes its
-    results to ``chiprun_out/`` under the flag's file name
-    (:data:`FAMILY_RUNS`)."""
+    (``--vlm-mla``), 3h (``--moe``), 3i (``--ssm``), 3j (``--encdec``)
+    or 3k (``--kvcache``: :func:`kvcache_phase`) in its own process,
+    started by :func:`main`: the earlier phases' params, graphs, pools
+    and profiler sessions are not in it.  Writes its results to
+    ``chiprun_out/`` under the flag's file name (:data:`FAMILY_RUNS`)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -3491,8 +3521,11 @@ def families_child(flag: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(("nmg_gemv", "nmg_spmm", "nmg_ffn"))
     t0 = time.perf_counter()
-    res = {"families": [family_phase(a, smoke, gr, card)
-                        for a, smoke, gr in archs]}
+    if flag == "--kvcache":
+        res = kvcache_phase(card)
+    else:
+        res = {"families": [family_phase(a, smoke, gr, card)
+                            for a, smoke, gr in archs]}
     res["wall_s"] = time.perf_counter() - t0
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3508,6 +3541,561 @@ def run_families(flag: str, timeout: int) -> dict:
     subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
                    check=True, timeout=timeout)
     return json.loads(path.read_text())
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: the int8 KV cache and paged serving (qwen1.5-4b, minicpm3-4b)
+# ---------------------------------------------------------------------------
+
+#: the paged engines' page size, and the (k2) shared prefix and suffixes
+PAGE_SIZE = 16
+SHARED_PREFIX, SHARED_SUFFIXES = 64, (16, 19, 23, 26, 30, 33, 37, 40)
+#: the fixed check's teacher-forced request: prompt and decode steps
+FIXED_PROMPT, FIXED_STEPS = 64, 32
+#: (k5)'s long run: four prompts of this many tokens, 32 new each, in
+#: slots of LONG_SEQ rows
+LONG_PROMPT, LONG_SEQ = 1536, 2048
+#: minicpm3-4b's depth in phase (k), of its 62 layers: every layer writes
+#: and reads its int8 latents through the same code, which (k4) holds per
+#: write and per step; phase (e) serves the model at full depth.  At 62
+#: layers the minicpm3 part of (k) took 34 s of its 119 on an H100, which
+#: the smoke's 1200 s limit cannot spare
+KV_MLA_LAYERS = 16
+
+
+def cache_bytes(cache) -> int:
+    from repro_torch.models.transformer import cache_leaves
+
+    return sum(t.numel() * t.element_size() for t in cache_leaves(cache))
+
+
+def slot_rows(tree, slot, n) -> list:
+    """The first ``n`` rows of ``slot`` in every sequence leaf [L, B, S,
+    ...] of a cache tree (the state leaves' slot row)."""
+    if isinstance(tree, dict):
+        return [r for k in sorted(tree) for r in slot_rows(tree[k], slot, n)]
+    return [tree[:, slot, :n] if tree.ndim >= 3 else tree[:, slot]]
+
+
+def same_rows(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) > 0 and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+
+def kv_serve(cfg, params, label, requests, built=None, eng=None,
+             **ekw) -> dict:
+    """``requests`` through a ``ServeEngine(**ENGINE_KW, **ekw)`` replaying
+    its programs, warmed first (``warmup_engine``), with the launch
+    counts zeroed right before the measured run and read right after;
+    with ``eng``, through that engine as it stands (its programs built by
+    an earlier run, its metrics cleared).  With ``built`` the warm-up
+    must have built exactly those programs and the measured run none.
+    Every request must finish with all its tokens, on no plain route.
+    Returns (the run's record, the engine)."""
+    import torch
+
+    from repro_torch.serve import ServeEngine, warmup_engine
+    from repro_torch.serve.tracecount import reset_trace_events, \
+        trace_events
+
+    t0 = time.perf_counter()
+    reset_trace_events()
+    if eng is None:
+        eng = ServeEngine(params, cfg, **dict(ENGINE_KW, **ekw))
+        warmup_engine(eng, requests)
+    else:
+        eng.reset_metrics()
+    warm = trace_events()
+    warm_s = time.perf_counter() - t0
+    if built is not None:
+        assert warm == built, (label, warm, built)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = eng.run(requests)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if built is not None:
+        assert trace_events() == built, (label, trace_events())
+    assert [o.uid for o in outs] == [r.uid for r in requests], label
+    for o, r in zip(outs, requests):
+        assert o.finish_reason == "length" \
+            and len(o.tokens) == r.max_new_tokens, (label, o.uid, o.tokens)
+        assert all(0 <= t < cfg.vocab for t in o.tokens)
+    assert not any(k.endswith("/plain") for k in counts["routes"]), counts
+    res = {"label": label, "tokens": [o.tokens for o in outs],
+           "metrics": eng.metrics(label=label).to_dict(), "counts": counts,
+           "stats": dict(eng.stats), "trace_events": warm,
+           "cache_bytes": cache_bytes(eng.kv.data),
+           "chunk_graph": dict(eng._decode_chunk.info),
+           "warm_s": warm_s, "wall_s": time.perf_counter() - t0}
+    if eng.paged:
+        res["kv_stats"] = dict(eng.kv.stats)
+        res["num_pages"] = eng.kv.num_pages
+        assert eng.kv.alloc.pages_in_use() == 0, label   # drained
+    return res, eng
+
+
+def replay_span_ms(graph) -> float:
+    """A captured program's device span: CUDA events around each of 3
+    replays of its graph, the median."""
+    import torch
+
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for s_, e_ in zip(starts, ends):
+        torch.cuda.synchronize()
+        s_.record()
+        graph.graph.replay()
+        e_.record()
+    torch.cuda.synchronize()
+    return statistics.median(s_.elapsed_time(e_)
+                             for s_, e_ in zip(starts, ends))
+
+
+def span_turns(runs: dict, engines: dict) -> None:
+    """Each engine's replayed chunk span (:func:`replay_span_ms`), the
+    engines taken in turns (a, b, b, a, a, b for two): the median of its
+    three readings goes to ``runs[label]["chunk_span_ms"]``.  Two layouts
+    or cache dtypes are compared only within one such set of turns."""
+    order = list(engines) + list(engines)[::-1] + list(engines)
+    got: dict = {lab: [] for lab in engines}
+    for lab in order:
+        got[lab].append(replay_span_ms(engines[lab]._decode_chunk))
+    for lab, v in got.items():
+        runs[lab]["chunk_span_ms"] = statistics.median(v)
+        runs[lab]["chunk_spans_ms"] = v
+
+
+def paged_programs(cfg, params, label, eng) -> dict:
+    """The paged engine ``eng``'s programs at the cache level, once its
+    trace has drained, beside a slot cache of its shape (4 slots of 96
+    rows, pages of 16, chunk 8).  Its warm-up built every program used
+    here, so each paged run below is a replay of what the engine served
+    with (eager where the engine does not capture):
+
+    - four seeded prompts of the trace's lengths (32, 24, 64, 16 tokens)
+      admitted into the engine's pool and the slot cache (which runs
+      eagerly): logits bitwise, and every slot's rows read through the
+      page table (``logical_view``) bitwise the slot cache's;
+    - each length's admission again into its slot, replayed, bitwise the
+      eager admission program on a clone of the pool (logits, pool);
+    - three 8-step chunks, the first in both caches (rows bitwise the slot
+      cache's after it), each later one replayed on the live pool and run
+      eagerly on a clone (tokens and pools bitwise), with an admission (a
+      24-token prompt into slot 1) after the second; two single steps
+      the same way; every pool leaf's storage kept throughout."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_cache, prefill_into_slot
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve.cache import _paged_prefill_fn
+    from repro_torch.serve.engine import _decode_chunk_fn, \
+        _paged_decode_chunk_fn, _paged_decode_fn
+
+    t0 = time.perf_counter()
+    pk, chunk, step = eng.kv, eng._decode_chunk, eng._decode
+    B, T, S_c = pk.max_slots, eng.decode_chunk, pk.max_seq_len
+    assert (B, T, S_c, pk.page_size) == (4, 8, 96, PAGE_SIZE), label
+    assert pk.alloc.pages_in_use() == 0, label          # drained
+    replays = (chunk.info["replays"], step.info["replays"])
+    rng = np.random.default_rng(4)
+
+    def d(x):
+        return torch.as_tensor(x, device="cuda")
+
+    prompts = [rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)
+               for n in PROMPT_LENS]
+    sk = init_cache(cfg, B, S_c, device="cuda")
+    ptrs = [t.data_ptr() for t in cache_leaves(pk.data)]
+    for slot, p in enumerate(prompts):
+        a = prefill_into_slot(params, cfg, torch.as_tensor(p, device="cuda"),
+                              sk, slot)[0]
+        b = pk.admit(params, p, slot).clone()
+        assert torch.equal(a, b), f"{label}: admission logits, slot {slot}"
+    view = pk.logical_view()
+    for slot, p in enumerate(prompts):
+        assert same_rows(slot_rows(sk, slot, p.shape[1]),
+                         slot_rows(view, slot, p.shape[1])), (label, slot)
+    del view
+    # each length's admission replayed, against the eager program
+    fn = _paged_prefill_fn(cfg, PAGE_SIZE, pk.num_pages)
+    for slot, p in enumerate(prompts):
+        pk.release_slot(slot)
+        ref = map_cache(torch.clone, pk.data)
+        got = pk.admit(params, p, slot).clone()
+        info = pk.prefill_graphs[p.shape[1]].info
+        assert info["replays"] >= 1 or not info["captured"], info
+        want = fn(params, d(p), ref, d(pk.table[slot]), d(np.int32(slot)),
+                  d(np.int32(0)))
+        assert torch.equal(got, want), f"{label}: admission S={p.shape[1]}"
+        assert same_cache(pk.data, ref), f"{label}: admission pool"
+    del ref
+    tok = np.zeros(B, np.int32)
+    pos = np.array([p.shape[1] for p in prompts], np.int32)
+    chunk_fn = _paged_decode_chunk_fn(cfg, PAGE_SIZE, pk.num_pages, T)
+    step_fn = _paged_decode_fn(cfg, PAGE_SIZE, pk.num_pages)
+
+    def pages(n):
+        for slot in range(B):
+            assert pk.ensure_writable_range(slot, int(pos[slot]), n)
+
+    def eager(fn, ref):
+        return fn(params, d(tok[:, None]), ref, d(pk.table), d(pos))
+
+    # the first chunk in both caches: tokens and rows bitwise
+    pages(T)
+    a = _decode_chunk_fn(cfg, T)(params, d(tok[:, None]), sk, d(pos))
+    b = chunk.run(tok, pos, pk.table).clone()
+    assert torch.equal(a, b), f"{label}: first chunk tokens"
+    view = pk.logical_view()
+    for slot in range(B):
+        n = int(pos[slot]) + T
+        assert same_rows(slot_rows(sk, slot, n),
+                         slot_rows(view, slot, n)), (label, "chunk", slot)
+    del view, sk
+    tok, pos = b[-1].cpu().numpy().copy(), pos + T
+    for turn in range(2):
+        pages(T)
+        ref = map_cache(torch.clone, pk.data)
+        got = chunk.run(tok, pos, pk.table).clone()
+        want = eager(chunk_fn, ref)
+        assert torch.equal(got, want), f"{label}: replayed chunk {turn}"
+        assert same_cache(pk.data, ref), f"{label}: chunk {turn} pool"
+        tok, pos = got[-1].cpu().numpy().copy(), pos + T
+        if turn == 0:
+            pk.release_slot(1)
+            p = rng.integers(0, cfg.vocab, (1, 24), dtype=np.int32)
+            ref = map_cache(torch.clone, pk.data)
+            lg = pk.admit(params, p, 1).clone()
+            want = fn(params, d(p), ref, d(pk.table[1]), d(np.int32(1)),
+                      d(np.int32(0)))
+            assert torch.equal(lg, want), f"{label}: admission after chunk"
+            assert same_cache(pk.data, ref), label
+            tok[1], pos[1] = int(lg.argmax()), 24
+    for turn in range(2):
+        pages(1)
+        ref = map_cache(torch.clone, pk.data)
+        got = step.run(tok, pos, pk.table).clone()
+        want = eager(step_fn, ref)
+        assert torch.equal(got, want), f"{label}: replayed step {turn}"
+        assert same_cache(pk.data, ref), f"{label}: step {turn} pool"
+        tok, pos = got.argmax(-1).int().cpu().numpy(), pos + 1
+    del ref
+    if chunk.capture_on:     # the chunk captured in the warm-up; the step
+        # captured there or at its first run here
+        assert chunk.info["replays"] == replays[0] + 3, chunk.info
+        assert step.info["replays"] >= replays[1] + 1, step.info
+    assert [t.data_ptr() for t in cache_leaves(pk.data)] == ptrs, label
+    return {"label": label, "bitwise": "4 admissions (rows), each length "
+            "replayed, 3 chunks (admission after the second), 2 steps",
+            "chunk_graph": dict(chunk.info),
+            "wall_s": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def kv_store(kind: str):
+    """How the cache stores a K/V or latent tile, for the fixed check:
+    ``"fake"`` quantizes and dequantizes every float write
+    (``_dq_cache(_q_cache(x))``, in the model dtype) into a model-dtype
+    cache; ``"bare"`` (the control) replaces the quantizer with a bare
+    ``.to(torch.int8)`` (truncation, wrap-around, no scale)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    to_cache, quantize = tf._to_cache_dtype, tf._quantize
+
+    def fake(piece, dst_dtype):
+        assert dst_dtype.is_floating_point, dst_dtype
+        return (quantize(piece).to(dst_dtype)
+                * tf._dq_scale(dst_dtype)).to(dst_dtype)
+
+    if kind == "fake":
+        tf._to_cache_dtype = fake
+    else:
+        tf._quantize = lambda x: x.to(torch.int8)
+    try:
+        yield
+    finally:
+        tf._to_cache_dtype, tf._quantize = to_cache, quantize
+
+
+def fixed_check(cfg, params, label) -> dict:
+    """The fixed check of the int8 rule: one request of FIXED_PROMPT
+    tokens and FIXED_STEPS teacher-forced decode steps (its tokens
+    seeded), each step replayed from a captured one-step program: every
+    step's logits with the int8 cache are bitwise the logits over a
+    model-dtype cache into which every write was first fake-quantized
+    (``_dq_cache(_q_cache(x))``), which follows from the rule with no
+    tolerance.  Control: the quantizer replaced by a bare cast must fail
+    it.  The request is admitted by the classic ``prefill`` and decoded
+    by the slot layout's one-step program, so the check holds those
+    writers; the paged admission writes through the same
+    ``transformer._to_cache_dtype`` (:func:`kv_store` replaces it on the
+    module), and the paged int8 layout is held bitwise to the slot one by
+    :func:`paged_programs`.  Reported, not gated: the share of codes at
+    +-127 after the admission, and the int8 run's logits against a plain
+    model-dtype cache's (largest difference, argmax agreement)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.models.transformer import cache_leaves
+    from repro_torch.serve.engine import _decode_fn
+    from repro_torch.serve.graphs import DecodeGraph
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (1, FIXED_PROMPT + FIXED_STEPS), dtype=np.int32),
+        device="cuda")
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    plain = dataclasses.replace(cfg, kv_cache_dtype=None)
+
+    def run(c, store=None):
+        ctx = kv_store(store) if store else contextlib.nullcontext()
+        with ctx:
+            logits, cache = prefill(params, c, toks[:, :FIXED_PROMPT],
+                                    cache_len=FIXED_PROMPT + FIXED_STEPS)
+            sat = [(t.abs() == 127).float().mean().item()
+                   for t in cache_leaves(cache) if t.dtype == torch.int8]
+            g = DecodeGraph(_decode_fn(c), params, cache, 1, name="decode")
+            out = [logits.float()]
+            for i in range(FIXED_STEPS):
+                pos = FIXED_PROMPT + i
+                out.append(g.run(toks[0, pos:pos + 1].cpu().numpy(),
+                                 [pos]).float().clone())
+        assert g.info["replays"] == (FIXED_STEPS - 1 if g.capture_on
+                                     else 0), g.info
+        return out, sat
+
+    got, sat = run(int8)
+    fake, _ = run(plain, "fake")
+    bare, _ = run(int8, "bare")
+    ref, _ = run(plain)
+    equal = [torch.equal(a, b) for a, b in zip(got, fake)]
+    agree = sum(int(a.argmax() == b.argmax()) for a, b in zip(got, ref))
+    assert all(equal), f"{label}: int8 steps not bitwise the fake-quantized"
+    control = [torch.equal(a, b) for a, b in zip(bare, fake)]
+    assert not all(control), f"{label}: the bare-cast control passed"
+    return {"label": label, "steps": FIXED_STEPS,
+            "wall_s": time.perf_counter() - t0,
+            "bitwise_steps": f"{sum(equal)}/{len(equal)}",
+            "control_bitwise_steps": f"{sum(control)}/{len(control)}",
+            "saturated_share": sat,
+            "vs_model_dtype_cache": {
+                "max_abs_err": max((a - b).abs().max().item()
+                                   for a, b in zip(got, ref)),
+                "argmax_agree": f"{agree}/{len(got)}"}}
+
+
+def shared_requests(cfg):
+    """(k2)'s trace: 8 requests sharing one 64-token prefix, each with its
+    own 16-40-token suffix, 32 new tokens."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(8)
+    prefix = rng.integers(0, cfg.vocab, SHARED_PREFIX, dtype=np.int32)
+    return [Request(uid=i, prompt=np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab, n, dtype=np.int32)]),
+        max_new_tokens=32) for i, n in enumerate(SHARED_SUFFIXES)]
+
+
+def long_requests(cfg):
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(9)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, LONG_PROMPT,
+                                               dtype=np.int32),
+                    max_new_tokens=32) for i in range(4)]
+
+
+def long_cache_bound(cfg, weights: int) -> dict:
+    """(k5)'s step byte bound: the weights one decode step reads and the
+    cache rows it reads, each slot's valid rows (LONG_PROMPT to
+    LONG_PROMPT + 31, 16 on average past the prompt), K and V of every
+    layer in the cache dtype, at 3.35 TB/s."""
+    from repro_torch.models.transformer import _cache_dt
+
+    rows = 4 * (LONG_PROMPT + 16)
+    per_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd \
+        * _cache_dt(cfg).itemsize
+    return {"weights": weights, "cache_rows": rows * per_row,
+            "bound_ms": (weights + rows * per_row) / HBM_BYTES_PER_S * 1e3}
+
+
+def kvcache_phase(card: str, smoke: bool = False) -> dict:
+    """Phase 3k (``python3 chip_smoke.py --kvcache``): the int8 KV cache
+    and paged serving at full width (qwen at full depth; ``smoke``: the SMOKE
+    configs, for a rehearsal), bf16, seeded random weights.
+
+    qwen1.5-4b, dense and n:m:g 1:4:8 gr64 ``attn=True``: (k1) the trace
+    through a paged engine (pages of 16) beside the slot engine, tokens
+    equal, ``paged_prefill`` 4 and ``paged_decode_chunk`` 1 built in the
+    warm-up and none in the measured run; :func:`paged_programs` on the
+    paged engine.  n:m:g only: (k2) :func:`shared_requests` with prefix
+    sharing on, then off in the same engine, tokens equal and
+    ``shared_tokens`` > 0 only with sharing; (k3) the trace with half the
+    pages, every request finished with (k1)'s tokens, a deferred
+    admission or a preemption; (k4) ``kv_cache_dtype="int8"`` in both
+    layouts (tokens equal, :func:`paged_programs`) and
+    :func:`fixed_check`; (k5) per-token p50, TTFT p50 and cache bytes of
+    every engine, the replayed chunk's device span of the n:m:g slot and
+    paged engines, bf16 and int8, in turns, and the long run: four
+    1536-token prompts at 2048 rows, bf16 against int8 slot caches,
+    beside the step's byte bound.  minicpm3-4b n:m:g at
+    :data:`KV_MLA_LAYERS` layers: (k4) with its int8 latents.  Each
+    engine run's
+    launch counts are returned under ``counts`` (the n:m:g ones feed the
+    ``kernels`` line)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.serve import sparsify_for_serving
+
+    get, gr = (get_smoke, 16) if smoke else (get_config, 64)
+    res: dict = {"runs": {}, "programs": [], "fixed": [], "init_s": {}}
+    runs = res["runs"]
+
+    def serve(cfg, params, label, reqs=None, built=None, **kw):
+        runs[label], eng = kv_serve(cfg, params, label,
+                                    reqs or requests_for(cfg), built, **kw)
+        return runs[label], eng
+
+    paged = dict(paged=True, page_size=PAGE_SIZE)
+    slot_built = {"slot_prefill": len(PROMPT_LENS), "decode_chunk": 1}
+    paged_built = {"paged_prefill": len(PROMPT_LENS),
+                   "paged_decode_chunk": 1}
+    for arch, short in (("qwen1.5-4b", "qwen"), ("minicpm3-4b", "minicpm3")):
+        cfg = get(arch)
+        if short == "minicpm3" and not smoke:
+            cfg = dataclasses.replace(cfg, n_layers=KV_MLA_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_lm(cfg, seed=0, device="cuda")
+        sparse = sparsify_for_serving(params, 1, 4, 8, gr=gr, attn=True)
+        torch.cuda.synchronize()
+        res["init_s"][short] = time.perf_counter() - t0
+        engines = {}
+        if short == "qwen":
+            # (k1) paged against slot, dense and n:m:g
+            for kind, p in (("dense", params), ("sparse", sparse)):
+                lab = f"qwen_{kind}"
+                s, es = serve(cfg, p, f"{lab}_slot", built=slot_built)
+                g, eg = serve(cfg, p, f"{lab}_paged", built=paged_built,
+                              **paged)
+                assert g["tokens"] == s["tokens"], f"{lab}: paged tokens"
+                assert g["counts"] == s["counts"], (lab, g["counts"],
+                                                    s["counts"])
+                res["programs"].append(paged_programs(cfg, p, lab, eg))
+                if kind == "sparse":   # spans in turns with the int8 ones
+                    engines = {f"{lab}_slot": es, f"{lab}_paged": eg}
+                del es, eg
+        del params
+        torch.cuda.empty_cache()
+        if short == "qwen":
+            # (k2) prefix sharing, on, then off in the same engine (its
+            # programs built, none built again)
+            on, eng = serve(cfg, sparse, "qwen_shared",
+                            shared_requests(cfg), max_seq_len=144, **paged)
+            eng.kv.prefix_sharing = False
+            off, _ = serve(cfg, sparse, "qwen_unshared",
+                           shared_requests(cfg), built={}, eng=eng)
+            del eng
+            assert on["tokens"] == off["tokens"], "prefix sharing tokens"
+            assert off["kv_stats"]["shared_tokens"] == 0, off["kv_stats"]
+            assert on["kv_stats"]["shared_tokens"] > 0, on["kv_stats"]
+            # (k3) half the default pages
+            half = ENGINE_KW["max_slots"] * ENGINE_KW["max_seq_len"] \
+                // PAGE_SIZE // 2
+            pr, _ = serve(cfg, sparse, "qwen_pressure", num_pages=half,
+                          **paged)
+            assert pr["tokens"] == runs["qwen_sparse_slot"]["tokens"]
+            assert pr["stats"]["deferred_admissions"] \
+                + pr["stats"]["preemptions"] > 0, pr["stats"]
+        # (k4) int8 latents / K/V, slot and paged, and the fixed check
+        c8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        s8, engines[f"{short}_int8_slot"] = serve(
+            c8, sparse, f"{short}_int8_slot", built=slot_built)
+        p8, engines[f"{short}_int8_paged"] = serve(
+            c8, sparse, f"{short}_int8_paged", built=paged_built, **paged)
+        assert p8["tokens"] == s8["tokens"], f"{short}: int8 paged tokens"
+        span_turns(runs, engines)
+        res["programs"].append(paged_programs(
+            c8, sparse, f"{short}_int8", engines[f"{short}_int8_paged"]))
+        del engines
+        res["fixed"].append(fixed_check(cfg, sparse, short))
+        if short == "qwen":
+            # (k5) the long run, bf16 against int8 slot caches
+            weights = step_weight_bytes(sparse)
+            engines = {}
+            for c, lab in ((cfg, "qwen_long_bf16"), (c8, "qwen_long_int8")):
+                r, engines[lab] = serve(c, sparse, lab, long_requests(cfg),
+                                        max_slots=4, max_seq_len=LONG_SEQ)
+                r["bound"] = long_cache_bound(c, weights)
+            span_turns(runs, engines)
+            del engines
+        del sparse
+    res["peak_gb"] = _gb_peak()
+    res["counts"] = {lab: r["counts"] for lab, r in runs.items()
+                     if not lab.startswith("qwen_dense")}
+    report_kvcache(res, card)
+    return res
+
+
+def report_kvcache(res, card) -> None:
+    runs = res["runs"]
+    for lab, r in runs.items():
+        m = r["metrics"]
+        extra = ""
+        if "kv_stats" in r:
+            kv = r["kv_stats"]
+            extra = (f"; {r['num_pages']} pages, peak "
+                     f"{kv['peak_pages_in_use']}, {kv['shared_tokens']} "
+                     f"prompt tokens shared, "
+                     f"{kv['cow_copies']} copy-on-write copies, deferred "
+                     f"admissions {r['stats']['deferred_admissions']}, "
+                     f"preemptions {r['stats']['preemptions']}")
+        if "bound" in r:
+            b = r["bound"]
+            extra += (f"; step byte bound {b['bound_ms']:.3f} ms (weights "
+                      f"{b['weights'] / 1e9:.3f} GB + cache rows "
+                      f"{b['cache_rows'] / 1e9:.3f} GB)")
+        span = (f"chunk span {r['chunk_span_ms']:.3f} ms (in turns: "
+                f"{', '.join(f'{v:.3f}' for v in r['chunk_spans_ms'])}); "
+                if "chunk_span_ms" in r else "")
+        print(f"kvcache[{lab}] on {card}: per-token p50 "
+              f"{m['tok_latency_p50'] * 1e3:.3f} ms, TTFT p50 "
+              f"{m['ttft_p50'] * 1e3:.3f} ms (replayed); {span}cache "
+              f"{r['cache_bytes'] / 2**20:.1f} MiB{extra}", flush=True)
+    for p in res["programs"]:
+        print(f"kvcache programs[{p['label']}] on {card}: bitwise "
+              f"({p['bitwise']})", flush=True)
+    for f in res["fixed"]:
+        print(f"kvcache fixed check[{f['label']}] on {card}: int8 steps "
+              f"bitwise the fake-quantized model-dtype cache's "
+              f"{f['bitwise_steps']}; control (bare cast) "
+              f"{f['control_bitwise_steps']} (fails as it must); codes at "
+              f"+-127 after admission {f['saturated_share']}; against a "
+              f"model-dtype cache: logits max abs "
+              f"{f['vs_model_dtype_cache']['max_abs_err']:.4f}, argmax "
+              f"{f['vs_model_dtype_cache']['argmax_agree']}", flush=True)
+    walls = [f"init {', '.join(f'{k} {v:.1f}' for k, v in res['init_s'].items())}"]
+    walls += [f"{lab} {r['wall_s']:.1f} (warm-up {r['warm_s']:.1f})"
+              for lab, r in runs.items()]
+    walls += [f"programs[{p['label']}] {p['wall_s']:.1f}"
+              for p in res["programs"]]
+    walls += [f"fixed[{f['label']}] {f['wall_s']:.1f}" for f in res["fixed"]]
+    print(f"kvcache seconds on {card}: {'; '.join(walls)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4765,7 +5353,8 @@ def kernels_line(cases, counts, train_counts, sten_counts,
     at run (b)'s shapes with the launches of run (b).  ``sten_launches``
     is each kernel's launches on the programming-model path (phase 3f:
     its library cases and its full-width model run), ``family_launches``
-    a serving kernel's on each n:m:g run of phases 3d and 3e."""
+    a serving kernel's on each n:m:g run of phases 3d, 3e, 3h, 3i and 3j
+    and each n:m:g engine run of phase 3k."""
     rows = [  # name, kernel, source, replaces, (model, weight, M)
         ("nmg_gemv", "nmg_gemv", "nmg_gemv.cu", "nmg_gemv.py:45",
          ("qwen", "wo_ffn", 4)),
@@ -4980,10 +5569,13 @@ def main() -> int:
     ssm = run_families("--ssm", 500)
     # (j) whisper-large-v3, enc-dec, in another process
     encdec = run_families("--encdec", 400)
+    # (k) the int8 KV cache and paged serving, in another process
+    kvc = run_families("--kvcache", 500)
     all_fams = (fam["families"] + vlm["families"] + moe["families"]
                 + ssm["families"] + encdec["families"])
     fam_counts = {r["label"]: r["counts"] for f in all_fams
                   for r in f["runs"] if r["label"].endswith("_sparse")}
+    fam_counts.update(kvc["counts"])
     for r in tune["serve"]:
         report_tuned(r, card)
     tune["wall_s"] = tune_s + sum(r["wall_s"] for r in tune["serve"])
@@ -5045,7 +5637,7 @@ def main() -> int:
         "train_margins": margins,
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
-        "moe": moe, "ssm": ssm, "encdec": encdec,
+        "moe": moe, "ssm": ssm, "encdec": encdec, "kvcache": kvc,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -5105,6 +5697,28 @@ def main() -> int:
             "pool_mib": round(r["graph"]["pool_bytes"] / 2**20, 1)}
             for r in train},
         "ckpt_resume_bitwise": ckpt["bitwise"],
+        "kvcache": {
+            "runs": {lab: {
+                "tok_p50_ms": round(r["metrics"]["tok_latency_p50"] * 1e3, 4),
+                "ttft_p50_ms": round(r["metrics"]["ttft_p50"] * 1e3, 3),
+                "cache_mib": round(r["cache_bytes"] / 2**20, 1),
+                **({"chunk_span_ms": round(r["chunk_span_ms"], 3)}
+                   if "chunk_span_ms" in r else {}),
+                **({"bound_ms": round(r["bound"]["bound_ms"], 4)}
+                   if "bound" in r else {}),
+                **({"deferred_admissions": r["stats"]["deferred_admissions"],
+                    "preemptions": r["stats"]["preemptions"],
+                    "shared_tokens": r["kv_stats"]["shared_tokens"],
+                    "cow_copies": r["kv_stats"]["cow_copies"]}
+                   if "kv_stats" in r else {})}
+                for lab, r in kvc["runs"].items()},
+
+            "fixed": {f["label"]: {
+                "bitwise_steps": f["bitwise_steps"],
+                "control_bitwise_steps": f["control_bitwise_steps"],
+                "vs_model_dtype_cache": f["vs_model_dtype_cache"]}
+                for f in kvc["fixed"]},
+            "wall_s": round(kvc["wall_s"], 1)},
         "families": {f["arch"]: {
             "init_s": round(f["init_s"], 2),
             "init_peak_gb": round(f["init_peak_gb"], 3),

@@ -1,7 +1,9 @@
 """Serving CLI of the port, engine mode (port of the ``--engine`` mode of
 ``repro/launch/serve.py``): a queue of synthetic requests is served
-through the slot engine, dense or, with ``--sparse``, dense and n:m:g side
-by side.
+through the engine, dense or, with ``--sparse``, dense and n:m:g side
+by side, over the slot KV cache or, with ``--paged``, the paged one
+(``--page-size``, which must divide prompt-len + gen-len,
+``--num-pages``, ``--no-prefix-sharing``).
 
     python -m repro_torch.launch.serve --arch bert-base-sten --engine --sparse
     python -m repro_torch.launch.serve --arch qwen1.5-4b --engine --sparse \
@@ -13,6 +15,7 @@ by side.
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --engine
     python -m repro_torch.launch.serve --arch mamba2-370m --engine
     python -m repro_torch.launch.serve --arch hymba-1.5b --engine --sparse
+    python -m repro_torch.launch.serve --arch qwen1.5-4b --engine --paged
 
 runs on the card (gemma2-9b's local layers keep a ring cache of its
 4096-token window, so ``--prompt-len`` may exceed it; paligemma-3b's
@@ -83,6 +86,18 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--decode-chunk", type=int, default=8)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (page-table indirection + "
+                         "copy-on-write prefix sharing) instead of one "
+                         "full-length row per slot")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (--paged); must divide "
+                         "prompt-len + gen-len")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page-pool size (--paged); default sizes the "
+                         "pool to the slot cache's KV footprint")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="--paged: disable content-hash prefix sharing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--no-warmup", action="store_true")
@@ -101,6 +116,11 @@ def main(argv=None) -> int:
         # without it the run would serve default routing reported as tuned
         ap.error("--tune requires the warmup pass; drop --no-warmup")
 
+    max_seq = args.prompt_len + args.gen_len
+    if args.paged and max_seq % args.page_size:
+        ap.error(f"--page-size {args.page_size} must divide max_seq_len "
+                 f"{max_seq} (prompt-len + gen-len)")
+
     device = resolve_device(args.device)
     # --tuning-table or $REPRO_TUNE_TABLE, before any model is built
     load_table_cli(args.tuning_table, device=device_kind(device))
@@ -112,9 +132,12 @@ def main(argv=None) -> int:
     params = init_lm(cfg, args.seed, device=device)
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen_len,
                          args.seed)
-    ekw = dict(max_slots=args.max_slots,
-               max_seq_len=args.prompt_len + args.gen_len,
+    ekw = dict(max_slots=args.max_slots, max_seq_len=max_seq,
                decode_chunk=args.decode_chunk, device=device)
+    if args.paged:
+        ekw.update(paged=True, page_size=args.page_size,
+                   num_pages=args.num_pages,
+                   prefix_sharing=not args.no_prefix_sharing)
     warm = not args.no_warmup
     if args.sparse:
         n, m, g = (int(v) for v in args.nm.split(":"))
@@ -135,8 +158,15 @@ def main(argv=None) -> int:
         print(eng.metrics(label="dense").report())
         results = {"dense": (outs, None)}
     n_served = len(next(iter(results.values()))[0])
+    kind = "paged" if args.paged else "slot"
     print(f"served {n_served} requests through {args.max_slots}-slot "
-          f"continuous batching on {device}")
+          f"continuous batching ({kind} KV cache) on {device}")
+    if args.paged and not args.sparse:
+        kv = eng.kv.stats
+        print(f"paged KV: peak {kv['peak_pages_in_use']} pages in use, "
+              f"{kv['shared_tokens']} prompt tokens prefix-shared, "
+              f"{kv['cow_copies']} copy-on-write page copies, "
+              f"{eng.stats['preemptions']} preemptions")
     return 0
 
 

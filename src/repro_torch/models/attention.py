@@ -261,16 +261,20 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions=None,
     return mm(out.reshape(B, S, -1), p["wo"]), ckv, k_rope
 
 
-def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv):
+def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv, *, q_cache,
+               dq_cache):
     """Absorbed MLA decode of one layer over the compressed cache views
     ``ckv_c`` [B, S, r] and ``kr_c`` [B, S, rd]: writes this token's
     latent and RoPE key at row ``pv`` in place, then scores in latent
     space (q_nope absorbed through ``wuk``, so attention reads the latent
     directly) and re-expands the output through ``wuv``, in f32.  ``x``
-    [B, 1, D], ``pv`` [B] positions.  A write past the cache end is
-    clamped onto its last row where the reference drops it (ROADMAP C2):
-    only a finished slot writes there.  ``wuk`` and ``wuv`` are reshaped
-    per head, so they stay dense tensors."""
+    [B, 1, D], ``pv`` [B] positions.  ``q_cache(t, cfg)`` stores a tile
+    in the cache's dtype (int8 codes for an int8 cache) and ``dq_cache(t,
+    cfg)`` reads a view back in the model dtype (the reference's hooks,
+    ``models/transformer.py:_q_cache`` / ``_dq_cache``).  A write past
+    the cache end is clamped onto its last row where the reference drops
+    it (ROADMAP C2): only a finished slot writes there.  ``wuk`` and
+    ``wuv`` are reshaped per head, so they stay dense tensors."""
     mla = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
@@ -282,13 +286,14 @@ def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv):
     rows = torch.arange(B, device=x.device)
     S = ckv_c.shape[1]
     wpos = pv.clamp(max=S - 1).long()
-    ckv_c.index_put_((rows, wpos), ckv_t[:, 0].to(ckv_c.dtype))
-    kr_c.index_put_((rows, wpos), kr_t.reshape(B, rd).to(kr_c.dtype))
-    ckv = ckv_c.float()
+    ckv_c.index_put_((rows, wpos), q_cache(ckv_t[:, 0], cfg))
+    kr_c.index_put_((rows, wpos), q_cache(kr_t.reshape(B, rd), cfg))
+    ckv = dq_cache(ckv_c, cfg).float()
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(),
                          p["wuk"].reshape(r, H, nd).float())
     s = torch.einsum("bhr,bsr->bhs", q_lat, ckv)
-    s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), kr_c.float())
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                         dq_cache(kr_c, cfg).float())
     s = s * (1.0 / math.sqrt(nd + rd))
     valid = torch.arange(S, device=x.device)[None, None, :] \
         < (pv + 1)[:, None, None]

@@ -31,10 +31,15 @@ from repro_torch.core.layouts import DenseTensor, GroupedNMTensor, \
     SparsityLayout
 
 __all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "mm", "mm_fused_qkv",
-           "mm_gated", "torch_dtype"]
+           "mm_gated", "torch_dtype", "KV_CACHE_DTYPES"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+#: the ``kv_cache_dtype`` names the port stores a KV cache in: int8
+#: (quantized, ``models/transformer.py:_q_cache``) and the float names of
+#: the reference's ``_cache_dt`` that torch has (a plain cast)
+KV_CACHE_DTYPES = {"int8": torch.int8, **_DTYPES}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -209,7 +214,10 @@ class ModelConfig:
         cross-attention (``n_enc_layers > 0``) on whisper's shape alone
         (GQA attention, global layers, no MoE, SSM or prefix; any other
         enc-dec combination is refused by a name that says ``enc-dec``);
-        no int8 KV.  ``impl="shmap"`` and
+        a KV cache stored in the model dtype, in int8 (``kv_cache_dtype
+        "int8"``, the reference's static-scale quantizer) or in one of
+        :data:`KV_CACHE_DTYPES` (any other name is refused by a message
+        that names it).  ``impl="shmap"`` and
         ``combine="scatter"`` are expert-parallel sharding strategies:
         they wait for distribution."""
         moe, encdec = self.moe, self.n_enc_layers > 0
@@ -243,7 +251,10 @@ class ModelConfig:
             "enc-dec with an SSM": encdec and self.ssm is not None,
             "enc-dec with a vision prefix":
                 encdec and self.vision_prefix > 0,
-            "kv_cache_dtype": self.kv_cache_dtype is not None,
+            f"kv_cache_dtype {self.kv_cache_dtype!r} (the port stores "
+            f"the KV cache in one of {sorted(KV_CACHE_DTYPES)})":
+                self.kv_cache_dtype is not None
+                and self.kv_cache_dtype not in KV_CACHE_DTYPES,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:

@@ -46,7 +46,8 @@ are autograd-safe (the training path); remat is not ported.
 
 The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]; for a pair layout
 ``{"local": {"k", "v"}, "global": {...}}`` on [L/2], the local leaves a
-ring of ``min(S, local_window)`` rows; for MLA ``{"ckv" [L, B, S, r],
+ring of ``min(S, local_window)`` rows, or full length with
+``init_cache(local_window_cache=False)``; for MLA ``{"ckv" [L, B, S, r],
 "kr" [L, B, S, rd]}``; an SSM's recurrent state ``{"ssm_state":
 {"conv", "ssm"}}``, which has no sequence axis; an enc-dec model's cross
 K/V ``{"xk", "xv"}`` [L, B, enc_len, KV, hd], sized by the frames, written
@@ -64,6 +65,11 @@ writes past the end of a full-length leaf
 are clamped onto its last row where the reference drops them: only a
 slot that already finished writes there (its tokens are discarded on the
 host), and a later occupant rewrites every row before reading it.
+With ``cfg.kv_cache_dtype`` the K/V and MLA latent leaves are stored in
+that dtype: ``"int8"`` holds the reference's static-scale codes
+(:data:`KV_QUANT_SCALE`).  Every cache write goes through
+:func:`_to_cache_dtype` and decode reads int8 leaves back through
+:func:`_dq_cache`, in the model dtype.
 """
 
 from __future__ import annotations
@@ -82,7 +88,8 @@ from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ModelConfig, mm, mm_gated
+from repro_torch.models.common import KV_CACHE_DTYPES, ModelConfig, mm, \
+    mm_gated
 
 __all__ = ["init_lm", "forward", "logits_of", "loss_fn", "init_cache",
            "decode_step", "prefill", "prefill_into_slot", "dense_init",
@@ -475,20 +482,80 @@ def map_cache(fn, *caches):
     return fn(*caches)
 
 
+#: static symmetric scale of an int8 KV cache (the reference's
+#: ``KV_QUANT_SCALE``: RoPE'd keys and values are O(1); per-head scales
+#: would be the production rule)
+KV_QUANT_SCALE = 1.0 / 24.0
+#: the f32 reciprocal of the f32 scale.  Codes are ``round(x * 24.0)``:
+#: what the reference's jitted programs compute for its ``x /
+#: KV_QUANT_SCALE`` (XLA folds the division by a constant into this
+#: product; its eager path divides, and its codes differ there, ROADMAP
+#: C13), and one rule on the CPU and the card alike
+_KV_QUANT_INV = 24.0
+
+
+def _cache_dt(cfg: ModelConfig) -> torch.dtype:
+    """The dtype a K/V or MLA latent leaf is stored in: ``kv_cache_dtype``
+    when set, else the model dtype."""
+    return (KV_CACHE_DTYPES[cfg.kv_cache_dtype] if cfg.kv_cache_dtype
+            else cfg.tdtype)
+
+
+def _quantize(x: torch.Tensor) -> torch.Tensor:
+    """int8 codes of ``x``: ``clamp(round(x * 24), -127, 127)`` in f32
+    (``torch.round`` rounds half to even, as ``jnp.round`` does)."""
+    return torch.clamp(torch.round(x.float() * _KV_QUANT_INV),
+                       -127, 127).to(torch.int8)
+
+
+def _to_cache_dtype(piece: torch.Tensor, dst_dtype) -> torch.Tensor:
+    """``piece`` in a cache leaf's dtype ``dst_dtype``: quantized for an
+    int8 leaf (codes pass through), a plain cast otherwise.  Every cache
+    write of the port goes through here."""
+    if dst_dtype == torch.int8 and piece.dtype != torch.int8:
+        return _quantize(piece)
+    return piece.to(dst_dtype)
+
+
+def _q_cache(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A K/V or latent tile as the cache stores it (:func:`_cache_dt`)."""
+    return _to_cache_dtype(x, _cache_dt(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _dq_scale(dtype: torch.dtype) -> float:
+    """:data:`KV_QUANT_SCALE` rounded to ``dtype`` (a Python float of that
+    exact value: a tensor of ``dtype`` times it rounds as the product of
+    two ``dtype`` tensors does)."""
+    return torch.tensor(KV_QUANT_SCALE, dtype=dtype).item()
+
+
+def _dq_cache(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A cache tile read back in the model dtype: int8 codes times the
+    scale, both in the model dtype (the reference's rounding before any
+    f32 cast); a float leaf as it is stored."""
+    if x.dtype == torch.int8:
+        return x.to(cfg.tdtype) * _dq_scale(cfg.tdtype)
+    return x
+
+
 def init_cache(cfg: ModelConfig, B: int, S: int, *, enc_len: int = 0,
-               device="cuda"):
+               local_window_cache: bool = True, device="cuda"):
     """Stacked decode cache {"k", "v"}: [L, B, S, KV, hd] zeros; an MLA
-    model's the compressed {"ckv": [L, B, S, r], "kr": [L, B, S, rd]}; an
-    SSM model's {"ssm_state": {"conv": [L, B, W - 1, C] in the model
-    dtype, "ssm": [L, B, H, P, N] in f32}}, a hybrid's both K/V and
-    ``ssm_state``.  A pair layout's is {"local": ..., "global": ...},
+    model's the compressed {"ckv": [L, B, S, r], "kr": [L, B, S, rd]};
+    both in :func:`_cache_dt` (int8 codes with ``kv_cache_dtype
+    "int8"``); an SSM model's {"ssm_state": {"conv": [L, B, W - 1, C] in
+    the model dtype, "ssm": [L, B, H, P, N] in f32}}, a hybrid's both K/V
+    and ``ssm_state``.  A pair layout's is {"local": ..., "global": ...},
     each on [L/2], its local leaves a ring of ``min(S, local_window)``
-    rows (the reference's ``local_window_cache``); an all-local model's
+    rows, or full length S with ``local_window_cache=False`` (the paged
+    pool's: a page table cannot express a ring); an all-local model's
     K/V leaves are full length S, as the reference's are.  With
     ``enc_len`` an enc-dec model's also holds the cross K/V {"xk", "xv":
     [L, B, enc_len, KV, hd]} in the model dtype (none without it, as in
     the reference)."""
     dev = resolve_device(device)
+    cdt = _cache_dt(cfg)
 
     def layer_cache(L, rows):
         if cfg.attn_type == "mla":
@@ -500,7 +567,7 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, enc_len: int = 0,
         else:
             shapes = {}
         c: dict[str, Any] = {
-            name: torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+            name: torch.zeros(shape, dtype=cdt, device=dev)
             for name, shape in shapes.items()}
         if cfg.attn_type in ("none", "hybrid"):
             c["ssm_state"] = ssm_mod.init_ssm_state(cfg, B, L=L, device=dev)
@@ -512,7 +579,8 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, enc_len: int = 0,
 
     if _pair(cfg):
         L = cfg.n_layers // 2
-        return {"local": layer_cache(L, min(S, cfg.local_window)),
+        local = min(S, cfg.local_window) if local_window_cache else S
+        return {"local": layer_cache(L, local),
                 "global": layer_cache(L, S)}
     return layer_cache(cfg.n_layers, S)
 
@@ -526,18 +594,21 @@ def _decode_gqa_at(p, x, cfg, kc, vc, pv, *, is_local=False):
     onto its last row and attends over ``pv + 1`` rows, a local one (an
     all-local model's full-length cache) over the last ``local_window``
     of them (the reference's rule, ``ring = is_local and S_c <=
-    window``)."""
+    window``).  The token's K/V are stored through :func:`_q_cache`
+    and the layer's views read back through :func:`_dq_cache` (int8
+    codes dequantized whole, in the model dtype, as the reference's)."""
     B = x.shape[0]
     q, k, v = attn._qkv(p, x, cfg, pv[:, None])
     rows = torch.arange(B, device=x.device)
     S_c = kc.shape[1]
     ring = is_local and S_c <= cfg.local_window
     wpos = (pv % S_c if ring else pv.clamp(max=S_c - 1)).long()
-    kc.index_put_((rows, wpos), k[:, 0].to(kc.dtype))
-    vc.index_put_((rows, wpos), v[:, 0].to(vc.dtype))
+    kc.index_put_((rows, wpos), _q_cache(k[:, 0], cfg))
+    vc.index_put_((rows, wpos), _q_cache(v[:, 0], cfg))
     n_valid = (pv + 1).clamp(max=S_c) if ring else pv + 1
     window = cfg.local_window if is_local and not ring else None
-    out = attn.decode_attention(q, kc, vc, n_valid, softcap=cfg.attn_softcap,
+    out = attn.decode_attention(q, _dq_cache(kc, cfg), _dq_cache(vc, cfg),
+                                n_valid, softcap=cfg.attn_softcap,
                                 window=window)
     return mm(out.reshape(B, 1, -1), p["wo"])
 
@@ -552,7 +623,8 @@ def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
     h = _rms(x, lp["ln1"])
     a = None
     if cfg.attn_type == "mla":
-        a = attn.decode_mla(lp["attn"], h, cfg, c["ckv"], c["kr"], pv)
+        a = attn.decode_mla(lp["attn"], h, cfg, c["ckv"], c["kr"], pv,
+                            q_cache=_q_cache, dq_cache=_dq_cache)
     elif "attn" in lp:
         a = _decode_gqa_at(lp["attn"], h, cfg, c["k"], c["v"], pv,
                            is_local=is_local)
@@ -629,15 +701,16 @@ def _write_slot_leaf(dst, src, slot, offset, is_seq):
     overwritten whole at ``slot``, and ``offset`` does not touch it.
     ``slot`` and ``offset`` are Python ints or 0-dim integer tensors on
     ``dst``'s device; neither is read back to the host, so a captured
-    program writes whichever slot its buffers name at replay."""
+    program writes whichever slot its buffers name at replay.  Stored
+    through :func:`_to_cache_dtype` (int8 leaves quantized)."""
     if not is_seq:
         assert dst.shape[2:] == src.shape[2:], (dst.shape, src.shape)
         idx = torch.as_tensor(slot, device=dst.device).reshape(1).long()
-        return dst.index_copy_(1, idx, src.to(dst.dtype))
+        return dst.index_copy_(1, idx, _to_cache_dtype(src, dst.dtype))
     src = src[:, 0]                                     # [L, S_src, ...]
     S_c, S_src = dst.shape[2], src.shape[1]
     rows = _rows(S_src, S_c, offset, dst.device)
-    piece = src[:, S_src - rows.shape[0]:].to(dst.dtype)
+    piece = _to_cache_dtype(src[:, S_src - rows.shape[0]:], dst.dtype)
     flat = dst.view(dst.shape[0], -1, *dst.shape[3:])   # [L, B*S_c, ...]
     flat.index_copy_(1, (slot * S_c + rows).long(), piece)
     return dst
@@ -646,12 +719,12 @@ def _write_slot_leaf(dst, src, slot, offset, is_seq):
 def _write_leaf(dst, src, is_seq):
     """Write a batch's collected cache leaf src [L, B, S_src, ...] into a
     fresh ``dst`` [L, B, S_cache, ...] by :func:`_rows` from offset 0; a
-    state leaf whole."""
+    state leaf whole; through :func:`_to_cache_dtype`."""
     if not is_seq:
-        return dst.copy_(src)
+        return dst.copy_(_to_cache_dtype(src, dst.dtype))
     rows = _rows(src.shape[2], dst.shape[2], 0, dst.device)
-    dst.index_copy_(2, rows, src[:, :, src.shape[2] - rows.shape[0]:]
-                    .to(dst.dtype))
+    dst.index_copy_(2, rows, _to_cache_dtype(
+        src[:, :, src.shape[2] - rows.shape[0]:], dst.dtype))
     return dst
 
 

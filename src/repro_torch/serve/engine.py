@@ -1,6 +1,6 @@
-"""Continuous-batching serving engine, slot mode (port of
-``repro/serve/engine.py``; the paged cache, SLO control loop, sparsity
-tiers and fault injection are not ported yet).
+"""Continuous-batching serving engine (port of ``repro/serve/engine.py``,
+with its slot and paged KV caches; the SLO control loop, sparsity tiers,
+fault injection and ``max_queue`` are not ported yet).
 
 The engine holds a static batch of ``max_slots`` sequences.  Between
 decode steps it admits queued requests into free slots (prefill writes a
@@ -9,6 +9,16 @@ occupied slots at their own positions.  When every active request is
 greedy, ``decode_chunk`` steps run back to back on the device with
 on-device argmax and the token block reaches the host in one sync per
 chunk; otherwise one step at a time with host-side sampling.
+
+With ``paged=True`` the KV cache is a
+:class:`~repro_torch.serve.cache.PagedKVCache`: decode runs the same
+``decode_step`` over a gathered slot-major view of the page pool and
+commits the rows it wrote, so the tokens are the slot engine's; what
+changes is capacity.  An admission that cannot get its pages is deferred
+(the request returns to the queue head, live slots untouched), and a
+decode that cannot get its pages preempts the youngest slot, whose
+request is served again from scratch (the same tokens: greedy decoding,
+and a sampled request restarts its seeded stream).
 
 The engine holds its programs as the reference's holds its jitted ones
 (``_jit_decode``, ``_jit_decode_chunk``, and ``_jit_slot_prefill`` once
@@ -50,8 +60,9 @@ from repro_torch.core.sparsifiers import GroupedNMSparsifier
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.common import ModelConfig
-from repro_torch.serve.cache import PromptTooLongError, SlotKVCache
-from repro_torch.serve.graphs import DecodeGraph
+from repro_torch.serve.cache import PagedKVCache, PromptTooLongError, \
+    SlotKVCache, paged_commit, paged_view
+from repro_torch.serve.graphs import DecodeGraph, PagedDecodeGraph
 from repro_torch.serve.metrics import ServeMetrics, summarize
 from repro_torch.serve.queue import Request, RequestOutput, RequestQueue, \
     sample_token
@@ -122,6 +133,38 @@ def _decode_chunk_fn(cfg: ModelConfig, n_steps: int):
     return chunk
 
 
+def _paged_decode_fn(cfg: ModelConfig, page_size: int, num_pages: int):
+    """The paged one-step program (the reference's ``_jit_paged_decode``):
+    gather the view through the table, one ``decode_step`` on it, commit
+    the written row; logits [B, V], the pool updated in place."""
+
+    def step(p, tok, pool, table, pos):
+        view = paged_view(cfg, pool, table, page_size)
+        logits = decode_step(p, cfg, tok, view, pos)[0]
+        paged_commit(cfg, pool, view, table, pos, 1, page_size, num_pages)
+        return logits
+
+    return step
+
+
+def _paged_decode_chunk_fn(cfg: ModelConfig, page_size: int,
+                           num_pages: int, n_steps: int):
+    """The paged chunk program (the reference's
+    ``_jit_paged_decode_chunk``): one gather, ``n_steps`` greedy steps
+    over the view (the slot engine's loop, so tokens match it bitwise),
+    one commit of the ``n_steps`` written rows; the [n_steps, B] token
+    block."""
+
+    def chunk(p, tok, pool, table, pos):
+        view = paged_view(cfg, pool, table, page_size)
+        toks = decode_chunk(p, cfg, tok, view, pos, n_steps)[0]
+        paged_commit(cfg, pool, view, table, pos, n_steps, page_size,
+                     num_pages)
+        return toks
+
+    return chunk
+
+
 def serve_programs(params, cfg: ModelConfig, *, max_slots: int = 4,
                    max_seq_len: int = 64, decode_chunk: int = 4,
                    prompt_len: int = 8) -> dict:
@@ -183,20 +226,29 @@ def _param_device(params) -> torch.device:
 
 
 class ServeEngine:
-    """Slot-based continuous-batching engine.
+    """Continuous-batching engine over a slot or a paged KV cache.
 
     ``params`` may hold dense or n:m:g weights and must lie on ``device``
     (default ``"cuda"``; pass ``device="cpu"`` for the plain versions).
     ``decode_chunk`` is the number of device-resident greedy steps per
     host sync (1 = the per-token reference loop).  ``graphs=False`` runs
     the decode and admission programs eagerly on the card instead of
-    replaying them.  An enc-dec model raises ``ValueError``
-    (:func:`check_servable`)."""
+    replaying them.  ``reset_freed_slots`` zeroes a finished request's
+    cache (its slot row, or the pages its release frees): admission
+    overwrites what it reads and decode masks each slot to its prefix,
+    so it is off by default; tests use it for slot isolation.  ``paged``
+    backs the cache with :class:`PagedKVCache` (``page_size``,
+    ``num_pages`` and ``prefix_sharing`` are forwarded to it).  An
+    enc-dec model raises ``ValueError`` (:func:`check_servable`)."""
 
     def __init__(self, params, cfg: ModelConfig, *,
                  max_slots: int = DEFAULT_MAX_SLOTS,
-                 max_seq_len: int = 256, decode_chunk: int = 8,
+                 max_seq_len: int = 256, reset_freed_slots: bool = False,
+                 decode_chunk: int = 8,
                  clock: Callable[[], float] = time.perf_counter,
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefix_sharing: bool = True,
                  device="cuda", graphs: bool = True):
         cfg.check_ported()
         check_servable(cfg)
@@ -208,22 +260,47 @@ class ServeEngine:
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
+        self.reset_freed_slots = reset_freed_slots
         self.decode_chunk = max(1, decode_chunk)
+        self.paged = paged
         self.queue = RequestQueue()
         capture = graphs and self.device.type == "cuda"
         # every program of the engine (decode, chunk, each prompt length's
         # admission) captures into this one pool: they never run at once
         pool = torch.cuda.graph_pool_handle() if capture else None
-        self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
-                              device=self.device, graphs=capture, pool=pool)
-        self._decode = DecodeGraph(_decode_fn(cfg), params, self.kv.data,
-                                   max_slots, name="decode",
-                                   capture=capture, pool=pool)
-        self._decode_chunk = DecodeGraph(
-            _decode_chunk_fn(cfg, self.decode_chunk), params, self.kv.data,
-            max_slots, name="decode_chunk", capture=capture, pool=pool) \
-            if self.decode_chunk > 1 else None
-        self.stats = {"rejected": 0, "peak_active": 0, "decode_steps": 0}
+        chunk = self.decode_chunk
+        if paged:
+            self.kv = PagedKVCache(
+                cfg, max_slots, max_seq_len, page_size=page_size,
+                num_pages=num_pages, prefix_sharing=prefix_sharing,
+                device=self.device, graphs=capture, pool=pool)
+            ps, npg, pps = (self.kv.page_size, self.kv.num_pages,
+                            self.kv.pages_per_slot)
+            self._decode = PagedDecodeGraph(
+                _paged_decode_fn(cfg, ps, npg), params, self.kv.data,
+                max_slots, pps, name="paged_decode", capture=capture,
+                graph_pool=pool)
+            self._decode_chunk = PagedDecodeGraph(
+                _paged_decode_chunk_fn(cfg, ps, npg, chunk), params,
+                self.kv.data, max_slots, pps, name="paged_decode_chunk",
+                capture=capture, graph_pool=pool) if chunk > 1 else None
+        else:
+            self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
+                                  device=self.device, graphs=capture,
+                                  pool=pool)
+            self._decode = DecodeGraph(_decode_fn(cfg), params,
+                                       self.kv.data, max_slots,
+                                       name="decode", capture=capture,
+                                       pool=pool)
+            self._decode_chunk = DecodeGraph(
+                _decode_chunk_fn(cfg, chunk), params, self.kv.data,
+                max_slots, name="decode_chunk", capture=capture,
+                pool=pool) if chunk > 1 else None
+        self.stats = self._fresh_stats()
+        # chunked decode falls back to single steps once a lone slot
+        # cannot get a whole chunk's pages; cleared when a request
+        # finishes and frees pages (_ensure_decode_pages)
+        self._force_single = False
         self._slots: list[Optional[_SlotState]] = [None] * max_slots
         self._pos = np.zeros(max_slots, np.int32)   # next write position
         self._tok = np.zeros(max_slots, np.int32)   # last sampled token
@@ -240,13 +317,22 @@ class ServeEngine:
         return [i for i, s in enumerate(self._slots) if s is None]
 
     def reset_metrics(self) -> None:
-        """Forget the finished outputs, the stats and the clock (the
-        programs, and what they captured, stay)."""
+        """Forget the finished outputs, the stats (a paged cache's too) and
+        the clock (the programs, and what they captured, stay)."""
         assert not self.num_active and not len(self.queue), \
             "reset_metrics with requests in flight"
         self._outputs = []
         self._t0 = None
-        self.stats = {"rejected": 0, "peak_active": 0, "decode_steps": 0}
+        self.stats = self._fresh_stats()
+        if self.paged:
+            self.kv.reset_stats()
+
+    @staticmethod
+    def _fresh_stats() -> dict:
+        """Scheduler counters: deferred admissions and preemptions (paged
+        only), rejected requests, peak active slots, decode steps."""
+        return {"deferred_admissions": 0, "preemptions": 0, "rejected": 0,
+                "peak_active": 0, "decode_steps": 0}
 
     def _now(self) -> float:
         if self._t0 is None:
@@ -272,10 +358,18 @@ class ServeEngine:
             deadline=req.deadline))
         self.stats["rejected"] += 1
 
-    def _admit(self, slot: int, req: Request, now: float) -> None:
+    def _admit(self, slot: int, req: Request, now: float) -> bool:
         """Prefill ``req`` into ``slot`` (its prompt length's admission
-        program) and sample its first token."""
-        logits = self.kv.write_prefill(self.params, req.prompt[None], slot)
+        program) and sample its first token.  Returns False, leaving the
+        slot free and the cache untouched, when the paged pool cannot
+        supply the prompt's pages."""
+        if self.paged:
+            logits = self.kv.admit(self.params, req.prompt[None], slot)
+            if logits is None:
+                return False
+        else:
+            logits = self.kv.write_prefill(self.params, req.prompt[None],
+                                           slot)
         S = int(req.prompt.size)
         # token i (1-based) is written at position S + i - 1, so N tokens
         # need S + N - 1 <= max_seq_len
@@ -293,6 +387,7 @@ class ServeEngine:
         self._tok[slot] = tok
         if self._stopped(st, tok):
             self._finish(slot)
+        return True
 
     def _stopped(self, st: _SlotState, tok: int) -> bool:
         return tok in st.req.stop_tokens or len(st.tokens) >= st.max_new
@@ -306,15 +401,65 @@ class ServeEngine:
             arrival_time=st.req.arrival_time,
             admitted_time=st.admitted_time, finish_time=self._now(),
             token_times=list(st.token_times), deadline=st.req.deadline))
+        self._vacate(slot)
+        if self.paged:
+            self.kv.release_slot(slot, zero=self.reset_freed_slots)
+            self._force_single = False  # pages freed: chunks may fit again
+        elif self.reset_freed_slots:
+            self.kv.reset(slot)
+
+    def _vacate(self, slot: int) -> None:
         self._slots[slot] = None
         self._pos[slot] = 0
         self._tok[slot] = 0
 
+    def _preempt(self, slot: int) -> None:
+        """Evict an active slot mid-stream: free its pages and return its
+        request to the queue head.  Its tokens are discarded; served
+        again, the request reproduces them (greedy decoding, or its
+        seeded sampling stream restarted)."""
+        st = self._slots[slot]
+        self.kv.release_slot(slot)
+        self._vacate(slot)
+        self.queue.push_front(st.req)
+        self.stats["preemptions"] += 1
+
+    def _ensure_decode_pages(self, active, n_steps: int):
+        """Before a paged decode of ``n_steps``, make every active slot's
+        write range mapped and private.  When the pool runs dry the
+        youngest active slot is preempted and the rest retry (the oldest
+        keep their pages).  Returns the surviving slots, or None when a
+        lone slot cannot fit a multi-step chunk (the caller then decodes
+        single steps, which need at most one new page).  A lone slot
+        that cannot get even one page is rejected: its prompt fits, but
+        with nothing left to preempt it would requeue forever."""
+        pending = sorted(active,
+                         key=lambda s: (self._slots[s].admitted_time, s))
+        ok: list = []
+        while pending:
+            slot = pending[0]
+            if self.kv.ensure_writable_range(slot, int(self._pos[slot]),
+                                             n_steps):
+                ok.append(pending.pop(0))
+                continue
+            if not ok and len(pending) == 1:
+                if n_steps > 1:
+                    return None  # retry as single steps before evicting
+                st = self._slots[slot]
+                self.kv.release_slot(slot)
+                self._vacate(slot)
+                self._reject(st.req, st.admitted_time)
+                break
+            self._preempt(pending.pop())
+        return sorted(ok)
+
     # -- the engine loop --------------------------------------------------
     def step(self) -> int:
-        """One scheduler iteration: admit ready requests into free slots,
-        then run one decode chunk over the batch.  Returns the number of
-        tokens produced."""
+        """One scheduler iteration: admit ready requests into free slots
+        (a paged admission that cannot get its pages returns the request
+        to the queue head and ends admission for this step), then run one
+        decode chunk over the batch.  Returns the number of tokens
+        produced."""
         now = self._now()
         produced = 0
         free = self.free_slots()
@@ -323,10 +468,14 @@ class ServeEngine:
             if req is None:
                 break
             try:
-                self._admit(free[0], req, now)
+                admitted = self._admit(free[0], req, now)
             except PromptTooLongError:
                 self._reject(req, now)
                 continue
+            if not admitted:
+                self.queue.push_front(req)
+                self.stats["deferred_admissions"] += 1
+                break
             free.pop(0)
             produced += 1  # the first token, sampled from prefill logits
         active = [i for i, s in enumerate(self._slots) if s is not None]
@@ -334,14 +483,25 @@ class ServeEngine:
                                         len(active))
         if not active:
             return produced
-        if self.decode_chunk > 1 and all(
+        if self.decode_chunk > 1 and not self._force_single and all(
                 self._slots[s].req.sampling.greedy for s in active):
             return produced + self._step_chunked(active)
         return produced + self._step_single(active)
 
+    def _run(self, program):
+        """Run a decode program on the engine's tokens and positions (and
+        the page table, paged)."""
+        if self.paged:
+            return program.run(self._tok, self._pos, self.kv.table)
+        return program.run(self._tok, self._pos)
+
     def _step_single(self, active) -> int:
         """Per-token path: one decode step, host-side sampling."""
-        logits = self._decode.run(self._tok, self._pos)
+        if self.paged:
+            active = self._ensure_decode_pages(active, 1)
+            if not active:
+                return 0
+        logits = self._run(self._decode)
         self.stats["decode_steps"] += 1
         logits_np = logits.float().cpu().numpy()
         t = self._now()
@@ -365,8 +525,19 @@ class ServeEngine:
         on the host.  Per-token timestamps spread the chunk's measured
         latency evenly over its tokens."""
         T = self.decode_chunk
+        if self.paged:
+            active = self._ensure_decode_pages(active, T)
+            if active is None:
+                # a lone slot cannot fit a whole chunk's pages: single
+                # steps until a finish frees pages
+                self._force_single = True
+                active = [i for i, s in enumerate(self._slots)
+                          if s is not None]
+                return self._step_single(active) if active else 0
+            if not active:
+                return 0
         t0 = self._now()
-        toks = self._decode_chunk.run(self._tok, self._pos)
+        toks = self._run(self._decode_chunk)
         self.stats["decode_steps"] += T
         toks_np = toks.cpu().numpy()        # the one host sync per chunk
         t1 = self._now()

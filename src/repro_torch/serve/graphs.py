@@ -1,7 +1,8 @@
 """The engine's serve programs replayed as CUDA graphs: the port's
 counterpart of the reference's jitted ``_jit_decode``,
-``_jit_decode_chunk`` (``repro/serve/engine.py``) and ``_jit_slot_prefill``
-(``repro/serve/cache.py``).
+``_jit_decode_chunk``, ``_jit_paged_decode``, ``_jit_paged_decode_chunk``
+(``repro/serve/engine.py``), ``_jit_slot_prefill`` and
+``_jit_paged_prefill`` (``repro/serve/cache.py``).
 
 A :class:`DecodeGraph` holds one decode program ``fn(params, tok, cache,
 pos) -> tensor`` over static buffers: ``tok`` [B, 1] and ``pos`` [B]
@@ -23,7 +24,11 @@ counting launches executed.  A capture or replay error raises; nothing
 drops back to the eager program.  On the CPU, or with ``capture=False``,
 the same object runs the program eagerly into the same buffers.  Each
 build (a capture, or the first eager run where capture is off) is one
-trace event (``serve/tracecount.py``).
+trace event (``serve/tracecount.py``).  The paged programs
+(:class:`PagedDecodeGraph`, :class:`PagedPrefillGraph`) also hold the
+page table in their static buffer (the whole ``[max_slots,
+pages_per_slot]`` table, or the admitted slot's row), copied in with the
+tokens before each run: the reference uploads it with every call.
 
 Capture freezes what the program reads from the host, so the program
 must not sync or copy from the host, and every n:m:g weight must carry
@@ -54,7 +59,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import cache_leaves
 from repro_torch.serve.tracecount import note_trace
 
-__all__ = ["DecodeGraph", "PrefillGraph", "check_capturable"]
+__all__ = ["DecodeGraph", "PrefillGraph", "PagedDecodeGraph",
+           "PagedPrefillGraph", "check_capturable"]
 
 
 def check_capturable(params, path: str = "params") -> None:
@@ -218,4 +224,79 @@ class PrefillGraph(_ProgramGraph):
         host[:self.S] = toks
         host[self.S:] = (slot, offset)
         self._io.copy_(torch.from_numpy(host))
+        return self._execute()
+
+
+class PagedDecodeGraph(_ProgramGraph):
+    """A paged decode program ``fn(params, tok, pool, table, pos) ->
+    tensor`` over static ``tok`` [B, 1], ``pos`` [B] and ``table`` [B,
+    pps] int32 buffers (one buffer, one copy a run) and the page pool,
+    updated in place; ``name`` is ``paged_decode`` or
+    ``paged_decode_chunk``."""
+
+    def __init__(self, fn: Callable, params, pool: dict, batch: int,
+                 pages_per_slot: int, *, name: str = "paged_decode",
+                 capture: bool = True, graph_pool=None):
+        super().__init__(name, params, cache_leaves(pool)[0].device,
+                         capture=capture, pool=graph_pool)
+        self.fn = fn
+        self.cache = pool
+        self._io = torch.zeros(batch * (2 + pages_per_slot),
+                               dtype=torch.int32, device=self.device)
+        self.tok = self._io[:batch].view(batch, 1)
+        self.pos = self._io[batch:2 * batch]
+        self.table = self._io[2 * batch:].view(batch, pages_per_slot)
+
+    def _program(self) -> torch.Tensor:
+        return self.fn(self.params, self.tok, self.cache, self.table,
+                       self.pos)
+
+    def run(self, tok, pos, table) -> torch.Tensor:
+        """Copy ``tok`` [B], ``pos`` [B] and ``table`` [B, pps] (host
+        ints) in, run the program and return the static output."""
+        self._io.copy_(torch.from_numpy(np.concatenate([
+            np.asarray(tok, np.int32).reshape(-1),
+            np.asarray(pos, np.int32).reshape(-1),
+            np.asarray(table, np.int32).reshape(-1)])))
+        return self._execute()
+
+
+class PagedPrefillGraph(_ProgramGraph):
+    """The paged admission program for one prompt length ``S``:
+    ``fn(params, tokens, pool, table_row, slot, start) -> logits [1,
+    V]`` over a static tokens [1, S], the slot's table row [pps] and the
+    (slot, shared-prefix length) pair in one int32 buffer, and the page
+    pool, written in place."""
+
+    def __init__(self, fn: Callable, params, pool: dict, S: int,
+                 pages_per_slot: int, *, capture: bool = True,
+                 graph_pool=None):
+        super().__init__("paged_prefill", params,
+                         cache_leaves(pool)[0].device, capture=capture,
+                         pool=graph_pool)
+        self.fn = fn
+        self.cache = pool
+        self.S = S
+        self._io = torch.zeros(S + pages_per_slot + 2, dtype=torch.int32,
+                               device=self.device)
+        self.tokens = self._io[:S].view(1, S)
+        self.table_row = self._io[S:S + pages_per_slot]
+        self.slot = self._io[S + pages_per_slot]
+        self.start = self._io[S + pages_per_slot + 1]
+
+    def _program(self) -> torch.Tensor:
+        return self.fn(self.params, self.tokens, self.cache, self.table_row,
+                       self.slot, self.start)
+
+    def run(self, tokens, table_row, slot: int, start: int) -> torch.Tensor:
+        """Copy ``tokens`` (S host ints), the slot's ``table_row``,
+        ``slot`` and ``start`` in, run the program and return the static
+        logits [1, V] (valid until the next run)."""
+        toks = np.asarray(tokens).reshape(-1)
+        if toks.size != self.S:
+            raise ValueError(f"the program takes {self.S} tokens, got "
+                             f"{toks.size}")
+        self._io.copy_(torch.from_numpy(np.concatenate([
+            toks.astype(np.int32), np.asarray(table_row, np.int32),
+            np.asarray([slot, start], np.int32)])))
         return self._execute()

@@ -1,24 +1,26 @@
 """Request/response plumbing for the continuous-batching serving engine
-(port of ``repro/serve/queue.py``, slot mode: the paged-cache allocator
-and prefix hashes are not ported yet).
+(port of ``repro/serve/queue.py``).
 
 A :class:`Request` carries a prompt, per-request sampling parameters and
 stop conditions; the :class:`RequestQueue` is the arrival side of the
 engine (requests become visible once their ``arrival_time`` has passed).
 A finished request is returned as a :class:`RequestOutput` with the
-wall-clock timestamps the metrics layer aggregates.
+wall-clock timestamps the metrics layer aggregates.  The paged cache's
+host bookkeeping, :func:`prefix_hashes` and :class:`PageAllocator`, is
+the reference's, line for line (pure Python and numpy).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Optional
 
 import numpy as np
 
 __all__ = ["SamplingParams", "Request", "RequestOutput", "RequestQueue",
-           "sample_token"]
+           "sample_token", "prefix_hashes", "PageAllocator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +179,136 @@ class RequestQueue:
 
     def __len__(self) -> int:
         return len(self._q)
+
+
+# ---------------------------------------------------------------------------
+# paged-cache host bookkeeping: allocator + prefix-sharing index
+# ---------------------------------------------------------------------------
+
+
+def prefix_hashes(tokens: np.ndarray, page_size: int) -> list:
+    """Chained digests of every full token page of a prompt, plus (when the
+    prompt does not end on a page boundary) a final digest of the *whole*
+    prompt for the partial tail page.
+
+    Returns ``[(digest, covered_len), ...]`` where ``covered_len`` is the
+    number of prompt tokens the chain covers up to and including that page.
+    Chaining (each digest folds in the previous one) encodes that K/V at a
+    position depends on *all* earlier tokens under causal attention — page
+    j is only shareable if pages 0..j-1 matched too, which the lookup gets
+    for free by walking the chain until the first miss."""
+    toks = np.ascontiguousarray(np.asarray(tokens, np.int32).reshape(-1))
+    out = []
+    h = hashlib.blake2b(digest_size=16)
+    n_full = toks.size // page_size
+    for j in range(n_full):
+        h = h.copy()
+        h.update(toks[j * page_size:(j + 1) * page_size].tobytes())
+        out.append((h.digest(), (j + 1) * page_size))
+    tail = toks.size % page_size
+    if tail:
+        h = h.copy()
+        h.update(toks[n_full * page_size:].tobytes())
+        out.append((h.digest(), toks.size))
+    return out
+
+
+class PageAllocator:
+    """Refcounted physical-page pool + prefix-sharing index (host side).
+
+    Invariants the property tests pin down:
+
+    * a page is never handed out twice while live (``alloc`` only returns
+      pages with refcount 0, set to 1),
+    * ``decref`` frees a page exactly when its refcount reaches 0 (and
+      only then returns it to the free list / invalidates its prefix-hash
+      entries),
+    * ``num_free + pages_in_use == num_pages`` always.
+
+    The prefix index maps a chained token-prefix digest to the physical
+    page holding that prefix's K/V rows.  Entries are invalidated the
+    moment their page is freed, so a lookup can never resurrect a recycled
+    page.  (Digest collisions — 128-bit blake2b — are assumed absent.)
+    """
+
+    def __init__(self, num_pages: int):
+        assert num_pages >= 1
+        self.num_pages = int(num_pages)
+        self.refcount = np.zeros(self.num_pages, np.int64)
+        self._free: deque = deque(range(self.num_pages))
+        self._by_hash: dict = {}          # digest -> physical page
+        self._hashes_of: dict = {}        # physical page -> set of digests
+
+    # -- allocation -------------------------------------------------------
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def alloc(self, n: int) -> Optional[list]:
+        """Take ``n`` fresh pages (refcount 1 each), or None — leaving the
+        pool untouched — when fewer than ``n`` are free (the caller then
+        queues/preempts instead of partially allocating)."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        pages = [self._free.popleft() for _ in range(n)]
+        for p in pages:
+            assert self.refcount[p] == 0, f"page {p} double-allocated"
+            self.refcount[p] = 1
+        return pages
+
+    def incref(self, page: int) -> None:
+        assert self.refcount[page] > 0, f"incref on dead page {page}"
+        self.refcount[page] += 1
+
+    def decref(self, page: int) -> bool:
+        """Drop one reference; returns True iff this freed the page."""
+        assert self.refcount[page] > 0, f"decref on dead page {page}"
+        self.refcount[page] -= 1
+        if self.refcount[page] == 0:
+            for h in self._hashes_of.pop(page, ()):
+                self._by_hash.pop(h, None)
+            self._free.append(page)
+            return True
+        return False
+
+    # -- prefix sharing ---------------------------------------------------
+    def register_prefix(self, digest: bytes, page: int) -> None:
+        """Publish ``page`` as holding the K/V rows of the prefix with this
+        digest, so later admissions can share it.  First writer wins (the
+        existing entry stays authoritative for its sharers)."""
+        assert self.refcount[page] > 0
+        if digest in self._by_hash:
+            return
+        self._by_hash[digest] = page
+        self._hashes_of.setdefault(page, set()).add(digest)
+
+    def lookup_prefix(self, digest: bytes) -> Optional[int]:
+        return self._by_hash.get(digest)
+
+    # -- compaction -------------------------------------------------------
+    def compaction_perm(self) -> dict:
+        """Plan a compaction: map every live physical page to a new id
+        packed at the front of the pool (in increasing old-id order).
+        Pure planning — ``apply_compaction`` commits it after the device
+        pool has been permuted."""
+        live = [p for p in range(self.num_pages) if self.refcount[p] > 0]
+        return {old: new for new, old in enumerate(live)}
+
+    def apply_compaction(self, old_to_new: dict) -> None:
+        ref = np.zeros_like(self.refcount)
+        for old, new in old_to_new.items():
+            ref[new] = self.refcount[old]
+        self.refcount = ref
+        self._free = deque(range(len(old_to_new), self.num_pages))
+        self._by_hash = {h: old_to_new[p] for h, p in self._by_hash.items()}
+        self._hashes_of = {
+            old_to_new[p]: hs for p, hs in self._hashes_of.items()
+        }
 
 
 def sample_token(logits: np.ndarray, sampling: SamplingParams,

@@ -1937,3 +1937,94 @@ def test_spmm_at_whisper_encoder_width(dtype):
     plain = nmg_spmm.nmg_spmm_plain(w, x.T, out_dtype=dtype,
                                     transpose_out=True)
     torch.testing.assert_close(got.float(), plain.float(), **tol)
+
+
+# ---------------------------------------------------------------------------
+# the paged KV cache and the int8 cache: the paged programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "minicpm3-4b"])
+def test_paged_engine_replay_bitwise_eager(arch, kv):
+    """bf16 SMOKE n:m:g served by a paged engine (2 slots x 48 rows, pages
+    of 8, prompts 20, 6, 20, 6 sharing nothing, 8 new tokens, chunk 4)
+    with graphs and with ``graphs=False``, and by the slot engine: token
+    streams equal, replay and eager launch counts equal, the pool's
+    storage kept; then an admission and a chunk replayed on the live
+    pool, each bitwise its eager program on a clone (logits, tokens,
+    every pool leaf, the sink page included).  With ``kv="int8"`` the
+    K/V (qwen) or latents (minicpm3) are int8 codes."""
+    _require_cuda()
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import cache_leaves, map_cache
+    from repro_torch.serve import Request, ServeEngine, warmup_engine
+    from repro_torch.serve.cache import _paged_prefill_fn
+    from repro_torch.serve.engine import _paged_decode_chunk_fn
+
+    cfg, params = _new_family(arch, "nmg")
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 6, 20, 6)]
+
+    def trace():
+        return [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(cache_leaves(a), cache_leaves(b)))
+
+    dev = lambda x: torch.as_tensor(x, device="cuda")   # noqa: E731
+    kw = dict(max_slots=2, max_seq_len=48, decode_chunk=4)
+    runs = {}
+    for name, graphs, paged in (("graph", True, True),
+                                ("eager", False, True),
+                                ("slot", True, False)):
+        eng = ServeEngine(params, cfg, graphs=graphs, paged=paged,
+                          page_size=8, **kw)
+        ptrs = [t.data_ptr() for t in cache_leaves(eng.kv.data)]
+        warmup_engine(eng, trace())
+        ops.reset_kernel_counters()
+        outs = eng.run(trace())
+        runs[name] = ([o.tokens for o in outs], ops.counter_snapshot())
+        if name != "graph":
+            continue
+        assert eng._decode_chunk.info["captured"]
+        assert eng._decode_chunk.info["replays"] > 0
+        assert all(g.info["captured"] for g in
+                   eng.kv.prefill_graphs.values())
+        if kv:
+            assert any(t.dtype == torch.int8
+                       for t in cache_leaves(eng.kv.data))
+        pk = eng.kv
+        ref = map_cache(torch.clone, pk.data)
+        prompt = rng.integers(0, cfg.vocab, (1, 20), dtype=np.int32)
+        got = pk.admit(params, prompt, 1).clone()          # a replay
+        want = _paged_prefill_fn(cfg, 8, pk.num_pages)(
+            params, dev(prompt), ref, dev(pk.table[1]), dev(np.int32(1)),
+            dev(np.int32(0)))
+        assert torch.equal(got, want) and same(pk.data, ref)
+        tok, pos = np.array([0, int(got.argmax())], np.int32), \
+            np.array([0, 20], np.int32)
+        for _ in range(2):
+            assert pk.ensure_writable_range(1, int(pos[1]), 4)
+            ref = map_cache(torch.clone, pk.data)
+            got = eng._decode_chunk.run(tok, pos, pk.table).clone()
+            want = _paged_decode_chunk_fn(cfg, 8, pk.num_pages, 4)(
+                params, dev(tok[:, None]), ref, dev(pk.table), dev(pos))
+            assert torch.equal(got, want) and same(pk.data, ref)
+            tok, pos = got[-1].cpu().numpy().astype(np.int32), pos + 4
+        assert [t.data_ptr() for t in cache_leaves(pk.data)] == ptrs
+    assert runs["graph"] == runs["eager"]
+    assert runs["graph"][0] == runs["slot"][0]
+    assert all(len(t) == 8 for t in runs["graph"][0])
+    launches = runs["graph"][1]["launches"]
+    for k in ("nmg_gemv", "nmg_ffn"):
+        assert launches[k] > 0, (k, launches)
+    assert (launches["nmg_qkv"] > 0) == (cfg.attn_type == "gqa")

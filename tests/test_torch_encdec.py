@@ -421,7 +421,8 @@ def test_serve_cli_refuses_enc_dec(capsys):
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(kv_cache_dtype="int8"), "kv_cache_dtype"),
+    # int8 KV is ported (tests/test_torch_kvcache.py); an unknown name not
+    (dict(kv_cache_dtype="int4"), "kv_cache_dtype"),
     (dict(moe=MoEConfig(impl="shmap")), "shmap"),
     (dict(moe=MoEConfig(combine="scatter")), "scatter"),
     (dict(moe=MoEConfig()), "enc-dec with a MoE"),
@@ -437,8 +438,10 @@ def test_serve_cli_refuses_enc_dec(capsys):
         "pairs", "prefix"])
 def test_check_ported_boundary_at_whisper(change, what):
     """whisper's shape (GQA, global layers) is ported; every other enc-dec
-    combination is refused by a name that says ``enc-dec``, and int8 KV
-    and the expert-parallel MoE strategies stay refused."""
+    combination is refused by a name that says ``enc-dec``, and a KV
+    cache dtype the port does not store (the ``int8_kv`` case: int8
+    itself is ported) and the expert-parallel MoE strategies stay
+    refused."""
     cfg = dataclasses.replace(get_smoke(ARCH), **change)
     with pytest.raises(NotImplementedError, match=what):
         cfg.check_ported()

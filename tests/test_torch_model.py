@@ -206,9 +206,11 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_families_raise():
-    int8 = dataclasses.replace(get_smoke("qwen1.5-4b"), kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
-        init_lm(int8, device="cpu")
+    # int8 and the float names are ported (tests/test_torch_kvcache.py);
+    # any other cache dtype is refused by name
+    int4 = dataclasses.replace(get_smoke("qwen1.5-4b"), kv_cache_dtype="int4")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype 'int4'"):
+        init_lm(int4, device="cpu")
     # whisper (enc-dec) is ported: its config is the reference's
     from repro.configs import get_arch as j_config
 
