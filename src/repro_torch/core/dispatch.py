@@ -27,7 +27,6 @@ not yet wired to a tuning table.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import importlib
 import warnings
@@ -38,6 +37,7 @@ conv = importlib.import_module("repro_torch.core.convert")
 from repro_torch.core.layouts import DenseTensor, SparsityLayout
 from repro_torch.core.sparsifiers import KeepAll, Sparsifier, \
     apply_sparsifier
+from repro_torch.obs.registry import REGISTRY
 
 __all__ = [
     "SparseFallbackWarning",
@@ -66,8 +66,12 @@ _OP_IMPLS: dict = {}
 _DENSE_OPS: dict = {}
 #: (outcome, op, layout names) -> calls; outcome "impl" | "dense_fallback"
 #: | "cost_model_override" (a tie the cost model decided against
-#: registration order)
-_DISPATCH_COUNTS: collections.Counter = collections.Counter()
+#: registration order).  A ``repro_torch.obs`` registry family, as the
+#: reference's: Counter semantics, the counts in the registry's snapshot,
+#: and with the flight recorder on each count a ``dispatch`` event.
+_DISPATCH_COUNTS = REGISTRY.family(
+    "dispatch", help="dispatch outcomes: (outcome, op, layout signature)",
+    trace_as="dispatch", track="kernel")
 #: (op, layout names) whose fallback warning already fired
 _WARNED_FALLBACKS: set = set()
 #: (source class, target class) -> cost or None; breaks conversion ties

@@ -14,8 +14,9 @@ and ``act(u) * v`` in one launch).  The training side adds ``nm_mask``
 (the n:m sparsifier's keep mask) and ``matmul_threshold`` (matmul with
 the fused inline threshold sparsifier).  Each op runs the CUDA kernel for
 CUDA tensors and its plain version for CPU tensors.  ``kernel_counters``
-is the port's own plain dict of routing decisions and launches per
-(kernel, route): ``("nmg_linear",
+is the port's account of routing decisions and launches per (kernel,
+route), kept on the ``repro_torch.obs`` registry as the reference keeps
+its own (family ``kernel_routes``): ``("nmg_linear",
 "gemv[default]")`` for the router's choice, ``("nmg_gemv", "cuda")`` or
 ``("nmg_gemv", "plain")`` for where the work ran.  Every decision is a
 lookup in ``tune/routing.py`` (the active tuning table, else the shipped
@@ -24,7 +25,8 @@ default), and its provenance is counted as the reference counts it:
 on the card the SpMM's K split adds ``("nmg_spmm_cuda", "auto[default]")``
 or ``"splits<z>[table]"``.  :func:`predict_route` predicts these keys
 without running anything.  Each kernel wrapper (``KERNEL_WRAPPERS``)
-also counts its own launches in its ``.launches`` attribute.  The
+also counts its own launches in its ``.launches`` attribute, which the
+registry reads and resets as ``kernel_launches``.  The
 reference counts traces; the port counts calls executed: both accounts
 count on the host, so a CUDA graph (``serve/graphs.py``) takes a
 :func:`counter_snapshot` around its capture, puts the counters back
@@ -33,8 +35,6 @@ every replay (:func:`add_counters`).
 """
 
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -45,6 +45,7 @@ from repro_torch.kernels.nmg_fused import fusable_ffn, fusable_qkv, \
     nmg_ffn_plain, nmg_qkv_plain
 from repro_torch.kernels.nmg_gemv import MAX_M, nmg_gemv_plain
 from repro_torch.kernels.nmg_spmm import nmg_spmm_plain
+from repro_torch.obs.registry import REGISTRY
 from repro_torch.tune import routing
 
 __all__ = [
@@ -77,7 +78,13 @@ __all__ = [
 
 DECODE_M_MAX = routing.DEFAULT_DECODE_M_MAX
 
-_KERNEL_COUNTS: collections.Counter = collections.Counter()
+# (kernel, route) -> calls.  A registry family: Counter semantics at every
+# call site, the counts in the registry's snapshot, and with the flight
+# recorder on each count a ``kernel_route`` event on the kernel track.
+_KERNEL_COUNTS = REGISTRY.family(
+    "kernel_routes", help="kernel routing and where the work ran: "
+                          "(kernel, route) -> calls",
+    trace_as="kernel_route", track="kernel")
 
 
 def kernel_counters() -> dict:
@@ -104,6 +111,22 @@ KERNEL_WRAPPERS = {
 # caller has swapped a module attribute (e.g. for the plain version)
 _WRAPPER_FNS = {k: getattr(mod, attr)
                 for k, (mod, attr, _) in KERNEL_WRAPPERS.items()}
+
+
+class _WrapperLaunches:
+    """The wrappers' ``.launches`` as one registry metric: its snapshot
+    reads them, its reset zeroes them (the wrappers keep counting in
+    their own attribute)."""
+
+    def snapshot(self) -> dict:
+        return {k: f.launches for k, f in _WRAPPER_FNS.items()}
+
+    def reset(self) -> None:
+        for f in _WRAPPER_FNS.values():
+            f.launches = 0
+
+
+REGISTRY.register("kernel_launches", _WrapperLaunches())
 
 
 def counter_snapshot() -> dict:

@@ -29,7 +29,14 @@ the captured step), and an ``NMSparsifier`` origin builds and recomputes
 its masks with the ``nm_mask`` kernel (the library API; the CLI prunes by
 magnitude).  Checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--resume``)
 are the reference's format; SIGTERM saves the steps completed and exits
-1.  ``--tuning-table``, ``--check`` and ``--trace`` are not ported yet.
+1.  ``--tuning-table PATH`` routes through a table of ``python -m
+repro_torch.tune``.  ``--trace PATH`` turns the ``repro_torch.obs`` flight
+recorder on and writes a Chrome/Perfetto trace to PATH at the end:
+``train_chunk`` spans (``train_step`` in the host loop), ``gmp_recompute``
+events, and on the log cadence each mask's sparsity
+(:func:`sparsity_telemetry`: registry gauges and ``sparsity`` events,
+read only while the recorder is on, so a run without it syncs nothing
+more).  ``--check`` is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import StragglerWatchdog
 from repro_torch.launch.graphs import TrainGraph
 from repro_torch.models import init_lm, loss_fn
+from repro_torch.obs import trace as obs
+from repro_torch.obs.registry import REGISTRY
 from repro_torch.optim import AdamWConfig, GMPSchedule, adamw_init, \
     adamw_update, resparsify_params_, sparse_aware_update
 from repro_torch.optim.optimizers import trainable, tree_map
@@ -61,8 +70,8 @@ from repro_torch.tune.table import device_kind
 
 __all__ = ["build_sparse_params", "retarget_sparsity", "loss_and_grads",
            "make_train_step", "make_multi_step", "stack_batches",
-           "train_loop", "fast_loop", "ckpt_tree", "parse_args", "run",
-           "main"]
+           "train_loop", "fast_loop", "ckpt_tree", "sparsity_telemetry",
+           "parse_args", "run", "main"]
 
 
 def build_sparse_params(params, sparsity: float, targets=("mlp", "attn.wo")):
@@ -201,6 +210,40 @@ def _log_line(step, loss, gnorm, dt):
           f"({dt:.2f}s/step)", flush=True)
 
 
+def sparsity_telemetry(params, step: int) -> None:
+    """Per-layer sparsity on the log cadence (the reference's
+    ``_sparsity_telemetry``), only while the flight recorder is on: it
+    reads every mask's mean to the host.  Each ``FixedMaskTensor`` leaf
+    becomes a registry gauge and one ``sparsity`` event on the train
+    track; a leaf stacked across layers reports per-layer means."""
+    if not obs.enabled():
+        return
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k in sorted(tree):     # the reference's leaf order
+                walk(tree[k], path + [k])
+        elif isinstance(tree, FixedMaskTensor):
+            name = "/".join(path)
+            mask = tree.mask
+            if mask.ndim >= 3:  # stacked layers: per-layer mean
+                per_layer = (1.0 - mask.reshape(mask.shape[0], -1).float()
+                             .mean(dim=1)).cpu().numpy()
+                for i, v in enumerate(per_layer):
+                    REGISTRY.gauge(f"train_sparsity/{name}/layer{i}").set(
+                        float(v))
+                obs.event("sparsity", "train", step=step, weight=name,
+                          mean=round(float(per_layer.mean()), 4),
+                          per_layer=[round(float(v), 4) for v in per_layer])
+            else:
+                v = 1.0 - float(mask.float().mean())
+                REGISTRY.gauge(f"train_sparsity/{name}").set(v)
+                obs.event("sparsity", "train", step=step, weight=name,
+                          sparsity=round(v, 4))
+
+    walk(params, [])
+
+
 def ckpt_tree(params, opt_state) -> dict:
     """``{"params", "opt"}`` in the reference's checkpoint structure: the
     moments of a layout leaf as a one-tuple (the reference's moment
@@ -247,15 +290,19 @@ def train_loop(params, opt_state, train_step, data, *, start: int,
         t0 = time.perf_counter()
         batch = _batch_on(data.batch_at(step), device)
         if gmp is not None and gmp.recompute_at(step):
+            obs.event("gmp_recompute", "train", step=step,
+                      target=gmp.sparsity_at(step), in_graph=False)
             retarget_sparsity(params, gmp.sparsity_at(step))
             recomputes.append(step)
-        params, opt_state, m = train_step(params, opt_state, batch)
-        losses.append(float(m["loss"]))
+        with obs.span("train_step", "train", step=step):
+            params, opt_state, m = train_step(params, opt_state, batch)
+            losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
         step_s.append(time.perf_counter() - t0)
         if watchdog is not None:
             watchdog.observe(0, step_s[-1])
         if step % log_every == 0 or step == stop - 1:
+            sparsity_telemetry(params, step)
             _log_line(step, losses[-1], gnorms[-1], step_s[-1])
         step += 1
         if mgr is not None and step % ckpt_every == 0:
@@ -283,12 +330,22 @@ def fast_loop(params, opt_state, multi_step: MultiStep, data, *,
         end = min(stop, next_ckpt, step + log_every)
         n = end - step
         t0 = time.perf_counter()
-        params, opt_state, m = multi_step(
-            params, opt_state, stack_batches(data, step, end), step, stop)
-        # the chunk's one host sync
-        host = torch.stack((m["loss"], m["gnorm"])).cpu().numpy()
+        with obs.span("train_chunk", "train", step0=step, steps=n):
+            params, opt_state, m = multi_step(
+                params, opt_state, stack_batches(data, step, end), step,
+                stop)
+            # the chunk's one host sync
+            host = torch.stack((m["loss"], m["gnorm"])).cpu().numpy()
         dt = (time.perf_counter() - t0) / n
-        recomputes += multi_step.recomputes(step, n, stop)
+        chunk_recomputes = multi_step.recomputes(step, n, stop)
+        if obs.enabled():
+            # the recomputes the chunk ran between its replays
+            for s in chunk_recomputes:
+                obs.event("gmp_recompute", "train", step=s,
+                          target=multi_step.gmp.sparsity_at(s),
+                          in_graph=False)
+        sparsity_telemetry(params, end)
+        recomputes += chunk_recomputes
         losses += host[0].tolist()
         gnorms += host[1].tolist()
         step_s += [dt] * n
@@ -333,6 +390,11 @@ def parse_args(argv=None):
                     help="load a tuning table (written by `python -m "
                          "repro_torch.tune`) so kernel routing uses its "
                          "measured decisions; $REPRO_TUNE_TABLE otherwise")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable the repro_torch.obs flight recorder and "
+                         "write a Chrome/Perfetto trace (train chunks, GMP "
+                         "recomputes, per-layer sparsity, kernel routes) "
+                         "to PATH at the end")
     args = ap.parse_args(argv)
     # the fast path chunks by --log-every: a non-positive value would spin
     # on zero-step chunks
@@ -387,6 +449,8 @@ def run(args) -> dict:
                    interrupted=interrupted,
                    watchdog=StragglerWatchdog(n_hosts=1))
     multi = None
+    if args.trace:
+        obs.enable()
     try:
         if args.host_loop:
             out = train_loop(params, opt_state,
@@ -398,6 +462,8 @@ def run(args) -> dict:
     finally:
         if main_thread:
             signal.signal(signal.SIGTERM, prev)
+        if args.trace:
+            obs.disable()      # the records stay readable for the dump
     rc = 0
     if out["interrupted"]:
         print("SIGTERM: checkpointing and exiting")
@@ -405,6 +471,9 @@ def run(args) -> dict:
     if mgr is not None:
         mgr.save(out["step"] if rc else args.steps,
                  ckpt_tree(out["params"], out["opt_state"]), blocking=True)
+    if args.trace:
+        obs.dump(args.trace, registry_snapshot=REGISTRY.snapshot())
+        print(f"wrote trace to {args.trace}")
     return {**out, "rc": rc, "start_step": start, "cfg": cfg, "gmp": gmp,
             "trainer": multi}
 

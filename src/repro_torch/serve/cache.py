@@ -22,8 +22,9 @@ The cache tensors are updated in place and never reallocated: the
 engine's graphs (``serve/graphs.py``) read and write this very storage,
 so ``reset`` and ``compact`` write in place too.  Admission runs one
 :class:`~repro_torch.serve.graphs.PrefillGraph` per distinct prompt
-length, the counterpart of the reference's ``_jit_slot_prefill``, whose
-jit keeps one executable per traced length.
+length (and weight tier), the counterpart of the reference's
+``_jit_slot_prefill``, whose jit keeps one executable per traced length
+and param structure.
 
 :class:`PagedKVCache`: sequence leaves stored as ``[L, num_pages + 1,
 page_size, ...]`` and each slot owning an int32 row of a ``[max_slots,
@@ -67,15 +68,14 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import _seq_leaf_kinds, \
     _write_slot_leaf, cache_leaves, map_cache
 from repro_torch.models.common import ModelConfig
+# PromptTooLongError belongs to the typed serve error family; re-exported
+# here, where it was first defined
+from repro_torch.serve.errors import PromptTooLongError
 from repro_torch.serve.graphs import PagedPrefillGraph, PrefillGraph
 from repro_torch.serve.queue import PageAllocator, prefix_hashes
 
 __all__ = ["SlotKVCache", "PagedKVCache", "PromptTooLongError",
            "reset_slot", "gather_slots", "paged_view", "paged_commit"]
-
-
-class PromptTooLongError(ValueError):
-    """A prompt does not fit the per-slot cache capacity."""
 
 
 def _slot_prefill_fn(cfg: ModelConfig):
@@ -125,17 +125,34 @@ class SlotKVCache:
         self.graphs = graphs
         self.pool = pool
         self._fn = _slot_prefill_fn(cfg)
-        #: one admission program per distinct prompt length
-        self.prefill_graphs: dict[int, PrefillGraph] = {}
+        #: one admission program per (weight tier, prompt length)
+        self.programs: dict[tuple, PrefillGraph] = {}
+
+    @property
+    def prefill_graphs(self) -> dict:
+        """{prompt length: admission program} of tier 0 (an engine without
+        tiers has no other)."""
+        return {S: g for (t, S), g in self.programs.items() if t == 0}
+
+    def program(self, params, S: int, tier: int = 0) -> PrefillGraph:
+        """The admission program for prompt length ``S`` at weight tier
+        ``tier``.  A program holds the params it was built with; other
+        params for the same key build it anew (a tiered engine keys each
+        tier's params apart, so switching tiers builds nothing)."""
+        g = self.programs.get((tier, S))
+        if g is None or g.params is not params:
+            g = self.programs[(tier, S)] = PrefillGraph(
+                self._fn, params, self.data, S, capture=self.graphs,
+                pool=self.pool)
+        return g
 
     def write_prefill(self, params, tokens, slot: int, *,
-                      write_offset: int = 0):
+                      write_offset: int = 0, tier: int = 0):
         """Admit one request: prefill ``tokens`` [1, S] (host ints) into
-        ``slot`` at seq offset ``write_offset``.  Returns the last-position
-        logits [1, V]: the program's static output, valid until its next
-        run.  A program holds the params it was built with; other params
-        build it anew.  An enc-dec model raises ``ValueError``: the
-        program takes no frames."""
+        ``slot`` at seq offset ``write_offset`` with the program of
+        (``tier``, S).  Returns the last-position logits [1, V]: the
+        program's static output, valid until its next run.  An enc-dec
+        model raises ``ValueError``: the program takes no frames."""
         if self.cfg.n_enc_layers > 0:
             raise ValueError(
                 f"{self.cfg.name!r} is an enc-dec model and the admission "
@@ -146,12 +163,13 @@ class SlotKVCache:
         if S > self.max_seq_len:
             raise PromptTooLongError(
                 f"prompt ({S}) exceeds max_seq_len ({self.max_seq_len})")
-        g = self.prefill_graphs.get(S)
-        if g is None or g.params is not params:
-            g = self.prefill_graphs[S] = PrefillGraph(
-                self._fn, params, self.data, S, capture=self.graphs,
-                pool=self.pool)
-        return g.run(tokens, slot, write_offset)
+        return self.program(params, S, tier).run(tokens, slot, write_offset)
+
+    def warm(self, params, S: int, tier: int = 0) -> None:
+        """Build the admission program of (``tier``, ``S``) by running it
+        once into slot 0 (an idle engine's slot: the next admission there
+        overwrites its rows and state)."""
+        self.program(params, S, tier).run(np.zeros(S, np.int32), 0, 0)
 
     def reset(self, slot: int) -> None:
         reset_slot(self.data, slot)
@@ -331,9 +349,32 @@ class PagedKVCache:
         self.graphs = graphs
         self.pool = pool
         self._fn = _paged_prefill_fn(cfg, page_size, self.num_pages)
-        #: one admission program per distinct prompt length
-        self.prefill_graphs: dict[int, PagedPrefillGraph] = {}
+        #: one admission program per (weight tier, prompt length)
+        self.programs: dict[tuple, PagedPrefillGraph] = {}
         self.reset_stats()
+
+    @property
+    def prefill_graphs(self) -> dict:
+        """{prompt length: admission program} of tier 0."""
+        return {S: g for (t, S), g in self.programs.items() if t == 0}
+
+    def program(self, params, S: int, tier: int = 0) -> PagedPrefillGraph:
+        """The admission program of (``tier``, ``S``), as
+        :meth:`SlotKVCache.program`."""
+        g = self.programs.get((tier, S))
+        if g is None or g.params is not params:
+            g = self.programs[(tier, S)] = PagedPrefillGraph(
+                self._fn, params, self.data, S, self.pages_per_slot,
+                capture=self.graphs, graph_pool=self.pool)
+        return g
+
+    def warm(self, params, S: int, tier: int = 0) -> None:
+        """Build the admission program of (``tier``, ``S``) by running it
+        once through an unmapped table row: every row goes to the sink
+        page, nothing is allocated, and slot 0's state leaves (an idle
+        engine's) are overwritten by its next admission."""
+        row = np.full(self.pages_per_slot, self.num_pages, np.int32)
+        self.program(params, S, tier).run(np.zeros(S, np.int32), row, 0, 0)
 
     def reset_stats(self) -> None:
         """Zero the counters: prompt tokens shared and prefilled, pages
@@ -379,10 +420,10 @@ class PagedKVCache:
             self.stats["peak_pages_in_use"] = used
 
     # -- admission --------------------------------------------------------
-    def admit(self, params, tokens, slot: int):
+    def admit(self, params, tokens, slot: int, *, tier: int = 0):
         """Admit one request's prompt ``tokens`` [1, S] (host ints) into
         ``slot``: map shared prefix pages (refcount + 1), allocate private
-        pages for the rest, run the prompt length's admission program.
+        pages for the rest, run the admission program of (``tier``, S).
         Returns its last-position logits [1, V] (the program's static
         output, valid until its next run), or None, touching nothing,
         when the pool cannot supply the private pages.  Raises
@@ -423,12 +464,8 @@ class PagedKVCache:
         self._note_usage()
         self.stats["shared_tokens"] += shared_len
         self.stats["prefilled_tokens"] += S
-        g = self.prefill_graphs.get(S)
-        if g is None or g.params is not params:
-            g = self.prefill_graphs[S] = PagedPrefillGraph(
-                self._fn, params, self.data, S, self.pages_per_slot,
-                capture=self.graphs, graph_pool=self.pool)
-        return g.run(toks_np, row, slot, shared_len)
+        return self.program(params, S, tier).run(toks_np, row, slot,
+                                                 shared_len)
 
     # -- decode-write preparation (allocation growth + copy-on-write) -----
     def ensure_writable_range(self, slot: int, start: int,

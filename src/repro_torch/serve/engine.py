@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (port of ``repro/serve/engine.py``,
-with its slot and paged KV caches; the SLO control loop, sparsity tiers,
-fault injection and ``max_queue`` are not ported yet).
+with its slot and paged KV caches, the SLO control loop, resident
+sparsity tiers, seeded fault injection and the bounded queue).
 
 The engine holds a static batch of ``max_slots`` sequences.  Between
 decode steps it admits queued requests into free slots (prefill writes a
@@ -36,6 +36,25 @@ the programs with example arguments, as the reference's does.
 through the ordinary :class:`SparsityBuilder`; the engine serves dense and
 n:m:g params alike.
 
+**The SLO loop** (``slo=``, ``tiers=``, ``faults=``, ``max_queue=``) is
+the reference's: between decode calls the engine expires and sheds queued
+work, asks :class:`~repro_torch.serve.slo.SLOController` for a level (an
+admission budget, a decode chunk of ``decode_chunk`` or ``decode_chunk //
+chunk_shrink`` steps, a weight tier), and runs the fault injector's
+host-side hooks around each decode call, retrying injected errors with
+capped exponential backoff.  The reference's tier switch is a pytree
+pointer swap into compiled programs; a CUDA graph holds the addresses of
+the params it captured, so here each tier owns its programs: one decode
+program per chunk length (the base chunk, the shrunk chunk, the single
+step) and one admission per prompt length (in the cache), keyed by tier
+index.  :meth:`ServeEngine.set_tier` only changes which of them run, and
+:meth:`ServeEngine.warm_tiers` builds every one of them on this engine's
+own cache, so serving builds nothing after it.  A fault hook raises or
+sleeps before the program's inputs are copied in or after its output is
+read, never in between, so a retried call replays the same program on the
+same static inputs.  Without ``slo``, ``tiers`` and ``faults`` the engine
+runs exactly the programs and launches it ran before the loop existed.
+
 An enc-dec model (whisper) is refused at construction
 (:func:`check_servable`): requests carry no encoder frames, so the
 reference's engine fails at its first admission.  Its requests are
@@ -58,14 +77,22 @@ from repro_torch.core.builder import SparsityBuilder
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.core.sparsifiers import GroupedNMSparsifier
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.common import ModelConfig
-from repro_torch.serve.cache import PagedKVCache, PromptTooLongError, \
-    SlotKVCache, paged_commit, paged_view
+from repro_torch.obs import trace as obs
+from repro_torch.obs.registry import REGISTRY, MirroredCounters
+from repro_torch.serve.cache import PagedKVCache, SlotKVCache, \
+    paged_commit, paged_view
+from repro_torch.serve.errors import EngineOverloadError, \
+    InjectedFaultError, PromptTooLongError, ServeError
+from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.graphs import DecodeGraph, PagedDecodeGraph
 from repro_torch.serve.metrics import ServeMetrics, summarize
 from repro_torch.serve.queue import Request, RequestOutput, RequestQueue, \
     sample_token
+from repro_torch.serve.slo import LatencyModel, SLOConfig, SLOController, \
+    build_tiers
 
 __all__ = ["ServeEngine", "sparsify_for_serving", "compare_dense_sparse",
            "warmup_engine", "decode_chunk", "serve_programs",
@@ -239,7 +266,17 @@ class ServeEngine:
     so it is off by default; tests use it for slot isolation.  ``paged``
     backs the cache with :class:`PagedKVCache` (``page_size``,
     ``num_pages`` and ``prefix_sharing`` are forwarded to it).  An
-    enc-dec model raises ``ValueError`` (:func:`check_servable`)."""
+    enc-dec model raises ``ValueError`` (:func:`check_servable`).
+
+    ``slo`` (:class:`~repro_torch.serve.slo.SLOConfig`) turns on the SLO
+    control loop; ``tiers`` (specs densest first: ``"dense"``, ``"2:4"``,
+    ``"1:4:8-gr64"`` or :class:`~repro_torch.serve.slo.TierSpec`) converts
+    ``params``, which must then be the dense weights, once per tier and
+    keeps every copy resident (call :meth:`warm_tiers` before serving);
+    ``faults`` (:class:`~repro_torch.serve.faults.FaultInjector`) wraps
+    the decode and admission paths; ``max_queue`` bounds the queue
+    (``submit`` past it raises
+    :class:`~repro_torch.serve.errors.EngineOverloadError`)."""
 
     def __init__(self, params, cfg: ModelConfig, *,
                  max_slots: int = DEFAULT_MAX_SLOTS,
@@ -249,6 +286,10 @@ class ServeEngine:
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  prefix_sharing: bool = True,
+                 slo: Optional[SLOConfig] = None,
+                 tiers: Optional[Iterable] = None,
+                 faults: Optional[FaultInjector] = None,
+                 max_queue: Optional[int] = None,
                  device="cuda", graphs: bool = True):
         cfg.check_ported()
         check_servable(cfg)
@@ -264,38 +305,51 @@ class ServeEngine:
         self.decode_chunk = max(1, decode_chunk)
         self.paged = paged
         self.queue = RequestQueue()
+        self.faults = faults
+        self.max_queue = max_queue
+        self.tiers = build_tiers(params, list(tiers)) if tiers else None
+        self.tier_idx = 0
+        if self.tiers:
+            self.params = self.tiers[0].params
+        self.tokens_by_tier = (
+            {t.spec.name: 0 for t in self.tiers} if self.tiers else None)
+        self.slo = slo
+        if slo is not None:
+            self._latency = LatencyModel(self.params, cfg,
+                                         max_slots=max_slots)
+            self._controller: Optional[SLOController] = SLOController(
+                slo, n_tiers=len(self.tiers) if self.tiers else 1,
+                max_slots=max_slots, latency=self._latency)
+        else:
+            self._latency = None
+            self._controller = None
+        #: decode lengths this engine may run: the base chunk, the
+        #: controller's shrunk chunk, and 1 (the single step: sampled
+        #: requests, a paged pool short of a chunk's pages)
+        self._chunk_sizes = sorted({self.decode_chunk, 1} | (
+            {max(1, self.decode_chunk // max(1, slo.chunk_shrink))}
+            if slo is not None else set()))
+        self._decode_calls = 0  # global decode-call index (fault schedule)
         capture = graphs and self.device.type == "cuda"
-        # every program of the engine (decode, chunk, each prompt length's
-        # admission) captures into this one pool: they never run at once
+        # every program of the engine (each tier's decode programs and
+        # admissions) captures into this one pool: they never run at once
         pool = torch.cuda.graph_pool_handle() if capture else None
-        chunk = self.decode_chunk
         if paged:
             self.kv = PagedKVCache(
                 cfg, max_slots, max_seq_len, page_size=page_size,
                 num_pages=num_pages, prefix_sharing=prefix_sharing,
                 device=self.device, graphs=capture, pool=pool)
-            ps, npg, pps = (self.kv.page_size, self.kv.num_pages,
-                            self.kv.pages_per_slot)
-            self._decode = PagedDecodeGraph(
-                _paged_decode_fn(cfg, ps, npg), params, self.kv.data,
-                max_slots, pps, name="paged_decode", capture=capture,
-                graph_pool=pool)
-            self._decode_chunk = PagedDecodeGraph(
-                _paged_decode_chunk_fn(cfg, ps, npg, chunk), params,
-                self.kv.data, max_slots, pps, name="paged_decode_chunk",
-                capture=capture, graph_pool=pool) if chunk > 1 else None
         else:
             self.kv = SlotKVCache(cfg, max_slots, max_seq_len,
                                   device=self.device, graphs=capture,
                                   pool=pool)
-            self._decode = DecodeGraph(_decode_fn(cfg), params,
-                                       self.kv.data, max_slots,
-                                       name="decode", capture=capture,
-                                       pool=pool)
-            self._decode_chunk = DecodeGraph(
-                _decode_chunk_fn(cfg, chunk), params, self.kv.data,
-                max_slots, name="decode_chunk", capture=capture,
-                pool=pool) if chunk > 1 else None
+        #: {(tier, steps): decode program}; steps 1 is the single step
+        #: (logits), more a greedy chunk (the token block)
+        self._programs = {
+            (t, T): self._decode_program(p, T, capture, pool)
+            for t, p in enumerate(
+                [t.params for t in self.tiers] if self.tiers else [params])
+            for T in self._chunk_sizes}
         self.stats = self._fresh_stats()
         # chunked decode falls back to single steps once a lone slot
         # cannot get a whole chunk's pages; cleared when a request
@@ -308,6 +362,40 @@ class ServeEngine:
         self._clock = clock
         self._t0: Optional[float] = None
 
+    def _decode_program(self, params, T: int, capture: bool, pool):
+        """The decode program of ``T`` steps over ``params`` (the
+        reference's ``_jit_decode`` for 1, ``_jit_decode_chunk`` for
+        more, or their paged counterparts)."""
+        cfg = self.cfg
+        if self.paged:
+            ps, npg = self.kv.page_size, self.kv.num_pages
+            fn = (_paged_decode_fn(cfg, ps, npg) if T == 1 else
+                  _paged_decode_chunk_fn(cfg, ps, npg, T))
+            return PagedDecodeGraph(
+                fn, params, self.kv.data, self.max_slots,
+                self.kv.pages_per_slot,
+                name="paged_decode" if T == 1 else "paged_decode_chunk",
+                capture=capture, graph_pool=pool)
+        fn = _decode_fn(cfg) if T == 1 else _decode_chunk_fn(cfg, T)
+        return DecodeGraph(fn, params, self.kv.data, self.max_slots,
+                           name="decode" if T == 1 else "decode_chunk",
+                           capture=capture, pool=pool)
+
+    @property
+    def _decode(self):
+        """The current tier's single-step program."""
+        return self._programs[(self.tier_idx, 1)]
+
+    @property
+    def _decode_chunk(self):
+        """The current tier's base-chunk program (None at chunk 1)."""
+        return self._chunk_fn(self.decode_chunk) \
+            if self.decode_chunk > 1 else None
+
+    def _chunk_fn(self, T: int):
+        """The current tier's decode program of ``T`` steps."""
+        return self._programs[(self.tier_idx, T)]
+
     # -- introspection ----------------------------------------------------
     @property
     def num_active(self) -> int:
@@ -317,37 +405,63 @@ class ServeEngine:
         return [i for i, s in enumerate(self._slots) if s is None]
 
     def reset_metrics(self) -> None:
-        """Forget the finished outputs, the stats (a paged cache's too) and
-        the clock (the programs, and what they captured, stay)."""
+        """Forget the finished outputs, the stats (a paged cache's too),
+        the tokens by tier, the clock and the decode-call index the fault
+        schedule reads (the programs, and what they captured, stay)."""
         assert not self.num_active and not len(self.queue), \
             "reset_metrics with requests in flight"
         self._outputs = []
         self._t0 = None
+        self._decode_calls = 0
         self.stats = self._fresh_stats()
+        if self.tokens_by_tier is not None:
+            self.tokens_by_tier = dict.fromkeys(self.tokens_by_tier, 0)
         if self.paged:
             self.kv.reset_stats()
 
     @staticmethod
     def _fresh_stats() -> dict:
         """Scheduler counters: deferred admissions and preemptions (paged
-        only), rejected requests, peak active slots, decode steps."""
-        return {"deferred_admissions": 0, "preemptions": 0, "rejected": 0,
-                "peak_active": 0, "decode_steps": 0}
+        only), rejected requests, peak active slots, decode steps, and the
+        SLO loop's shed, timed-out, fault-retried and tier-switch counts.
+        A plain dict to read and write; increases are mirrored into the
+        registry's ``engine_stats`` family."""
+        return MirroredCounters(
+            {"deferred_admissions": 0, "preemptions": 0, "rejected": 0,
+             "peak_active": 0, "decode_steps": 0, "shed": 0, "timeout": 0,
+             "fault_retries": 0, "tier_switches": 0},
+            REGISTRY.family("engine_stats",
+                            help="engine scheduler counters"))
 
     def _now(self) -> float:
         if self._t0 is None:
             self._t0 = self._clock()
         return self._clock() - self._t0
 
+    def _abs(self, rel: float) -> float:
+        """Engine-relative seconds back to the clock's absolute domain,
+        what the flight recorder's retroactive spans take."""
+        return (self._t0 or 0.0) + rel
+
     # -- request lifecycle ------------------------------------------------
     def submit(self, req: Request) -> None:
-        """Enqueue a request; a prompt longer than the per-slot capacity
-        raises :class:`PromptTooLongError`."""
+        """Enqueue a request.  A prompt longer than the per-slot capacity
+        raises :class:`PromptTooLongError`; a full bounded queue raises
+        :class:`EngineOverloadError` (after dumping the flight recorder,
+        when it is on).  :meth:`run` turns both into ``"rejected"``
+        outputs."""
         S = int(req.prompt.size)
         if S > self.max_seq_len:
             raise PromptTooLongError(
                 f"request {req.uid}: prompt length {S} exceeds the "
                 f"per-slot capacity {self.max_seq_len}")
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            obs.event("overload_reject", "engine", uid=req.uid,
+                      queue_depth=len(self.queue))
+            obs.postmortem("EngineOverloadError")
+            raise EngineOverloadError(
+                f"request {req.uid}: queue is at its bound "
+                f"({self.max_queue}); retry later or raise max_queue")
         self.queue.push(req)
 
     def _reject(self, req: Request, now: float) -> None:
@@ -357,20 +471,54 @@ class ServeEngine:
             admitted_time=now, finish_time=self._now(), token_times=[],
             deadline=req.deadline))
         self.stats["rejected"] += 1
+        obs.event("rejected", f"req:{req.uid}", uid=req.uid)
+
+    def _finish_unserved(self, req: Request, now: float,
+                         reason: str) -> None:
+        """Terminal outcome of a request that never held a slot:
+        ``"timeout"`` (its deadline passed while queued, or its predicted
+        finish would) or ``"shed"`` (the controller dropped it)."""
+        self._outputs.append(RequestOutput(
+            uid=req.uid, prompt_len=int(req.prompt.size), tokens=[],
+            finish_reason=reason, arrival_time=req.arrival_time,
+            admitted_time=now, finish_time=self._now(), token_times=[],
+            deadline=req.deadline))
+        self.stats[reason] += 1
+        if obs.enabled():
+            obs.complete("queued", self._abs(req.arrival_time),
+                         self._abs(self._now()), f"req:{req.uid}",
+                         uid=req.uid, outcome=reason)
+            obs.event(reason, f"req:{req.uid}", uid=req.uid)
 
     def _admit(self, slot: int, req: Request, now: float) -> bool:
         """Prefill ``req`` into ``slot`` (its prompt length's admission
         program) and sample its first token.  Returns False, leaving the
         slot free and the cache untouched, when the paged pool cannot
         supply the prompt's pages."""
+        if self.faults is not None:
+            self.faults.admission_delay()
+        t_pre = self._now()
         if self.paged:
-            logits = self.kv.admit(self.params, req.prompt[None], slot)
+            logits = self.kv.admit(self.params, req.prompt[None], slot,
+                                   tier=self.tier_idx)
             if logits is None:
                 return False
         else:
             logits = self.kv.write_prefill(self.params, req.prompt[None],
-                                           slot)
+                                           slot, tier=self.tier_idx)
         S = int(req.prompt.size)
+        logits_np = logits[0].float().cpu().numpy()   # the admission's end
+        if self._latency is not None:
+            self._latency.observe_prefill(S, self._now() - t_pre)
+        if obs.enabled():
+            # the request's row: queued (arrival to admission), then the
+            # admission's prefill
+            obs.complete("queued", self._abs(req.arrival_time),
+                         self._abs(now), f"req:{req.uid}", uid=req.uid)
+            obs.complete("prefill", self._abs(t_pre),
+                         self._abs(self._now()), f"req:{req.uid}",
+                         uid=req.uid, slot=slot, prompt_len=S,
+                         tier=self.tier_idx)
         # token i (1-based) is written at position S + i - 1, so N tokens
         # need S + N - 1 <= max_seq_len
         max_new = min(req.max_new_tokens, self.max_seq_len - S + 1)
@@ -378,8 +526,7 @@ class ServeEngine:
                         admitted_time=now,
                         rng=np.random.default_rng(req.sampling.seed),
                         max_new=max_new)
-        tok = sample_token(logits[0].float().cpu().numpy(), req.sampling,
-                           st.rng)
+        tok = sample_token(logits_np, req.sampling, st.rng)
         st.tokens.append(tok)
         st.token_times.append(self._now())
         self._slots[slot] = st
@@ -395,6 +542,8 @@ class ServeEngine:
     def _finish(self, slot: int) -> None:
         st = self._slots[slot]
         reason = "stop" if st.tokens[-1] in st.req.stop_tokens else "length"
+        obs.event("finish", f"req:{st.req.uid}", uid=st.req.uid,
+                  reason=reason, tokens=len(st.tokens))
         self._outputs.append(RequestOutput(
             uid=st.req.uid, prompt_len=int(st.req.prompt.size),
             tokens=list(st.tokens), finish_reason=reason,
@@ -423,6 +572,8 @@ class ServeEngine:
         self._vacate(slot)
         self.queue.push_front(st.req)
         self.stats["preemptions"] += 1
+        obs.event("preempt", f"req:{st.req.uid}", uid=st.req.uid, slot=slot,
+                  tokens_discarded=len(st.tokens))
 
     def _ensure_decode_pages(self, active, n_steps: int):
         """Before a paged decode of ``n_steps``, make every active slot's
@@ -453,20 +604,125 @@ class ServeEngine:
             self._preempt(pending.pop())
         return sorted(ok)
 
+    # -- sparsity tiers ---------------------------------------------------
+    def set_tier(self, idx: int, reason: Optional[str] = None) -> None:
+        """Serve from tier ``idx``'s resident weight copy: its decode
+        programs and admissions run from now on (after :meth:`warm_tiers`
+        none is built).  ``reason`` annotates the timeline event."""
+        if self.tiers is None:
+            raise ValueError("engine was built without tiers")
+        if idx == self.tier_idx:
+            return
+        obs.event("tier_switch", "controller",
+                  tier_from=self.tiers[self.tier_idx].spec.name,
+                  tier_to=self.tiers[idx].spec.name,
+                  reason=reason or "manual")
+        self.params = self.tiers[idx].params
+        self.tier_idx = idx
+        self.stats["tier_switches"] += 1
+
+    def warm_tiers(self, prompt_lens: Iterable[int] = (8,)) -> None:
+        """Build every program the controller may run, on this engine's
+        own cache: for each tier (one, without tiers) each decode length
+        of ``_chunk_sizes`` and each prompt length's admission.  Each
+        program runs once (on the card: eagerly, then it is captured),
+        on an idle engine: the admissions write slot 0 (the paged ones
+        the sink page), the decode programs every slot at position 0,
+        rows the next admission overwrites.  After it, tier switches and
+        chunk shrinks build nothing (``trace_events()`` stays flat).
+        Launch counters are put back: warming serves nothing."""
+        assert not self.num_active, "warm_tiers with requests in flight"
+        plens = sorted({int(p) for p in prompt_lens}) or [8]
+        snap = kops.counter_snapshot()
+        tiers = [t.params for t in self.tiers] if self.tiers else \
+            [self.params]
+        try:
+            for t, params in enumerate(tiers):
+                for S in plens:
+                    self.kv.warm(params, S, t)
+                for T in self._chunk_sizes:
+                    self._run(self._programs[(t, T)])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            kops.restore_counters(snap)
+
+    # -- fault hooks -------------------------------------------------------
+    def _fault_gate(self, step_idx: int) -> None:
+        """The injector's pre-decode gate, injected transient faults
+        retried with capped exponential backoff.  A burst outlasting
+        ``max_retries`` propagates (a real outage, not jitter).  It runs
+        before the decode program's inputs are copied in, so a retry
+        replays the same program on the same inputs."""
+        f = self.faults
+        if f is None:
+            return
+        attempt = 0
+        while True:
+            try:
+                f.pre_decode(step_idx)
+                return
+            except InjectedFaultError:
+                if attempt >= f.cfg.max_retries:
+                    obs.event("fault_retries_exhausted", "faults",
+                              step=step_idx, attempts=attempt)
+                    raise
+                self.stats["fault_retries"] += 1
+                obs.event("fault_retry", "faults", step=step_idx,
+                          attempt=attempt)
+                f.sleep(min(f.cfg.backoff_s * (2 ** attempt),
+                            f.cfg.backoff_cap_s))
+                attempt += 1
+
+    def _fault_post(self, step_idx: int, measured_s: float) -> None:
+        if self.faults is not None:
+            self.faults.post_decode(step_idx, measured_s)
+
+    def _count_tokens(self, produced: int) -> None:
+        if self.tokens_by_tier is not None and produced:
+            self.tokens_by_tier[
+                self.tiers[self.tier_idx].spec.name] += produced
+
     # -- the engine loop --------------------------------------------------
     def step(self) -> int:
-        """One scheduler iteration: admit ready requests into free slots
-        (a paged admission that cannot get its pages returns the request
-        to the queue head and ends admission for this step), then run one
-        decode chunk over the batch.  Returns the number of tokens
-        produced."""
+        """One scheduler iteration: expire and shed queued work, let the
+        SLO controller pick its level (and the tier), admit ready
+        requests into free slots (all of them when steady, a rationed
+        budget when degraded; a paged admission that cannot get its pages
+        returns the request to the queue head and ends admission for this
+        step), then run one decode call over the batch (a chunk when every
+        active request is greedy, one host-paced step otherwise).  Returns
+        the number of tokens produced."""
         now = self._now()
         produced = 0
+        for req in self.queue.expired(now):
+            self._finish_unserved(req, now, "timeout")
+        ctrl = self._controller
+        if ctrl is not None:
+            ctrl.begin_step(now, len(self.queue))
+            if self.tiers is not None:
+                self.set_tier(ctrl.tier_index,
+                              reason=f"slo:{ctrl.last_reason}")
+            if ctrl.should_shed(len(self.queue)):
+                for req in self.queue.shed(ctrl.shed_keep()):
+                    self._finish_unserved(req, now, "shed")
         free = self.free_slots()
-        while free:
+        budget = len(free) if ctrl is None \
+            else ctrl.admission_budget(len(free))
+        while free and budget > 0:
             req = self.queue.pop_ready(now)
             if req is None:
                 break
+            if req.deadline is not None and self._latency is not None:
+                # a request that cannot finish inside its deadline times
+                # out now, without taking a slot
+                est = self._latency.request_s(
+                    int(req.prompt.size),
+                    min(req.max_new_tokens,
+                        self.max_seq_len - int(req.prompt.size) + 1))
+                if est == est and now + est > req.deadline:
+                    self._finish_unserved(req, now, "timeout")
+                    continue
             try:
                 admitted = self._admit(free[0], req, now)
             except PromptTooLongError:
@@ -477,16 +733,23 @@ class ServeEngine:
                 self.stats["deferred_admissions"] += 1
                 break
             free.pop(0)
+            budget -= 1
             produced += 1  # the first token, sampled from prefill logits
         active = [i for i, s in enumerate(self._slots) if s is not None]
         self.stats["peak_active"] = max(self.stats["peak_active"],
                                         len(active))
         if not active:
+            self._count_tokens(produced)
             return produced
-        if self.decode_chunk > 1 and not self._force_single and all(
+        T = self.decode_chunk if ctrl is None \
+            else ctrl.decode_chunk(self.decode_chunk)
+        if T > 1 and not self._force_single and all(
                 self._slots[s].req.sampling.greedy for s in active):
-            return produced + self._step_chunked(active)
-        return produced + self._step_single(active)
+            produced += self._step_chunked(active, T)
+        else:
+            produced += self._step_single(active)
+        self._count_tokens(produced)
+        return produced
 
     def _run(self, program):
         """Run a decode program on the engine's tokens and positions (and
@@ -501,10 +764,25 @@ class ServeEngine:
             active = self._ensure_decode_pages(active, 1)
             if not active:
                 return 0
+        step_idx = self._decode_calls
+        self._decode_calls += 1
+        self._fault_gate(step_idx)
+        t0 = self._now()
         logits = self._run(self._decode)
         self.stats["decode_steps"] += 1
         logits_np = logits.float().cpu().numpy()
+        self._fault_post(step_idx, self._now() - t0)
         t = self._now()
+        if self._controller is not None:
+            self._controller.observe_decode(t - t0, 1)
+        if obs.enabled():
+            obs.complete("decode_call", self._abs(t0), self._abs(t),
+                         "engine", call=step_idx, steps=1,
+                         n_active=len(active), tier=self.tier_idx)
+            for slot in active:
+                obs.complete("decode_step", self._abs(t0), self._abs(t),
+                             f"req:{self._slots[slot].req.uid}",
+                             call=step_idx, tier=self.tier_idx)
         produced = 0
         for slot in active:
             st = self._slots[slot]
@@ -518,13 +796,13 @@ class ServeEngine:
                 self._finish(slot)
         return produced
 
-    def _step_chunked(self, active) -> int:
-        """Greedy fast path: ``decode_chunk`` steps on the device, then one
-        host fetch of the [T, max_slots] token block.  The chunk always
-        runs its full length; tokens past a request's stop are discarded
-        on the host.  Per-token timestamps spread the chunk's measured
-        latency evenly over its tokens."""
-        T = self.decode_chunk
+    def _step_chunked(self, active, T: Optional[int] = None) -> int:
+        """Greedy fast path: ``T`` (default ``decode_chunk``) steps on the
+        device, then one host fetch of the [T, max_slots] token block.
+        The chunk always runs its full length; tokens past a request's
+        stop are discarded on the host.  Per-token timestamps spread the
+        chunk's measured latency evenly over its tokens."""
+        T = self.decode_chunk if T is None else T
         if self.paged:
             active = self._ensure_decode_pages(active, T)
             if active is None:
@@ -536,11 +814,25 @@ class ServeEngine:
                 return self._step_single(active) if active else 0
             if not active:
                 return 0
+        step_idx = self._decode_calls
+        self._decode_calls += 1
+        self._fault_gate(step_idx)
         t0 = self._now()
-        toks = self._run(self._decode_chunk)
+        toks = self._run(self._chunk_fn(T))
         self.stats["decode_steps"] += T
         toks_np = toks.cpu().numpy()        # the one host sync per chunk
+        self._fault_post(step_idx, self._now() - t0)
         t1 = self._now()
+        if self._controller is not None:
+            self._controller.observe_decode(t1 - t0, T)
+        if obs.enabled():
+            obs.complete("decode_call", self._abs(t0), self._abs(t1),
+                         "engine", call=step_idx, steps=T,
+                         n_active=len(active), tier=self.tier_idx)
+            for slot in active:
+                obs.complete("decode_chunk", self._abs(t0), self._abs(t1),
+                             f"req:{self._slots[slot].req.uid}",
+                             call=step_idx, steps=T, tier=self.tier_idx)
         produced = 0
         for slot in active:
             st = self._slots[slot]
@@ -564,7 +856,9 @@ class ServeEngine:
         for req in requests:
             try:
                 self.submit(req)
-            except PromptTooLongError:
+            except ServeError:
+                # one bad request (over-long prompt, full bounded queue)
+                # must not end the trace: it finishes as rejected
                 self._reject(req, self._now())
         if self._t0 is None:
             self._t0 = self._clock()
@@ -587,7 +881,13 @@ class ServeEngine:
 
     def metrics(self, *, label: str = "serve") -> ServeMetrics:
         wall = self._now() if self._t0 is not None else 0.0
-        return summarize(self._outputs, wall, label=label)
+        slo = self.slo
+        return summarize(
+            self._outputs, wall, label=label,
+            slo_tpot_s=None if slo is None else slo.tpot_ms * 1e-3,
+            slo_ttft_s=None if slo is None or slo.ttft_ms is None
+            else slo.ttft_ms * 1e-3,
+            tokens_by_tier=self.tokens_by_tier)
 
 
 def _has_nmg(tree) -> bool:

@@ -1,6 +1,6 @@
 """Build events of the serving programs (port of
-``repro/serve/tracecount.py``; the reference keeps its counts on the
-``repro.obs`` registry, which is not ported, so this is a plain dict).
+``repro/serve/tracecount.py``; the store is a ``repro_torch.obs``
+registry family, as the reference's is).
 
 The reference calls ``note_trace(name)`` inside the raw bodies of its
 jitted serve programs, so it counts compilations: one per new (param
@@ -9,17 +9,24 @@ compilation is the build of a program object in ``serve/graphs.py``: a
 CUDA graph capture, or, where capture is off (the CPU, ``graphs=False``),
 the program's first eager run.  The names are the reference's:
 ``slot_prefill`` (one per admission program, i.e. per distinct prompt
-length), ``decode`` and ``decode_chunk``.  Flat counts across a second
-pass over the same traffic prove that serving builds nothing new.
+length), ``decode`` and ``decode_chunk``, and the paged programs'.  Flat
+counts across a second pass over the same traffic (or across tier
+switches after ``ServeEngine.warm_tiers``) prove that serving builds
+nothing new.  With the flight recorder on, each build is a
+``program_build`` event on the engine track.
 """
 
 from __future__ import annotations
 
-import collections
+from repro_torch.obs.registry import REGISTRY
 
 __all__ = ["note_trace", "trace_events", "reset_trace_events"]
 
-_TRACE_EVENTS: collections.Counter = collections.Counter()
+_TRACE_EVENTS = REGISTRY.family(
+    "serve_program_builds",
+    help="builds of serve programs (a capture, or a first eager run), by "
+         "program name; flat counts prove build-free serving",
+    trace_as="program_build", track="engine")
 
 
 def note_trace(name: str) -> None:

@@ -2028,3 +2028,73 @@ def test_paged_engine_replay_bitwise_eager(arch, kv):
     for k in ("nmg_gemv", "nmg_ffn"):
         assert launches[k] > 0, (k, launches)
     assert (launches["nmg_qkv"] > 0) == (cfg.attn_type == "gqa")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_tier_programs_replay_bitwise_and_build_nothing(paged):
+    """qwen1.5-4b SMOKE, bf16, tiers ``dense,2:4,1:4:8-gr16`` (the FFN
+    converted: the sparse tiers' decode runs the fused FFN and the GEMV,
+    their admissions the SpMM): ``warm_tiers`` captures every tier's
+    decode programs (chunk 4, single step) and admissions, and then three batches under ``set_tier(0)``, ``(2)``
+    and ``(1)`` build nothing and replay bitwise an eager engine built on
+    that tier's params alone, launch counts included.  Then a fault storm
+    over the replayed tier 2: every survivor's tokens bitwise the batch
+    served without faults."""
+    _require_cuda()
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm
+    from repro_torch.serve import FaultConfig, FaultInjector, Request, \
+        ServeEngine, trace_events
+
+    cfg = get_smoke("qwen1.5-4b")
+    params = init_lm(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (20, 6) * 3]
+    kw = dict(max_slots=2, max_seq_len=48, decode_chunk=4)
+    if paged:
+        kw.update(paged=True, page_size=8)
+    # no controller: a manual tier holds
+    eng = ServeEngine(params, cfg, tiers=["dense", "2:4", "1:4:8-gr16"],
+                      **kw)
+    eng.warm_tiers((20, 6))
+    built = dict(trace_events())
+    progs = list(eng._programs.values()) + list(eng.kv.programs.values())
+    assert len(progs) == 3 * 2 + 3 * 2        # (chunk, step), 2 lengths
+    assert all(g.info["captured"] for g in progs)
+    for t, lo in ((0, 0), (2, 2), (1, 4)):
+        def batch():
+            return [Request(uid=i, prompt=prompts[i], max_new_tokens=9)
+                    for i in (lo, lo + 1)]
+        eng.set_tier(t)
+        ops.reset_kernel_counters()
+        got = [o.tokens for o in eng.run(batch())]
+        got_counts = ops.counter_snapshot()
+        assert trace_events() == built, t
+        ref = ServeEngine(eng.tiers[t].params, cfg, graphs=False, **kw)
+        ops.reset_kernel_counters()
+        want = [o.tokens for o in ref.run(batch())]
+        built = dict(trace_events())     # with the eager engine's builds
+        assert got == want, t
+        assert got_counts == ops.counter_snapshot(), t
+        if t:
+            launches = got_counts["launches"]
+            for k in ("nmg_gemv", "nmg_ffn", "nmg_spmm"):
+                assert launches[k] > 0, (t, k, launches)
+            assert launches["nmg_qkv"] == 0
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=9)
+            for i, p in enumerate(prompts)]
+    eng.set_tier(2)
+    base = {o.uid: o.tokens for o in eng.run(reqs)}
+    eng.faults = FaultInjector(FaultConfig(
+        seed=0, spike_prob=0.2, spike_s=(1e-4, 2e-4), error_prob=0.5,
+        slow_windows=((1, 3, 2.0),)))
+    outs = eng.run(reqs)
+    assert eng.stats["fault_retries"] > 0
+    assert {o.uid: o.tokens for o in outs} == base
+    assert trace_events() == built
+    if paged:
+        assert eng.kv.alloc.pages_in_use() == 0
