@@ -262,6 +262,24 @@
       left; (l4) the recorder changing no token and no count; (l5) the
       serve CLI with tiers, faults and a trace, its one-shot mode and the
       trainer with a trace, at bert-base-sten's width.
+   m. the static checker (``repro_torch.check``), in a process of its own
+      (``python3 chip_smoke.py --check <tpot ms>``, after (l)): (m1) the
+      device model (``launch/hw.py``'s H100 entry) equal to the card's
+      properties, R7 silent; (m2) the R6 estimator's shared memory a
+      block equal to the libraries' own figure in every GEMV, fused QKV,
+      FFN and SpMM case of the kernel phase (held there, in
+      :func:`rows_resources` / :func:`spmm_resources`) and at a tuned
+      ``gemv_cuda`` entry; (m3) qwen1.5-4b at full width, 4 of its 40
+      layers (``PHASE_DEPTH``), ``attn=True`` 1:4:8 gr64, bf16: every
+      serve program traced and captured, no ERROR (R3 ignored: bf16
+      norms run in f32); (m4) the differential at the check config: no
+      ``DIFF``, the GEMV and SpMM launched; (m5) ``serve --engine --check
+      --arrival-gap 0.02`` with an SLO 1.5 x bert's dense p50 and ``train
+      --check --steps 2`` at bert-base-sten's width, both exit 0, no
+      request shed before it arrives; (m6) every rule's trigger fixture
+      on the card (R4's capture failing at its host read) yields its
+      rule, every clean one none, and ``preflight`` returns 1 on the R1
+      trigger.
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -322,9 +340,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+from repro_torch.launch.hw import H100  # noqa: E402 (after the path)
+
+HBM_BYTES_PER_S = H100["hbm_bw"]          # H100 SXM device memory
+BF16_FLOPS = H100["peak_flops_bf16"]      # dense bf16 tensor-core peak
+F32_FLOPS = H100["peak_flops_f32"]        # f32 outside the tensor cores
 REPS = 30
 SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's ~1.98 GHz boost clock
 
@@ -483,26 +503,33 @@ def _ptxas_entry(lib: str, entry: str) -> dict:
     from ``-Xptxas -v``'s report of the library's build."""
     from repro_torch.kernels import _build
 
-    lines = _build.ptxas_log(lib).splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and entry in line:
-            for used in lines[i + 1:i + 8]:
-                if "Compiling entry function" in used:
-                    break
-                m = re.search(r"Used (\d+) registers", used)
-                if m:
-                    sm = re.search(r"(\d+) bytes smem", used)
-                    return {"registers": int(m.group(1)),
-                            "static_smem_bytes": int(sm.group(1)) if sm
-                            else 0}
-    raise RuntimeError(f"ptxas log of {lib} names no entry {entry}")
+    res = _build.ptxas_usage(lib, entry)
+    if res is None:
+        raise RuntimeError(f"ptxas log of {lib} names no entry {entry}")
+    return res
+
+
+#: (m2): every case whose shared memory a block the R6 estimator was held
+#: to the library's own figure at (kernel, K, width, bytes)
+R6_HELD = []
+
+
+def r6_held(kernel: str, w, width: int, est: dict, lib_bytes: int) -> int:
+    """Hold the R6 estimate of ``w`` at ``width`` to the library's figure
+    (phase (m2)); returns the bytes."""
+    assert est["error"] is None and est["dynamic_bytes"] == lib_bytes, \
+        (kernel, w.dense_shape, width, est, lib_bytes)
+    R6_HELD.append((kernel, int(w.dense_shape[0]), int(width), lib_bytes))
+    return lib_bytes
 
 
 def spmm_resources(w, b) -> dict:
     """The bf16 SpMM body's block at this shape: warps, n8 tiles, column
     tiles, K splits, registers a thread (ptxas) and shared memory a block
-    (its dynamic ring and B buffers)."""
+    (its dynamic ring and B buffers), the R6 estimate held to it."""
+    from repro_torch.check.static_pass import spmm_smem
     from repro_torch.kernels import _build
+    from repro_torch.tune.table import device_kind
 
     fn = _build.load("nmg_spmm").nmg_spmm_tc_plan
     fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -512,6 +539,8 @@ def spmm_resources(w, b) -> dict:
     fn(w.val.shape[0], b.shape[1], w.val.shape[1] * w.val.shape[2], w.gr,
        b.data_ptr(), b.stride(0), b.stride(1), plan)
     warps, nt8, col_tiles, splits, smem, staged = list(plan)
+    r6_held("nmg_spmm", w, b.shape[1],
+            spmm_smem(w, b.dtype, b.shape[1], device_kind()), smem)
     # the kernel's template arguments: n8 tiles, warps along the rows
     res = _ptxas_entry("nmg_spmm",
                        f"nmg_spmm_tc_kernelILi{nt8}ELi{warps // 2}E")
@@ -521,15 +550,18 @@ def spmm_resources(w, b) -> dict:
             "smem_bytes": smem + res["static_smem_bytes"]}
 
 
-def rows_resources(lib: str, w, b) -> dict:
+def rows_resources(lib: str, w, b, config=None) -> dict:
     """The decode body the wrappers pick for ``w`` against B (its plan from
     ``row_plan``), with, for the ``tc`` body, registers a thread (ptxas)
-    and dynamic shared memory a block of its bf16-output entry."""
+    and dynamic shared memory a block of its bf16-output entry, the R6
+    estimate held to it."""
+    from repro_torch.check.static_pass import gemv_smem
     from repro_torch.kernels import _build
     from repro_torch.kernels.nmg_gemv import chunk_geometry, row_plan
+    from repro_torch.tune.table import device_kind
 
     KN = w.val.shape[1] * w.val.shape[2]
-    p = row_plan(w.gr, b.shape[1], KN, b.dtype)
+    p = row_plan(w.gr, b.shape[1], KN, b.dtype, config)
     out = {"body": p.body, "gr": w.gr, "tile_rows": p.rows, "parts": p.parts,
            "slabs_per_part": p.per}
     if p.body != "tc":
@@ -541,12 +573,15 @@ def rows_resources(lib: str, w, b) -> dict:
     fn.restype = ctypes.c_int
     res = _ptxas_entry(lib, f"{lib}_tc_kernelILi{p.nt8}ELi{p.rows // 16}E"
                        "13__nv_bfloat16")
+    dynamic = fn(p.rows, nw, p.nt8, p.per, p.parts, b.data_ptr(),
+                 b.stride(0), b.stride(1), *chunk_geometry(w),
+                 min(b.shape[1], 16))
+    r6_held(lib, w, b.shape[1], gemv_smem(w, b.dtype, b.shape[1],
+                                          device_kind(), ffn=nw == 2),
+            dynamic)
     return {**out, "warps": p.rows // 16, "n8_tiles": p.nt8,
             "registers": res["registers"],
-            "smem_bytes": fn(p.rows, nw, p.nt8, p.per, p.parts, b.data_ptr(),
-                             b.stride(0), b.stride(1), *chunk_geometry(w),
-                             min(b.shape[1], 16))
-            + res["static_smem_bytes"]}
+            "smem_bytes": dynamic + res["static_smem_bytes"]}
 
 
 def matmul_threshold_resources() -> dict:
@@ -1689,9 +1724,11 @@ FAMILY_RUNS = {
               "chip_smoke_ssm.json"),
     "--encdec": ((("whisper-large-v3", False, 64),),
                  "chip_smoke_encdec.json"),
-    # phases 3k and 3l run their own sequences (kvcache_phase, slo_phase)
+    # phases 3k, 3l and 3m run their own sequences (kvcache_phase,
+    # slo_phase, check_phase)
     "--kvcache": ((), "chip_smoke_kvcache.json"),
     "--slo": ((), "chip_smoke_slo.json"),
+    "--check": ((), "chip_smoke_check.json"),
 }
 #: the depth (decoder layers; whisper's encoder and decoder) at which the
 #: earlier family phases serve their full-width models, so that the whole
@@ -1701,9 +1738,12 @@ FAMILY_RUNS = {
 #: moonshot runs 24 of its 48 layers too: with it whole the smoke read
 #: 1080 s on the H100 (PERF.md), over the 960 s it is to stay under.
 #: Models not named here run at their published depth.
+#: Phase (m) checks qwen1.5-4b's serve programs at 4 layers: the rules
+#: judge every layer's program alike, and R6 depends on widths alone.
 PHASE_DEPTH = {"starcoder2-15b": 20, "gemma2-9b": 20, "minicpm3-4b": 16,
                "moonshot-v1-16b-a3b": 24, "mamba2-370m": 24,
-               "hymba-1.5b": 16, "whisper-large-v3": (16, 16)}
+               "hymba-1.5b": 16, "whisper-large-v3": (16, 16),
+               "check/qwen1.5-4b": 4}
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
 #: new tokens; minicpm3's long request: 1024 + 32 tokens
@@ -3562,7 +3602,7 @@ def report_moe(arch, r, card) -> None:
           f"3.35 TB/s {c['expert_bound_ms']:.3f} ms", flush=True)
 
 
-def families_child(flag: str) -> int:
+def families_child(flag: str, extra=()) -> int:
     """Phase 3d (``python3 chip_smoke.py --families``), 3e
     (``--vlm-mla``), 3h (``--moe``), 3i (``--ssm``), 3j (``--encdec``)
     or 3k (``--kvcache``: :func:`kvcache_phase`) in its own process,
@@ -3583,6 +3623,8 @@ def families_child(flag: str) -> int:
         res = kvcache_phase(card)
     elif flag == "--slo":
         res = slo_phase(card)
+    elif flag == "--check":
+        res = check_phase(card, float(extra[0]))
     else:
         res = {"families": [family_phase(a, smoke, gr, card)
                             for a, smoke, gr in archs]}
@@ -3593,13 +3635,14 @@ def families_child(flag: str) -> int:
     return 0
 
 
-def run_families(flag: str, timeout: int) -> dict:
-    """Run :func:`families_child` for ``flag`` in a child process and
-    return what it wrote; raises if it fails or outlasts ``timeout`` s."""
+def run_families(flag: str, timeout: int, *extra: str) -> dict:
+    """Run :func:`families_child` for ``flag`` (and ``extra`` arguments)
+    in a child process and return what it wrote; raises if it fails or
+    outlasts ``timeout`` s."""
     path = ROOT / "chiprun_out" / FAMILY_RUNS[flag][1]
     path.unlink(missing_ok=True)
-    subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
-                   check=True, timeout=timeout)
+    subprocess.run([sys.executable, str(Path(__file__).resolve()), flag,
+                    *extra], check=True, timeout=timeout)
     return json.loads(path.read_text())
 
 
@@ -4543,6 +4586,314 @@ def report_slo(res, card) -> None:
           f"{res['warm_s']:.1f}, (l1) {res['l1_wall_s']:.1f}, (l2)+(l4) "
           f"{res['l2']['wall_s']:.1f}, (l3) {res['l3']['wall_s']:.1f})",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3m: the static checker (repro_torch.check)
+# ---------------------------------------------------------------------------
+
+#: (m2)'s tuned entry: qwen1.5-4b's attn.wq shape [K, R] under a table's
+#: decode config, at the serve phases' decode width
+CHECK_TUNED = ((2560, 2560), {"rows": 32, "parts": 4}, 4)
+#: (m5)'s request spacing, seconds
+CHECK_ARRIVAL_GAP = 0.02
+
+
+def device_limits() -> dict:
+    """The card's shared memory a block (opt-in) and an SM, and registers
+    an SM, from torch's device properties or, where this torch lacks a
+    field, from the CUDA runtime's ``cudaDeviceGetAttribute``."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    fields = {"smem_per_block_bytes": ("shared_memory_per_block_optin", 97),
+              "smem_per_sm_bytes": ("shared_memory_per_multiprocessor", 81),
+              "regs_per_sm": ("regs_per_multiprocessor", 82)}
+    out, cudart = {}, None
+    for key, (attr, code) in fields.items():
+        v = getattr(props, attr, None)
+        if v is None:
+            if cudart is None:
+                cudart = ctypes.CDLL("/usr/local/cuda/lib64/libcudart.so")
+            got = ctypes.c_int()
+            err = cudart.cudaDeviceGetAttribute(ctypes.byref(got), code, 0)
+            assert err == 0, f"cudaDeviceGetAttribute({code}) failed: {err}"
+            v = got.value
+        out[key] = int(v)
+    return out
+
+
+def _start_cli(name: str, argv: list, d: str):
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    logs = (open(f"{d}/{name}.out", "w+"), open(f"{d}/{name}.err", "w+"))
+    return subprocess.Popen([sys.executable, "-m", *argv], stdout=logs[0],
+                            stderr=logs[1], text=True, cwd=ROOT,
+                            env=env), logs, argv
+
+
+def _finish_cli(job, timeout: float) -> str:
+    proc, logs, argv = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for f in logs:
+        f.seek(0)
+    out, err = (f.read() for f in logs)
+    for f in logs:
+        f.close()
+    if rc:
+        raise RuntimeError(f"{' '.join(argv)} exited {rc}:\n{out}\n{err}")
+    return out
+
+
+def shed_before_arrival(doc) -> int:
+    """Requests of a serve trace shed before they arrived: a ``shed``
+    event earlier than the start (the arrival) of its request's
+    ``queued`` span."""
+    arrived = {e["args"]["uid"]: e["ts"] for e in doc["traceEvents"]
+               if e["name"] == "queued" and e.get("args", {}).get(
+                   "outcome") == "shed"}
+    return sum(1 for e in doc["traceEvents"]
+               if e["name"] == "shed" and e["ts"] < arrived[e["args"]["uid"]])
+
+
+@contextlib.contextmanager
+def entries_replaced(programs):
+    """The checker's entries replaced by ``programs`` (a control for
+    ``preflight``)."""
+    from repro_torch.check import entries
+
+    saved = entries.entry_programs
+    entries.entry_programs = lambda *a, **k: list(programs)
+    try:
+        yield
+    finally:
+        entries.entry_programs = saved
+
+
+def check_phase(card: str, tpot_ms: float) -> dict:
+    """Phase 3m (``python3 chip_smoke.py --check <tpot ms>``): the static
+    checker on the card.  (m5)'s two CLIs start first, in processes of
+    their own, and are read last.
+
+    (m1) ``launch/hw.py``'s entry for this card equal to its properties,
+    R7 silent; (m2) a tuned ``gemv_cuda`` entry's R6 estimate equal to
+    the library's figure (every kernel-phase case was held in the main
+    process), its launch against the plain version; (m3) qwen1.5-4b at
+    full width and 4 layers, ``attn=True`` 1:4:8 gr64, bf16: every serve
+    program traced and captured, no ERROR with R3 ignored (bf16 norms run
+    in f32, the reason the check configs pin f32); (m4) the differential
+    at the check config: no ``DIFF``, the GEMV and the SpMM launched;
+    (m5) ``serve --engine --check --arrival-gap 0.02 --slo-tpot-ms
+    <tpot_ms>`` and ``train --check --steps 2`` at bert-base-sten's width
+    exit 0 with clean preflights, and the serve trace sheds no request
+    before it arrives; (m6) every trigger fixture on the card yields its
+    rule (R4's also at its failed capture), every clean one none, and
+    ``preflight`` returns 1 on the R1 trigger."""
+    import collections
+    import tempfile
+
+    import torch
+
+    from repro_torch.check import Report, preflight
+    from repro_torch.check.differential import differential_check
+    from repro_torch.check.entries import entry_programs
+    from repro_torch.check.fixtures import FIXTURES
+    from repro_torch.check.rules import run_rules
+    from repro_torch.check.static_pass import gemv_smem
+    from repro_torch.configs import get_config
+    from repro_torch.core.nmg import dense_to_grouped_nm
+    from repro_torch.kernels import nmg_gemv
+    from repro_torch.launch.hw import hw_for_device
+    from repro_torch.obs.export import load_trace, validate_chrome_trace
+    from repro_torch.tune.routing import clear_active_table, \
+        set_active_table
+    from repro_torch.tune.table import TuningTable, device_kind
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        trace = f"{d}/serve_trace.json"
+        jobs = {
+            "serve": _start_cli("serve", [
+                "repro_torch.launch.serve", "--arch", "bert-base-sten",
+                "--engine", "--check", "--arrival-gap",
+                str(CHECK_ARRIVAL_GAP), "--slo-tpot-ms", f"{tpot_ms:.4f}",
+                "--requests", "8", "--gen-len", "8", "--trace", trace], d),
+            "train": _start_cli("train", [
+                "repro_torch.launch.train", "--arch", "bert-base-sten",
+                "--check", "--steps", "2"], d)}
+        try:
+            # (m1) the device model
+            t0 = time.perf_counter()
+            kind = device_kind()
+            hw, matched = hw_for_device(kind)
+            limits = device_limits()
+            assert matched, f"no HW_BY_KIND entry for {kind}"
+            assert all(hw[k] == v for k, v in limits.items()), (hw, limits)
+            r7 = run_rules(FIXTURES["R7"]["clean"]("cuda"))
+            assert not [x for x in r7 if x.rule == "R7"], r7
+            res["m1"] = {"kind": kind, "limits": limits,
+                         "hw": {k: hw[k] for k in limits},
+                         "wall_s": time.perf_counter() - t0}
+
+            # (m2) a tuned entry, estimate against the library
+            t0 = time.perf_counter()
+            (K, R), cfg, M = CHECK_TUNED
+            bf16 = torch.bfloat16
+            gen = torch.Generator(device="cuda").manual_seed(31)
+            w = dense_to_grouped_nm(
+                (torch.randn(K, R, generator=gen, device="cuda")
+                 / math.sqrt(K)).to(bf16), 1, 4, 8, gr=64, sparse_dim=0)
+            x = torch.randn(M, K, generator=gen, device="cuda").to(bf16)
+            set_active_table(TuningTable(device=kind,
+                                         entries={"gemv_cuda": dict(cfg)}))
+            try:
+                est = gemv_smem(w, bf16, M, kind)
+                assert est["source"] == "table" and est["config"] == cfg
+                tuned = rows_resources("nmg_gemv", w, x.T, config=cfg)
+                got = nmg_gemv.nmg_gemv(w, x.T, transpose_out=True,
+                                        config=cfg)
+            finally:
+                clear_active_table()
+            ref = nmg_gemv.nmg_gemv_plain(w, x.T, transpose_out=True)
+            err = (got - ref).abs().max().item()
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            assert err <= tol, ("tuned gemv", err, tol)
+            res["m2"] = {"tuned": {"K": K, "R": R, "M": M, "config": cfg,
+                                   "estimate_bytes": est["dynamic_bytes"],
+                                   "library_bytes": tuned["smem_bytes"]
+                                   - est["static_bytes"],
+                                   "registers": tuned["registers"],
+                                   "max_abs_err": err, "tol": tol},
+                         "held": len(R6_HELD),
+                         "wall_s": time.perf_counter() - t0}
+            del w, x, got, ref
+
+            # (m3) qwen1.5-4b at full width, 4 layers, attn=True, captured
+            t0 = time.perf_counter()
+            depth = PHASE_DEPTH["check/qwen1.5-4b"]
+            qcfg = get_config("qwen1.5-4b").scaled(n_layers=depth)
+            progs = entry_programs("serve", arch="qwen1.5-4b", hlo=True,
+                                   device="cuda", cfg=qcfg, attn=True)
+            diags = [x for prog in progs for x in run_rules(prog)]
+            report = Report(diags).filtered(("R3",))
+            assert not report.errors, report.render()
+            for prog in progs:
+                assert prog.capture["captured"], (prog.name, prog.capture)
+            res["m3"] = {
+                "programs": [prog.name for prog in progs],
+                "layers": depth, "of_layers": get_config(
+                    "qwen1.5-4b").n_layers,
+                "diagnostics_per_rule": dict(collections.Counter(
+                    x.rule for x in diags)),
+                "after_ignore_R3": dict(collections.Counter(
+                    x.rule for x in report.diagnostics)),
+                "nodes": {prog.name: len(prog.graph.nodes)
+                          for prog in progs},
+                "kernel_nodes": {prog.name: dict(collections.Counter(
+                    n.op for n in prog.graph.kernels())) for prog in progs},
+                "smem_max_bytes": max(e["bytes"] for prog in progs
+                                      for e in prog.smem_estimates),
+                "estimates": sum(len(prog.smem_estimates) for prog in progs),
+                "wall_s": time.perf_counter() - t0}
+            del progs, diags
+            torch.cuda.empty_cache()
+
+            # (m4) the differential at the check config
+            t0 = time.perf_counter()
+            ddiags, detail = differential_check(device="cuda")
+            assert not ddiags, "\n".join(x.render() for x in ddiags)
+            assert detail["launches"].get("nmg_gemv", 0) > 0 and \
+                detail["launches"].get("nmg_spmm", 0) > 0, detail
+            res["m4"] = {**detail, "wall_s": time.perf_counter() - t0}
+
+            # (m6) the controls
+            t0 = time.perf_counter()
+            controls = {}
+            for rid in sorted(FIXTURES):
+                trig = FIXTURES[rid]["trigger"]("cuda")
+                clean = FIXTURES[rid]["clean"]("cuda")
+                hits = [x for x in run_rules(trig) if x.rule == rid]
+                assert hits, f"{rid} trigger yields no {rid} on the card"
+                assert not [x for x in run_rules(clean) if x.rule == rid], \
+                    f"{rid} clean fixture trips {rid} on the card"
+                controls[rid] = {"severities": sorted({
+                    x.severity.name for x in hits}),
+                    "locations": sorted({x.location for x in hits})}
+                if rid == "R4":
+                    assert trig.capture["op"] == \
+                        "aten._local_scalar_dense", trig.capture
+                    assert "capture" in controls[rid]["locations"]
+                    assert clean.capture["captured"], clean.capture
+                    controls[rid]["capture"] = trig.capture
+                if rid == "R1":
+                    with entries_replaced([trig]):
+                        rc = preflight(("serve",), device="cuda")
+                    assert rc == 1, rc
+                    controls[rid]["preflight_rc"] = rc
+            res["m6"] = {"controls": controls,
+                         "wall_s": time.perf_counter() - t0}
+
+            # (m5) the CLIs
+            t0 = time.perf_counter()
+            outs = {name: _finish_cli(job, 240) for name, job in
+                    jobs.items()}
+            for name, out in outs.items():
+                assert "0 error(s)" in out, (name, out)
+            doc = load_trace(trace)
+            assert validate_chrome_trace(doc) == [], "serve trace invalid"
+            early = shed_before_arrival(doc)
+            assert early == 0, f"{early} requests shed before arrival"
+            res["m5"] = {"tpot_ms": tpot_ms,
+                         "arrival_gap_s": CHECK_ARRIVAL_GAP,
+                         "shed_before_arrival": early,
+                         "shed": sum(e["name"] == "shed"
+                                     for e in doc["traceEvents"]),
+                         "tails": {k: v.strip().splitlines()[-3:]
+                                   for k, v in outs.items()},
+                         "wait_s": time.perf_counter() - t0}
+        finally:
+            for proc, logs, _ in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                for f in logs:
+                    f.close()
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def report_check(res, card) -> None:
+    m1, m2, m3, m4, m5 = (res[k] for k in ("m1", "m2", "m3", "m4", "m5"))
+    print(f"check (m1) on {card}: {m1['kind']} limits {m1['limits']} equal "
+          f"to launch/hw.py; R7 silent")
+    t = m2["tuned"]
+    print(f"check (m2): R6 estimate equal to the library's figure in "
+          f"{res['held_main']} kernel-phase cases; tuned gemv_cuda "
+          f"{t['config']} at K={t['K']} M={t['M']}: {t['estimate_bytes']} B "
+          f"(library {t['library_bytes']} B), launch err "
+          f"{t['max_abs_err']:.2e}")
+    print(f"check (m3): qwen1.5-4b {m3['layers']} of {m3['of_layers']} "
+          f"layers, attn=True, bf16: {len(m3['programs'])} programs traced "
+          f"and captured in {m3['wall_s']:.1f} s; diagnostics per rule "
+          f"{m3['diagnostics_per_rule']} (R3 ignored), largest block "
+          f"{m3['smem_max_bytes']} B of {m3['estimates']} estimates")
+    print(f"check (m4): differential agrees ({len(m4['observed'])} keys), "
+          f"launches {m4['launches']} in {m4['wall_s']:.1f} s")
+    print(f"check (m5): serve --check --arrival-gap {m5['arrival_gap_s']} "
+          f"--slo-tpot-ms {m5['tpot_ms']:.3f} and train --check exit 0; "
+          f"shed {m5['shed']}, before arrival {m5['shed_before_arrival']}")
+    print(f"check (m6): every trigger fires on the card "
+          f"{ {k: v['locations'] for k, v in res['m6']['controls'].items()} }"
+          f", preflight rc {res['m6']['controls']['R1']['preflight_rc']}")
+    print(f"check phase on {card}: {res['wall_s']:.1f} s (m1 "
+          f"{m1['wall_s']:.1f}, m2 {m2['wall_s']:.1f}, m3 {m3['wall_s']:.1f}"
+          f", m4 {m4['wall_s']:.1f}, m6 {res['m6']['wall_s']:.1f}, m5 wait "
+          f"{m5['wait_s']:.1f})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5846,8 +6197,8 @@ def kernels_line(cases, counts, train_counts, sten_counts,
 def main() -> int:
     import torch
 
-    if len(sys.argv) == 2 and sys.argv[1] in FAMILY_RUNS:
-        return families_child(sys.argv[1])
+    if len(sys.argv) >= 2 and sys.argv[1] in FAMILY_RUNS:
+        return families_child(sys.argv[1], sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "needs one CUDA device", file=sys.stderr)
@@ -6023,6 +6374,12 @@ def main() -> int:
     kvc = run_families("--kvcache", 500)
     # (l) SLO-controlled serving with resident sparsity tiers
     slo = run_families("--slo", 400)
+    # (m) the static checker; (m5)'s SLO is 1.5 x bert's dense p50
+    bert_p50_ms = runs[0]["metrics"]["tok_latency_p50"] * 1e3
+    chk = run_families("--check", 300, f"{bert_p50_ms * 1.5:.4f}")
+    chk["held_main"] = len(R6_HELD)
+    assert chk["held_main"] > 0, "no kernel-phase case held to R6"
+    report_check(chk, card)
     all_fams = (fam["families"] + vlm["families"] + moe["families"]
                 + ssm["families"] + encdec["families"])
     fam_counts = {r["label"]: r["counts"] for f in all_fams
@@ -6091,7 +6448,7 @@ def main() -> int:
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
         "moe": moe, "ssm": ssm, "encdec": encdec, "kvcache": kvc,
-        "slo": slo,
+        "slo": slo, "check": chk, "r6_held": R6_HELD,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -6189,6 +6546,13 @@ def main() -> int:
             "warm_s": round(slo["warm_s"], 1),
             "pool_mib": {k: round(v, 1) for k, v in slo["pool_mib"].items()},
             "wall_s": round(slo["wall_s"], 1)},
+        "check": {
+            "r6_held": chk["held_main"],
+            "qwen_diagnostics": chk["m3"]["diagnostics_per_rule"],
+            "qwen_programs": len(chk["m3"]["programs"]),
+            "differential_launches": chk["m4"]["launches"],
+            "shed_before_arrival": chk["m5"]["shed_before_arrival"],
+            "wall_s": round(chk["wall_s"], 1)},
         "families": {f["label"]: {
             "init_s": round(f["init_s"], 2),
             "init_peak_gb": round(f["init_peak_gb"], 3),

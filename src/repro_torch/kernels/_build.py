@@ -13,13 +13,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all",
-           "ptxas_log"]
+           "ptxas_log", "ptxas_usage"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -99,3 +100,28 @@ def ptxas_log(name: str) -> str:
     (registers, shared memory, spills), or '' if not built here."""
     p = _lib_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
+
+
+def ptxas_usage(name: str, entry: str):
+    """Registers a thread and static shared memory a block of the kernel
+    entries of ``name``'s last build whose (mangled) name contains
+    ``entry``, the most over those entries: ``{"registers",
+    "static_smem_bytes"}``, or None where the build log is absent or names
+    no such entry."""
+    lines = ptxas_log(name).splitlines()
+    regs = smem = None
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or entry not in line:
+            continue
+        for used in lines[i + 1:i + 8]:
+            if "Compiling entry function" in used:
+                break
+            m = re.search(r"Used (\d+) registers", used)
+            if m:
+                sm = re.search(r"(\d+) bytes smem", used)
+                regs = max(regs or 0, int(m.group(1)))
+                smem = max(smem or 0, int(sm.group(1)) if sm else 0)
+                break
+    if regs is None:
+        return None
+    return {"registers": regs, "static_smem_bytes": smem}

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import _trace
+
 __all__ = ["matmul_threshold", "matmul_threshold_plain", "MatmulThreshold"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -120,6 +122,9 @@ def matmul_threshold(a: torch.Tensor, b: torch.Tensor,
     """(val f32 [M, N], bool mask [M, N]) of ``A @ B`` thresholded at
     ``|y| >= threshold``: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; differentiable in ``a`` and ``b``."""
+    if _trace.RECORDER is not None:
+        return _trace.as_node("matmul_threshold", (a, b), matmul_threshold,
+                              a, b, threshold)
     return MatmulThreshold.apply(a, b, float(threshold))
 
 

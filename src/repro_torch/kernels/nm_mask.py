@@ -31,6 +31,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _trace
+
 __all__ = ["nm_mask", "nm_mask_plain", "nm_mask_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -108,6 +110,8 @@ def _launch(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
 def nm_mask(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """Bool keep mask of per-m-block top-n along the last axis: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _trace.RECORDER is not None:
+        return _trace.as_node("nm_mask", (x,), nm_mask, x, n, m)
     if x.device.type == "cpu":
         return nm_mask_plain(x, n, m)
     if x.device.type != "cuda":

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as nnf
 
 from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.kernels import _trace
 from repro_torch.kernels.nmg_gemv import MAX_M, _DTYPE_CODE, _pad_rows, \
     check_operands, chunk_geometry, gemv_launch, nmg_gemv_plain, row_plan
 
@@ -123,6 +124,11 @@ def nmg_qkv(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
     launch: the CUDA GEMV kernel over up to three segments for CUDA
     tensors, the plain version for CPU tensors.  ``config`` is
     :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s."""
+    if _trace.RECORDER is not None:
+        operands = [t for w in ws for t in (w.val, w.gather_plan().cols)]
+        return _trace.as_node(
+            "nmg_qkv", (*operands, b), nmg_qkv, ws, b, out_dtype=out_dtype,
+            transpose_out=transpose_out, config=config)
     if b.device.type == "cpu":
         return nmg_qkv_plain(ws, b, out_dtype=out_dtype,
                              transpose_out=transpose_out)
@@ -159,6 +165,11 @@ def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
     :func:`fusable_ffn` rejects raises.  ``config`` is
     :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s (the GEMV's at the
     same K, format, gr and dtype)."""
+    if _trace.RECORDER is not None:
+        return _trace.as_node(
+            "nmg_ffn", (w.val, w.gather_plan().cols, b), nmg_ffn, w, b,
+            act=act, out_dtype=out_dtype, transpose_out=transpose_out,
+            config=config)
     if b.device.type == "cpu" and w.val.device.type == "cpu":
         return nmg_ffn_plain(w, b, act=act, out_dtype=out_dtype,
                              transpose_out=transpose_out)

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.kernels import _trace
 
 __all__ = ["nmg_gemv", "nmg_gemv_plain", "gemv_launch", "MAX_M",
            "RowPlan", "row_plan", "tc_parts_choices", "chunk_geometry"]
@@ -251,6 +252,11 @@ def nmg_gemv(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
     """C = A_canonical @ B for narrow B: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  ``config`` is :func:`row_plan`'s;
     ``max_m=None`` takes any width (16 columns at a time)."""
+    if _trace.RECORDER is not None:
+        return _trace.as_node(
+            "nmg_gemv", (a.val, a.gather_plan().cols, b), nmg_gemv, a, b,
+            out_dtype=out_dtype, transpose_out=transpose_out, config=config,
+            max_m=max_m)
     if b.device.type == "cpu":
         return nmg_gemv_plain(a, b, out_dtype=out_dtype,
                               transpose_out=transpose_out)

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
+from repro_torch.kernels import _trace
 from repro_torch.kernels.nmg_gemv import _DTYPE_CODE, _pad_rows, \
     check_operands, gemv_launch
 from repro_torch.tune import routing
@@ -103,6 +104,10 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
     entry) is the kernel's K split count, None for the shape's own; one
     the kernel cannot take raises, as does any on the GEMV route of gr
     not a multiple of 64."""
+    if _trace.RECORDER is not None:
+        return _trace.as_node(
+            "nmg_spmm", (a.val, a.gather_plan().cols, b), nmg_spmm, a, b,
+            out_dtype=out_dtype, transpose_out=transpose_out, splits=splits)
     if b.device.type == "cpu":
         return nmg_spmm_plain(a, b, out_dtype=out_dtype,
                               transpose_out=transpose_out)

@@ -16,8 +16,11 @@ modes:
 
 ``--trace PATH`` turns the ``repro_torch.obs`` flight recorder on and
 writes a Chrome/Perfetto trace to PATH at exit (``python -m
-repro_torch.obs validate PATH`` checks it).  ``--check`` is refused: the
-port has no static checker yet (ROADMAP A11).
+repro_torch.obs validate PATH`` checks it).  ``--check`` runs the static
+checker's serve entry (``repro_torch.check.preflight``, after the tuning
+table is loaded) first and exits 1 on an ERROR.  ``--arrival-gap S``
+spaces the synthetic requests' arrivals S seconds apart (request i
+arrives at i * S).
 
     python -m repro_torch.launch.serve --arch bert-base-sten --engine --sparse
     python -m repro_torch.launch.serve --arch qwen1.5-4b --engine --sparse \
@@ -105,10 +108,11 @@ def run_oneshot(params, cfg, prompts: torch.Tensor, gen_len: int):
 
 
 def make_requests(cfg, n: int, prompt_len: int, gen_len: int,
-                  seed: int) -> list:
+                  seed: int, arrival_gap: float = 0.0) -> list:
     """Synthetic requests with prompt lengths stepping down from
     ``prompt_len`` (so admission happens mid-stream), tokens from a
-    seeded numpy generator."""
+    seeded numpy generator; request ``i`` arrives at ``i *
+    arrival_gap`` seconds."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
@@ -116,7 +120,8 @@ def make_requests(cfg, n: int, prompt_len: int, gen_len: int,
         reqs.append(Request(
             uid=i, prompt=rng.integers(0, cfg.vocab, plen, dtype=np.int32),
             max_new_tokens=gen_len,
-            sampling=SamplingParams(greedy=True, seed=i)))
+            sampling=SamplingParams(greedy=True, seed=i),
+            arrival_time=i * arrival_gap))
     return reqs
 
 
@@ -166,6 +171,8 @@ def main(argv=None) -> int:
                          "continuous-batching engine")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--arrival-gap", type=float, default=0.0,
+                    help="seconds between request arrivals (--engine)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--decode-chunk", type=int, default=8)
@@ -214,11 +221,10 @@ def main(argv=None) -> int:
                          "lifecycles, controller decisions, fault "
                          "injections, kernel routes) to PATH on exit")
     ap.add_argument("--check", action="store_true",
-                    help="refused: the port has no static checker yet")
+                    help="run the repro_torch.check static verifier over "
+                         "the serve entry before doing anything; abort on "
+                         "ERROR diagnostics")
     args = ap.parse_args(argv)
-    if args.check:
-        ap.error("--check is not ported: the port has no static checker "
-                 "yet (ROADMAP A11)")
     if args.paged and not args.engine:
         ap.error("--paged requires --engine (the one-shot path has no "
                  "slot scheduler to page)")
@@ -246,6 +252,15 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     # --tuning-table or $REPRO_TUNE_TABLE, before any model is built
     load_table_cli(args.tuning_table, device=device_kind(device))
+    if args.check:
+        # after the table load on purpose: R6 must judge the routed
+        # configs of the table the run is about to serve under
+        from repro_torch.check import preflight
+
+        rc = preflight(("serve",), arch=args.arch, device=device)
+        if rc:
+            print("repro_torch.check: serve preflight failed — not serving")
+            return rc
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     try:
         check_servable(cfg)
@@ -284,7 +299,7 @@ def _run_oneshot_cli(args, cfg, params, device) -> int:
 
 def _run_engine(args, cfg, params, device, max_seq) -> int:
     reqs = make_requests(cfg, args.requests, args.prompt_len, args.gen_len,
-                         args.seed)
+                         args.seed, args.arrival_gap)
     ekw = dict(max_slots=args.max_slots, max_seq_len=max_seq,
                decode_chunk=args.decode_chunk, device=device)
     if args.paged:

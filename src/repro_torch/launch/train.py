@@ -36,7 +36,9 @@ recorder on and writes a Chrome/Perfetto trace to PATH at the end:
 events, and on the log cadence each mask's sparsity
 (:func:`sparsity_telemetry`: registry gauges and ``sparsity`` events,
 read only while the recorder is on, so a run without it syncs nothing
-more).  ``--check`` is not ported yet (ROADMAP A11).
+more).  ``--check`` runs the static checker's train entry
+(``repro_torch.check.preflight``, after the tuning table is loaded) first
+and exits 1 on an ERROR.
 """
 
 from __future__ import annotations
@@ -395,6 +397,10 @@ def parse_args(argv=None):
                          "write a Chrome/Perfetto trace (train chunks, GMP "
                          "recomputes, per-layer sparsity, kernel routes) "
                          "to PATH at the end")
+    ap.add_argument("--check", action="store_true",
+                    help="run the repro_torch.check static verifier over "
+                         "the train entry before the first step; abort on "
+                         "ERROR diagnostics")
     args = ap.parse_args(argv)
     # the fast path chunks by --log-every: a non-positive value would spin
     # on zero-step chunks
@@ -409,10 +415,20 @@ def run(args) -> dict:
     the final (or, after SIGTERM, the interrupted) blocking checkpoint.
     Returns the loop's result plus "rc" (0, or 1 after SIGTERM),
     "start_step", "cfg", "gmp" and "trainer" (the :class:`MultiStep`, or
-    None for the host loop)."""
+    None for the host loop); with ``--check`` failing, ``{"rc": 1}``
+    alone, before anything is built."""
     dev = resolve_device(args.device)
     # --tuning-table or $REPRO_TUNE_TABLE, before any model is built
     load_table_cli(args.tuning_table, device=device_kind(dev))
+    if args.check:
+        # after the table load on purpose: R6 must judge the routed
+        # configs of the table the run is about to train under
+        from repro_torch.check import preflight
+
+        rc = preflight(("train",), arch=args.arch, device=dev)
+        if rc:
+            print("repro_torch.check: train preflight failed — not training")
+            return {"rc": rc}
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     params = init_lm(cfg, seed=args.seed, device=dev)
     gmp = None

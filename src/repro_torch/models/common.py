@@ -14,9 +14,11 @@ attention and logit softcaps, post-norms, a tied or separate head, and a
 prefix of precomputed embeddings under a prefix-LM mask (the VLM stub
 frontend), and an encoder over precomputed frame embeddings with
 cross-attention in every decoder layer (enc-dec, whisper's shape: GQA,
-global layers).  :meth:`ModelConfig.check_ported` raises
-``NotImplementedError`` for the other families (int8 KV cache, enc-dec
-beside anything but whisper's shape) and for the expert-parallel MoE
+global layers), with a KV cache in the model dtype or in any of
+:data:`KV_CACHE_DTYPES` (int8 among them).
+:meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
+other families (enc-dec beside anything but whisper's shape, a KV cache
+dtype outside :data:`KV_CACHE_DTYPES`) and for the expert-parallel MoE
 strategies (``impl="shmap"``, ``combine="scatter"``).
 """
 

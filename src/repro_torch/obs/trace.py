@@ -63,6 +63,7 @@ _EPOCH: float = 0.0          # perf_counter seconds at enable()
 _CAPACITY = DEFAULT_CAPACITY
 _REC: collections.deque = collections.deque(maxlen=_CAPACITY)
 _TOTAL = 0                   # records ever appended (dropped = total - held)
+_LAST_US = -1                # the last timestamp handed out
 
 
 def enabled() -> bool:
@@ -76,11 +77,12 @@ def enable(capacity: Optional[int] = None) -> None:
     overhead probe toggling tracing mid-run) stays on one monotonic
     timeline.  When ``capacity`` is given, re-bounds the ring buffer
     (discarding held records)."""
-    global _ENABLED, _EPOCH
+    global _ENABLED, _EPOCH, _LAST_US
     if capacity is not None:
         set_capacity(capacity)
     if not _REC:
         _EPOCH = time.perf_counter()
+        _LAST_US = -1
     _ENABLED = True
 
 
@@ -111,7 +113,15 @@ def reset() -> None:
 
 
 def _now_us() -> int:
-    return int((time.perf_counter() - _EPOCH) * 1e6)
+    """Microseconds since the epoch, one more than the last stamp where
+    the clock has not moved past it: a span entered inside another then
+    starts after it, so spans that nest in time nest in start order too
+    (with equal starts an exporter sorting by start could put the inner
+    span first)."""
+    global _LAST_US
+    t = int((time.perf_counter() - _EPOCH) * 1e6)
+    _LAST_US = t if t > _LAST_US else _LAST_US + 1
+    return _LAST_US
 
 
 def _append(rec: tuple) -> None:

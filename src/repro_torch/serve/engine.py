@@ -699,12 +699,15 @@ class ServeEngine:
             self._finish_unserved(req, now, "timeout")
         ctrl = self._controller
         if ctrl is not None:
-            ctrl.begin_step(now, len(self.queue))
+            # only requests that have arrived count as queued work: a trace
+            # submitted whole holds future arrivals (ROADMAP C14)
+            arrived = self.queue.num_arrived(now)
+            ctrl.begin_step(now, arrived)
             if self.tiers is not None:
                 self.set_tier(ctrl.tier_index,
                               reason=f"slo:{ctrl.last_reason}")
-            if ctrl.should_shed(len(self.queue)):
-                for req in self.queue.shed(ctrl.shed_keep()):
+            if ctrl.should_shed(arrived):
+                for req in self.queue.shed(ctrl.shed_keep(), now):
                     self._finish_unserved(req, now, "shed")
         free = self.free_slots()
         budget = len(free) if ctrl is None \

@@ -157,15 +157,23 @@ class RequestQueue:
             self._q = deque(r for r in self._q if id(r) not in dead)
         return out
 
-    def shed(self, keep: int) -> list:
-        """Remove and return queued requests beyond ``keep``, shedding
-        lowest priority first and, within a priority, newest arrivals
-        first (the oldest work keeps its place — it has waited longest
-        and sheds last)."""
-        n_shed = len(self._q) - max(0, int(keep))
+    def num_arrived(self, now: float) -> int:
+        """Queued requests whose ``arrival_time`` has passed."""
+        return sum(r.arrival_time <= now for r in self._q)
+
+    def shed(self, keep: int, now: float = float("inf")) -> list:
+        """Remove and return the requests arrived by ``now`` beyond
+        ``keep`` of them, shedding lowest priority first and, within a
+        priority, newest arrivals first (the oldest work keeps its place —
+        it has waited longest and sheds last).  A request still to arrive
+        is never shed: as :meth:`pop_ready` does, the queue holds it
+        until its time (the reference counts and sheds it: ROADMAP
+        C14)."""
+        arrived = [i for i, r in enumerate(self._q) if r.arrival_time <= now]
+        n_shed = len(arrived) - max(0, int(keep))
         if n_shed <= 0:
             return []
-        order = sorted(range(len(self._q)),
+        order = sorted(arrived,
                        key=lambda i: (self._q[i].priority,
                                       -self._q[i].arrival_time, -i))
         victims = set(order[:n_shed])

@@ -13,9 +13,12 @@ sparsity tiers, typed serve errors and serve CLI against the reference's:
   ``test_slo.py`` recompile-free property);
 * the controller driving the engine on a ticking clock: escalation,
   a tier switch, tokens from two tiers, nothing built;
-* the serve CLI: the reference's ``ap.error`` rules, ``--check`` refused,
-  ``--trace`` writing a trace that validates, ``run_oneshot``'s tokens
-  equal to the reference's."""
+* shedding: the reference sheds requests before they arrive (ROADMAP
+  C14, pinned), the port only arrived ones, serving the same tokens;
+* the serve CLI: the reference's ``ap.error`` rules, ``--check`` refusing
+  to serve under a table the checker rejects and passing a clean run,
+  ``--arrival-gap``, ``--trace`` writing a trace that validates,
+  ``run_oneshot``'s tokens equal to the reference's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -342,40 +345,68 @@ def test_controller_drives_tiers_on_a_ticking_clock(dense):
     assert met.tokens_by_tier == eng.tokens_by_tier
 
 
-def test_shed_counts_requests_not_yet_arrived_as_the_reference_does(dense):
-    """ROADMAP C14, a fault carried from the reference: under ``slo=`` the
-    controller reads ``len(queue)`` and ``RequestQueue.shed`` drops the
-    newest arrivals first, and both count requests whose ``arrival_time``
-    is still ahead, so a trace submitted whole sheds work before it
-    arrives.  One request due now and eight due in 1000 s on a frozen
-    clock (one slot: the queue past ``queue_high`` keeps every step hot):
-    both engines shed the same six future requests, each finished before
-    its arrival, and serve the rest with the same tokens.  A fix (count
-    only arrived work) changes this test with the engine."""
-    jcfg, tcfg, jp, tp = dense
+def _shed_trace(vocab, arrival: float):
+    """One request due now and eight due at ``arrival``."""
     rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, jcfg.vocab, 8, dtype=np.int32)
-               for _ in range(9)]
-    arrivals = [0.0] + [1000.0] * 8
-    kw = dict(max_slots=1, max_seq_len=24, decode_chunk=4,
-              clock=lambda: 0.0)
-    jeng = JEngine(jp, jcfg, slo=JSLOConfig(tpot_ms=50.0), **kw)
-    eng = ServeEngine(tp, tcfg, slo=SLOConfig(tpot_ms=50.0), device="cpu",
-                      **kw)
+    prompts = [rng.integers(0, vocab, 8, dtype=np.int32) for _ in range(9)]
+    return list(zip(prompts, [0.0] + [arrival] * 8))
+
+
+_SHED_KW = dict(max_slots=1, max_seq_len=24, decode_chunk=4)
+
+
+def test_shed_before_arrival_fault_of_the_reference(dense):
+    """ROADMAP C14, a fault of the reference's (the port does not share
+    it: :func:`test_shed_only_arrived_requests`): under ``slo=`` its
+    controller reads ``len(queue)`` and ``RequestQueue.shed`` drops the
+    newest arrivals first, and both count requests whose
+    ``arrival_time`` is still ahead, so a trace submitted whole sheds
+    work before it arrives.  One request due now and eight due in 1000 s
+    on a frozen clock (one slot: the queue past ``queue_high`` keeps
+    every step hot): six future requests shed, each finished before its
+    arrival."""
+    jcfg, _, jp, _ = dense
+    jeng = JEngine(jp, jcfg, slo=JSLOConfig(tpot_ms=50.0),
+                   clock=lambda: 0.0, **_SHED_KW)
     want = jeng.run([JRequest(uid=i, prompt=p, max_new_tokens=12,
                               arrival_time=a)
-                     for i, (p, a) in enumerate(zip(prompts, arrivals))])
+                     for i, (p, a) in enumerate(
+                         _shed_trace(jcfg.vocab, 1000.0))])
+    shed = [o for o in want if o.finish_reason == "shed"]
+    assert len(shed) == 6 == jeng.stats["shed"]
+    assert all(o.uid > 0 and o.finish_time < o.arrival_time for o in shed)
+
+
+def test_shed_only_arrived_requests(dense):
+    """The port counts and sheds only requests that have arrived (ROADMAP
+    C2).  The same trace with the eight due at 50 ms, on a clock that
+    steps 1 ms at every read (under a frozen clock they would never
+    arrive): nothing is shed while they are due, what is shed is shed
+    after its arrival, and every request both engines serve (the
+    reference's run of :func:`test_shed_before_arrival_fault_of_the_
+    reference`) has the reference's tokens."""
+    jcfg, tcfg, jp, tp = dense
+    trace = _shed_trace(jcfg.vocab, 1000.0)
+    jeng = JEngine(jp, jcfg, slo=JSLOConfig(tpot_ms=50.0),
+                   clock=lambda: 0.0, **_SHED_KW)
+    want = {o.uid: o for o in jeng.run([
+        JRequest(uid=i, prompt=p, max_new_tokens=12, arrival_time=a)
+        for i, (p, a) in enumerate(trace)])}
+    eng = ServeEngine(tp, tcfg, slo=SLOConfig(tpot_ms=50.0), device="cpu",
+                      clock=_Tick(), **_SHED_KW)
     got = eng.run([Request(uid=i, prompt=p, max_new_tokens=12,
-                           arrival_time=a)
-                   for i, (p, a) in enumerate(zip(prompts, arrivals))])
-    for outs in (want, got):
-        shed = [o for o in outs if o.finish_reason == "shed"]
-        assert len(shed) == 6
-        assert all(o.uid > 0 and o.finish_time < o.arrival_time
-                   for o in shed)
-    assert [(o.uid, o.finish_reason, o.tokens) for o in got] == \
-        [(o.uid, o.finish_reason, o.tokens) for o in want]
-    assert eng.stats["shed"] == jeng.stats["shed"] == 6
+                           arrival_time=0.0 if i == 0 else 0.05)
+                   for i, (p, _) in enumerate(trace)])
+    assert len(got) == 9
+    shed = [o for o in got if o.finish_reason == "shed"]
+    assert shed and eng.stats["shed"] == len(shed)
+    assert all(o.finish_time >= o.arrival_time for o in shed)
+    served = [o for o in got if o.finish_reason == "length"]
+    assert len(served) + len(shed) == 9
+    both = [o for o in served if want[o.uid].finish_reason == "length"]
+    assert len(both) >= 2
+    for o in both:
+        assert o.tokens == want[o.uid].tokens
 
 
 # ---------------------------------------------------------------------------
@@ -396,11 +427,43 @@ def test_cli_refuses_what_the_reference_refuses(argv, capsys):
     assert err.count("error:") == 2
 
 
-def test_cli_refuses_check(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve_cli.main(["--smoke", "--engine", "--check"])
-    assert e.value.code == 2
-    assert "A11" in capsys.readouterr().err
+def test_cli_refuses_check(tmp_path, capsys):
+    """``--check`` refuses to serve when the checker finds an ERROR: a
+    table whose ``gemv_cuda`` entry the f32 decode body cannot take
+    (R6), loaded before the check as the reference orders it."""
+    path = str(tmp_path / "bad.json")
+    TuningTable(device="torch-cpu:cpu",
+                entries={"gemv_cuda": {"rows": 64, "parts": 1}}).save(path)
+    rc = serve_cli.main(["--smoke", "--engine", "--check", "--device",
+                         "cpu", "--tuning-table", path])
+    assert rc == 1
+    out = capsys.readouterr().out
+    assert "error[R6]" in out and "not serving" in out
+    assert "served" not in out.replace("not serving", "")
+
+
+def test_cli_check_passes_and_serves(capsys):
+    """A clean preflight (the serve entry at the check config) prints its
+    summary and the run serves the trace, arrivals spaced by
+    ``--arrival-gap``."""
+    rc = serve_cli.main(["--arch", "bert-base-sten", "--smoke", "--engine",
+                         "--check", "--arrival-gap", "0.01", "--device",
+                         "cpu", "--requests", "4", "--gen-len", "4"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "3 program(s) checked: 0 error(s), 0 warning(s)" in out
+    assert "served 4 requests" in out
+
+
+@pytest.mark.parametrize("gap", [0.0, 0.25])
+def test_make_requests_arrival_gap(gap):
+    """Request i arrives at i * gap, with the reference's prompt lengths
+    (``_make_requests``: stepping down by 2 from ``prompt_len``)."""
+    _, tcfg, _, _ = smoke_setup(False)
+    reqs = serve_cli.make_requests(tcfg, 6, 12, 5, seed=0, arrival_gap=gap)
+    assert [r.arrival_time for r in reqs] == [i * gap for i in range(6)]
+    assert [r.prompt.size for r in reqs] == [12, 10, 8, 6, 12, 10]
+    assert all(r.max_new_tokens == 5 for r in reqs)
 
 
 def test_cli_slo_trace_validates(tmp_path, capsys):
