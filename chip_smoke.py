@@ -103,7 +103,8 @@
    layers, gemma2-9b 10 of 21 pairs, minicpm3-4b 16 of 62,
    moonshot-v1-16b-a3b 24 of 48 (in (h)), mamba2-370m 24 of 48,
    hymba-1.5b 16 of 32, whisper-large-v3 16 + 16 of 32 + 32; every check
-   of each phase still runs, at full width.
+   of each phase still runs, at full width.  Phases (m) and (n) run
+   qwen1.5-4b at 4 layers and (n) moonshot-v1-16b-a3b at 2.
    d. full-width starcoder2-15b (40 layers, d_model 6144, GQA
       48/4 heads, non-gated gelu d_ff 24576, vocab 49152) and gemma2-9b
       (42 layers as 21 local/global pairs, window 4096, softcaps 50 / 30,
@@ -280,6 +281,27 @@
       on the card (R4's capture failing at its host read) yields its
       rule, every clean one none, and ``preflight`` returns 1 on the R1
       trigger.
+   n. distribution (``repro_torch.dist``, ``launch/steps.py``), in a
+      process of its own (``python3 chip_smoke.py --dist``, after (m)),
+      under ``torch.distributed`` with NCCL at world size 1 (its group
+      started from a ``HashStore``; NCCL takes one rank a card) over a
+      (1, 1) ("data", "model") mesh, params as DTensors: (n1) full-width
+      bert-base-sten, bf16, 50% magnitude masks, two sharded train steps
+      at remat "none" (twice) and "full" against the unsharded
+      ``launch/train.py:make_train_step`` (losses and gnorm within 1e-3,
+      weights within 2 lr a step, masks equal; bitwise expected and
+      reported; remat held bitwise where two "none" runs agree bitwise);
+      (n2) qwen1.5-4b at full width, 4 of its 40 layers, 1:4:8 gr64
+      ``attn=True``: the sharded prefill step of [2, 64] prompts and 8
+      sharded decode steps, tokens equal to the unsharded ``prefill`` /
+      ``decode_step``'s and logits under the 5% rule, the GEMV, fused
+      QKV, FFN and SpMM launched through the DTensor boundary (counted
+      from 0 right before); (n3) moonshot-v1-16b-a3b at full width, 2
+      layers: the forward with ``impl="shmap"`` and with
+      ``combine="scatter"`` against gather / pjit under the 5% rule; (n4)
+      the four collectives on NCCL, each bitwise its input (or the
+      ``ef_step`` payload scattered).  Multi-rank results are the CPU
+      tests' (gloo ranks).
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -1729,6 +1751,7 @@ FAMILY_RUNS = {
     "--kvcache": ((), "chip_smoke_kvcache.json"),
     "--slo": ((), "chip_smoke_slo.json"),
     "--check": ((), "chip_smoke_check.json"),
+    "--dist": ((), "chip_smoke_dist.json"),
 }
 #: the depth (decoder layers; whisper's encoder and decoder) at which the
 #: earlier family phases serve their full-width models, so that the whole
@@ -1740,10 +1763,15 @@ FAMILY_RUNS = {
 #: Models not named here run at their published depth.
 #: Phase (m) checks qwen1.5-4b's serve programs at 4 layers: the rules
 #: judge every layer's program alike, and R6 depends on widths alone.
+#: Phase (n) runs qwen1.5-4b's sharded prefill and decode at 4 layers and
+#: moonshot's expert-parallel forward at 2: DTensor dispatches every op
+#: eagerly on the host, the same for every layer, and the phase is to
+#: stay within 45 s.
 PHASE_DEPTH = {"starcoder2-15b": 20, "gemma2-9b": 20, "minicpm3-4b": 16,
                "moonshot-v1-16b-a3b": 24, "mamba2-370m": 24,
                "hymba-1.5b": 16, "whisper-large-v3": (16, 16),
-               "check/qwen1.5-4b": 4}
+               "check/qwen1.5-4b": 4, "dist/qwen1.5-4b": 4,
+               "dist/moonshot-v1-16b-a3b": 2}
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
 #: new tokens; minicpm3's long request: 1024 + 32 tokens
@@ -3625,6 +3653,8 @@ def families_child(flag: str, extra=()) -> int:
         res = slo_phase(card)
     elif flag == "--check":
         res = check_phase(card, float(extra[0]))
+    elif flag == "--dist":
+        res = dist_phase(card)
     else:
         res = {"families": [family_phase(a, smoke, gr, card)
                             for a, smoke, gr in archs]}
@@ -4894,6 +4924,373 @@ def report_check(res, card) -> None:
           f"{m1['wall_s']:.1f}, m2 {m2['wall_s']:.1f}, m3 {m3['wall_s']:.1f}"
           f", m4 {m4['wall_s']:.1f}, m6 {res['m6']['wall_s']:.1f}, m5 wait "
           f"{m5['wait_s']:.1f})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: distribution (DTensor over one card, NCCL at world size 1)
+# ---------------------------------------------------------------------------
+
+#: (n2)'s prompts ([2, 64]: 128 rows a rank, the SpMM) and decode steps
+DIST_PROMPT, DIST_DECODE = 64, 8
+#: (n1)'s steps
+DIST_STEPS = 2
+
+
+def _dist_leaves(tree) -> dict:
+    """{path: whole tensor} of a params tree, DTensors gathered."""
+    from repro_torch.core.layouts import FixedMaskTensor
+
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, FixedMaskTensor):
+            walk(t.val, path + ("val",))
+            walk(t.mask, path + ("mask",))
+        elif hasattr(t, "shape"):
+            out[".".join(path)] = t.full_tensor() if hasattr(
+                t, "full_tensor") else t
+
+    walk(tree, ())
+    return out
+
+
+def _dist_diff(a: dict, b: dict) -> dict:
+    """Largest difference of two {path: tensor} trees, and whether every
+    tensor is bitwise equal; masks must be equal."""
+    import torch
+
+    worst, same = 0.0, True
+    for k, x in a.items():
+        y = b[k]
+        if x.dtype == torch.bool:
+            assert bool((x == y).all()), f"mask {k} differs"
+            continue
+        d = (x.float() - y.float()).abs().max().item()
+        worst, same = max(worst, d), same and bool((x == y).all())
+    return {"max_abs_err": worst, "bitwise": same}
+
+
+def _metric_diff(got: list, want: list) -> dict:
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+              for g, w in zip(got, want) for k in ("loss", "gnorm"))
+    same = all(g[k] == w[k] for g, w in zip(got, want)
+               for k in ("loss", "gnorm"))
+    return {"max_rel_err": rel, "bitwise": same}
+
+
+def dist_train(mesh, rules, device, smoke) -> dict:
+    """(n1): the sharded train step over masked-sparse bert-base-sten, 2
+    steps at remat "none" (twice) and "full", against the port's
+    unsharded step (``launch/train.py:make_train_step``) on the same
+    seeded batches.  Bound: losses and gradient norms within LOSS_RTOL,
+    every weight within 2 lr a step of the unsharded one (the most AdamW
+    moves a weight in a step), masks equal; bitwise is expected and
+    reported."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.dist import distribute_params
+    from repro_torch.launch import steps as dsteps
+    from repro_torch.launch.train import build_sparse_params, make_train_step
+    from repro_torch.models import init_lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = (get_smoke if smoke else get_config)("bert-base-sten")
+    params = build_sparse_params(init_lm(cfg, seed=0, device=device), 0.5)
+    gen = torch.Generator(device=device).manual_seed(31)
+    B, S = (2, 16) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{k: torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=device) for k in ("tokens", "labels")}
+               for _ in range(DIST_STEPS)]
+    opt = AdamWConfig()
+
+    def run(step, p, st, shard):
+        metrics, t0 = [], time.perf_counter()
+        for b in batches:
+            p, st, m = step(p, st, shard(b))
+            metrics.append({k: float(m[k]) for k in ("loss", "gnorm")})
+        torch.cuda.synchronize() if device == "cuda" else None
+        return metrics, _dist_leaves(p), time.perf_counter() - t0
+
+    p = _clone(params)
+    plain = run(make_train_step(cfg, opt), p, adamw_init(p), lambda b: b)
+    del p
+    runs = {}
+    for label, remat in (("none", "none"), ("none_again", "none"),
+                         ("full", "full")):
+        dp = distribute_params(params, mesh, rules)
+        runs[label] = run(dsteps.make_train_step(
+            cfg, opt, dsteps.StepConfig(remat=remat), mesh, rules), dp,
+            adamw_init(dp), lambda b: dsteps.shard_batch(b, mesh, rules))
+        del dp
+    bound = 2 * opt.lr * DIST_STEPS
+    res = {"label": cfg.name, "steps": DIST_STEPS, "batch": [B, S],
+           "param_bound": bound, "loss_rtol": LOSS_RTOL,
+           "plain_s": plain[2], "step_s": {k: v[2] / DIST_STEPS
+                                           for k, v in runs.items()}}
+    for label, (metrics, leaves, _) in runs.items():
+        m, w = _metric_diff(metrics, plain[0]), _dist_diff(leaves, plain[1])
+        assert m["max_rel_err"] <= LOSS_RTOL, (label, m)
+        assert w["max_abs_err"] <= bound, (label, w)
+        res[label] = {"metrics": m, "params": w, "loss": metrics}
+    # remat: bitwise where two runs of "none" agree bitwise
+    twice = _dist_diff(runs["none_again"][1], runs["none"][1])
+    full = _dist_diff(runs["full"][1], runs["none"][1])
+    if twice["bitwise"] and runs["none_again"][0] == runs["none"][0]:
+        res["remat_check"] = "bitwise"
+        assert full["bitwise"] and runs["full"][0] == runs["none"][0], \
+            f"remat full differs from none: {full}"
+    else:
+        res["remat_check"] = "allclose"
+        assert full["max_abs_err"] <= bound, full
+    res["remat_vs_none"] = full
+    res["bitwise"] = all(res[k]["metrics"]["bitwise"]
+                         and res[k]["params"]["bitwise"] for k in runs)
+    return res
+
+
+def dist_serve(mesh, rules, device, smoke) -> dict:
+    """(n2): qwen1.5-4b at full width, ``PHASE_DEPTH["dist/qwen1.5-4b"]``
+    layers, n:m:g 1:4:8 gr64 ``attn=True``: the sharded prefill step of
+    [2, 64] prompts and 8 sharded decode steps against the unsharded
+    ``prefill`` / ``decode_step``: tokens equal, logits under the 5% rule
+    (bitwise expected, reported), and the launches of the sharded run,
+    counted from 0 right before it, with the DTensor boundary's routes."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.dist import distribute_params
+    from repro_torch.launch import steps as dsteps
+    from repro_torch.models import decode_step, init_lm, prefill
+    from repro_torch.serve import sparsify_for_serving
+
+    if smoke:
+        cfg, gr = get_smoke("qwen1.5-4b"), 16
+    else:
+        cfg, gr = dataclasses.replace(
+            get_config("qwen1.5-4b"),
+            n_layers=PHASE_DEPTH["dist/qwen1.5-4b"]), 64
+    params = sparsify_for_serving(init_lm(cfg, seed=0, device=device), 1, 4,
+                                  8, gr=gr, attn=True)
+    gen = torch.Generator(device=device).manual_seed(32)
+    tokens = torch.randint(0, cfg.vocab, (2, DIST_PROMPT), generator=gen,
+                           device=device)
+    S_c = DIST_PROMPT + DIST_DECODE
+    dp = distribute_params(params, mesh, rules)
+    sc = dsteps.StepConfig(remat="none")
+    pre = dsteps.make_prefill_step(cfg, sc, mesh, rules, S_c)
+    dec = dsteps.make_decode_step(cfg, sc, mesh, rules)
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def greedy(pf, step, shard):
+        """Prefill, then greedy decode steps; (logits whole, tokens,
+        seconds)."""
+        t0 = time.perf_counter()
+        logits, cache = pf(shard({"tokens": tokens})["tokens"])
+        out, toks = [full(logits)], []
+        for i in range(DIST_DECODE):
+            tok = out[-1].argmax(-1)[:, None].int()
+            toks.append(tok)
+            logits, cache = step(cache, shard({"t": tok})["t"],
+                                 DIST_PROMPT + i)
+            out.append(full(logits))
+        torch.cuda.synchronize() if device == "cuda" else None
+        return out, toks, time.perf_counter() - t0
+
+    reset_counts()
+    got = greedy(lambda t: pre(dp, {"tokens": t}),
+                 lambda c, t, pos: dec(dp, c, t, pos),
+                 lambda b: dsteps.shard_batch(b, mesh, rules))
+    counts = read_counts()
+    want = greedy(lambda t: prefill(params, cfg, t, S_c),
+                  lambda c, t, pos: decode_step(params, cfg, t, c, pos),
+                  lambda b: b)
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), \
+        "sharded tokens differ from the unsharded run"
+    held = hold_logits(list(zip(got[0], want[0])))
+    routes = {k: v for k, v in counts["routes"].items() if "dtensor" in k}
+    if device == "cuda":
+        for k in KERNELS:
+            assert counts[k] > 0, f"{k} never launched on the sharded path"
+    for k in KERNELS:
+        assert sum(v for r, v in routes.items()
+                   if r.startswith(k + "/")) > 0, f"{k}: no boundary call"
+    return {"label": cfg.name, "layers": cfg.n_layers, "gr": gr,
+            "logits": held, "bitwise": all(
+                torch.equal(a, b) for a, b in zip(got[0], want[0])),
+            "counts": {k: counts[k] for k in KERNELS}, "routes": routes,
+            "sharded_s": got[2], "plain_s": want[2]}
+
+
+def dist_moe(mesh, rules, device, smoke) -> dict:
+    """(n3): moonshot-v1-16b-a3b at full width, its first
+    ``PHASE_DEPTH["dist/moonshot-v1-16b-a3b"]`` layers: the forward's
+    logits with ``impl="shmap"`` on DTensor params under the mesh, and
+    with ``combine="scatter"`` on one device, each against the gather /
+    pjit forward, under the MoE checks' 5% logit rule (bitwise
+    reported)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.dist import distribute_params, use_rules
+    from repro_torch.launch.steps import shard_batch
+    from repro_torch.models import forward, init_lm, logits_of
+
+    base = (get_smoke if smoke else get_config)("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(
+        base, n_layers=PHASE_DEPTH["dist/moonshot-v1-16b-a3b"])
+    params = init_lm(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(33)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=gen,
+                           device=device)
+
+    def moe_cfg(**kw):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                **kw))
+
+    with torch.no_grad():
+        want = logits_of(params, cfg, forward(params, cfg, tokens))
+        dp = distribute_params(params, mesh, rules)
+        shm = moe_cfg(impl="shmap")
+        with use_rules(mesh, rules), implicit_replication():
+            td = shard_batch({"t": tokens}, mesh, rules)["t"]
+            shmap = logits_of(dp, shm, forward(dp, shm, td)).full_tensor()
+        del dp
+        sca = moe_cfg(combine="scatter")
+        scatter = logits_of(params, sca, forward(params, sca, tokens))
+    out = {"label": cfg.name, "layers": cfg.n_layers}
+    for name, got in (("shmap", shmap), ("scatter", scatter)):
+        out[name] = {**hold_logits([(got[:, i], want[:, i])
+                                    for i in range(got.shape[1])]),
+                     "bitwise": bool(torch.equal(got, want))}
+    return out
+
+
+def dist_collectives(mesh, device) -> dict:
+    """(n4): the collectives over "data" at world size 1: each equals its
+    input (the mean of one rank's contribution), and the compressed
+    all-reduce the ``ef_step`` payload scattered; bitwise."""
+    import torch
+
+    from repro_torch.core.layouts import FixedMaskTensor
+    from repro_torch.dist import allreduce_mean, compressed_allreduce, \
+        densify_allreduce_resparsify, ef_step, fixed_mask_value_allreduce
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    x = torch.randn((1024, 1024), generator=gen, device=device)
+    mask = torch.rand((1024, 1024), generator=gen, device=device) < 0.25
+    g = FixedMaskTensor(x, mask)
+    (vals, idx), mem = ef_step(x, torch.zeros_like(x), k_fraction=0.1)
+    scattered = torch.zeros(x.numel(), device=device).index_put_(
+        (idx.long(),), vals).reshape(x.shape)
+    checks = {
+        "allreduce_mean": (lambda: allreduce_mean(x, mesh, "data"), x),
+        "fixed_mask_value_allreduce": (lambda: fixed_mask_value_allreduce(
+            g, mesh, "data").to_dense(), g.to_dense()),
+        "densify_allreduce_resparsify": (
+            lambda: densify_allreduce_resparsify(g, mesh, "data").to_dense(),
+            g.to_dense()),
+        "compressed_allreduce": (lambda: compressed_allreduce(
+            vals, idx, x.shape, mesh, "data"), scattered),
+    }
+    out = {"ef_complement": bool(torch.equal(scattered + mem, x))}
+    assert out["ef_complement"]
+    for name, (fn, want) in checks.items():
+        got = fn()
+        torch.cuda.synchronize() if device == "cuda" else None
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize() if device == "cuda" else None
+        out[name] = {"bitwise": bool(torch.equal(got, want)),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3}
+        assert out[name]["bitwise"], f"{name} differs from its input"
+    return out
+
+
+def dist_phase(card: str, device: str = "cuda", smoke: bool = False) -> dict:
+    """Phase 3n (``python3 chip_smoke.py --dist``): the sharded steps,
+    the expert-parallel MoE and the collectives under ``torch.distributed``
+    at world size 1 (NCCL on the card: NCCL takes one rank a card), its
+    process group started here from a ``HashStore``, over a (1, 1) mesh.
+    That drives DTensor's dispatch, the kernels' DTensor boundary and
+    NCCL's setup, and no real collective; multi-rank results are the CPU
+    tests' (``tests/test_torch_dist_*``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import ShardingRules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    backend = "nccl" if device == "cuda" else "gloo"
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=device)
+        rules = ShardingRules()
+        res = {"backend": backend, "world_size": dist.get_world_size(),
+               "cards": torch.cuda.device_count() if device == "cuda" else 0}
+        walls = {}
+        for key, fn in (("n1", lambda: dist_train(mesh, rules, device, smoke)),
+                        ("n2", lambda: dist_serve(mesh, rules, device, smoke)),
+                        ("n3", lambda: dist_moe(mesh, rules, device, smoke)),
+                        ("n4", lambda: dist_collectives(mesh, device))):
+            t = time.perf_counter()
+            res[key] = fn()
+            walls[key] = time.perf_counter() - t
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        res["walls_s"] = walls
+    finally:
+        dist.destroy_process_group()
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def report_dist(res, card) -> None:
+    n1, n2, n3, n4 = (res[k] for k in ("n1", "n2", "n3", "n4"))
+    w = res["walls_s"]
+    print(f"dist (n1) on {card}: {n1['label']} masked 50%, "
+          f"{n1['steps']} sharded steps at batch {n1['batch']} on a (1, 1) "
+          f"mesh ({res['backend']}, world size {res['world_size']}) against "
+          f"the unsharded step: loss/gnorm max rel err "
+          f"{max(n1[k]['metrics']['max_rel_err'] for k in ('none', 'full')):.3e}"
+          f" (bound {n1['loss_rtol']}), params max abs err "
+          f"{max(n1[k]['params']['max_abs_err'] for k in ('none', 'full')):.3e}"
+          f" (bound {n1['param_bound']:.1e}), bitwise "
+          f"{'met' if n1['bitwise'] else 'NOT met'}; remat full vs none "
+          f"{n1['remat_check']} ({n1['remat_vs_none']}); step "
+          f"{ {k: round(v, 3) for k, v in n1['step_s'].items()} } s sharded, "
+          f"{n1['plain_s'] / n1['steps']:.3f} s unsharded")
+    print(f"dist (n2): {n2['label']} {n2['layers']} layers "
+          f"(PHASE_DEPTH['dist/qwen1.5-4b']), 1:4:8 gr{n2['gr']} attn=True: "
+          f"sharded prefill [2, {DIST_PROMPT}] + {DIST_DECODE} decode steps, "
+          f"tokens equal, logits max abs err {n2['logits']['max_abs_err']:.3e}"
+          f" (tol {n2['logits']['tol']:.3e}), bitwise "
+          f"{'met' if n2['bitwise'] else 'NOT met'}; launches {n2['counts']},"
+          f" boundary {n2['routes']}; {n2['sharded_s']:.2f} s sharded, "
+          f"{n2['plain_s']:.2f} s unsharded")
+    print(f"dist (n3): {n3['label']} {n3['layers']} layers "
+          f"(PHASE_DEPTH['dist/moonshot-v1-16b-a3b']): shmap logits max abs "
+          f"err {n3['shmap']['max_abs_err']:.3e}, scatter "
+          f"{n3['scatter']['max_abs_err']:.3e} (tol "
+          f"{n3['shmap']['tol']:.3e}), bitwise shmap "
+          f"{n3['shmap']['bitwise']} scatter {n3['scatter']['bitwise']}")
+    print(f"dist (n4): " + ", ".join(
+        f"{k} bitwise {v['bitwise']} {v['wall_ms']:.3f} ms"
+        for k, v in n4.items() if isinstance(v, dict)))
+    print(f"dist phase on {card}: {res['phase_s']:.1f} s in its process "
+          f"(n1 {w['n1']:.1f}, n2 {w['n2']:.1f}, n3 {w['n3']:.1f}, n4 "
+          f"{w['n4']:.1f}); {res['cards']} card(s) visible", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -6380,12 +6777,16 @@ def main() -> int:
     chk["held_main"] = len(R6_HELD)
     assert chk["held_main"] > 0, "no kernel-phase case held to R6"
     report_check(chk, card)
+    # (n) distribution: the sharded steps over DTensor, NCCL at world 1
+    dst = run_families("--dist", 240)
+    report_dist(dst, card)
     all_fams = (fam["families"] + vlm["families"] + moe["families"]
                 + ssm["families"] + encdec["families"])
     fam_counts = {r["label"]: r["counts"] for f in all_fams
                   for r in f["runs"] if r["label"].endswith("_sparse")}
     fam_counts.update(kvc["counts"])
     fam_counts["qwen_slo"] = slo["l1"]["counts"]
+    fam_counts["qwen_dist"] = dst["n2"]["counts"]
     for r in tune["serve"]:
         report_tuned(r, card)
     tune["wall_s"] = tune_s + sum(r["wall_s"] for r in tune["serve"])
@@ -6448,7 +6849,7 @@ def main() -> int:
         "graphs": graphs + q_graphs, "prefill": prefills,
         "train": train, "ckpt": ckpt, "families": fam, "vlm_mla": vlm,
         "moe": moe, "ssm": ssm, "encdec": encdec, "kvcache": kvc,
-        "slo": slo, "check": chk, "r6_held": R6_HELD,
+        "slo": slo, "check": chk, "dist": dst, "r6_held": R6_HELD,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
         "kernels": kernels, "wall_s": time.perf_counter() - t_start},
@@ -6546,6 +6947,18 @@ def main() -> int:
             "warm_s": round(slo["warm_s"], 1),
             "pool_mib": {k: round(v, 1) for k, v in slo["pool_mib"].items()},
             "wall_s": round(slo["wall_s"], 1)},
+        "dist": {
+            "n1_bitwise": dst["n1"]["bitwise"],
+            "n1_params_max_abs_err": max(dst["n1"][k]["params"]["max_abs_err"]
+                                         for k in ("none", "full")),
+            "n1_remat_check": dst["n1"]["remat_check"],
+            "n2_logit_err": dst["n2"]["logits"]["max_abs_err"],
+            "n2_bitwise": dst["n2"]["bitwise"],
+            "n2_launches": dst["n2"]["counts"],
+            "n2_boundary": dst["n2"]["routes"],
+            "n3_logit_err": {k: dst["n3"][k]["max_abs_err"]
+                             for k in ("shmap", "scatter")},
+            "phase_s": round(dst["phase_s"], 1)},
         "check": {
             "r6_held": chk["held_main"],
             "qwen_diagnostics": chk["m3"]["diagnostics_per_rule"],

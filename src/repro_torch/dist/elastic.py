@@ -1,8 +1,14 @@
-"""Straggler watchdog (port of ``repro/dist/elastic.py:StragglerWatchdog``):
-per-host step-time tracking that flags hosts running persistently slower
-than the others, the trigger for evicting a sick host and re-meshing.
-Plain Python, run by the controller between steps.  The reference's
-``plan_remesh`` is not ported yet (it waits for the port's mesh).
+"""Elasticity primitives of the training loop (port of
+``repro/dist/elastic.py``):
+
+  * :class:`StragglerWatchdog` — per-host step-time tracking that flags
+    hosts running persistently slower than the others, the trigger for
+    evicting a sick host and re-meshing;
+  * :func:`plan_remesh` — the largest ``(data, model)`` mesh shape on the
+    surviving chips that keeps the model-parallel degree (the shape that
+    ``launch/mesh.py:make_host_mesh`` then builds).
+
+Plain Python, run by the controller between steps.
 """
 
 from __future__ import annotations
@@ -11,7 +17,23 @@ import statistics
 from collections import deque
 from typing import Deque, List
 
-__all__ = ["StragglerWatchdog"]
+__all__ = ["StragglerWatchdog", "plan_remesh"]
+
+
+def plan_remesh(n_chips: int, model_parallel: int):
+    """Largest ``(data, model)`` mesh shape on ``n_chips`` surviving chips.
+
+    Keeps ``model_parallel`` fixed (param shards must stay whole) and
+    floors the data-parallel degree; chips beyond ``data * model`` idle
+    until the fleet heals.  Raises ``ValueError`` when fewer chips survive
+    than one model-parallel group needs.
+    """
+    if n_chips < model_parallel:
+        raise ValueError(
+            f"cannot remesh: {n_chips} chips < model_parallel="
+            f"{model_parallel} (one full model shard group is required)"
+        )
+    return (n_chips // model_parallel, model_parallel)
 
 
 class StragglerWatchdog:

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _trace
+from repro_torch.kernels import _dtensor, _trace
 
 __all__ = ["matmul_threshold", "matmul_threshold_plain", "MatmulThreshold"]
 
@@ -121,7 +121,14 @@ def matmul_threshold(a: torch.Tensor, b: torch.Tensor,
                      threshold: float) -> tuple:
     """(val f32 [M, N], bool mask [M, N]) of ``A @ B`` thresholded at
     ``|y| >= threshold``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors; differentiable in ``a`` and ``b``."""
+    version for CPU tensors; differentiable in ``a`` and ``b``.  DTensor
+    operands cross ``kernels/_dtensor.py``'s boundary (A's rows stay
+    sharded; B is made whole, its gradient summed over the row
+    shards)."""
+    if _dtensor.any_dtensor(a, b):
+        al, (bl,), loc = _dtensor.localize("matmul_threshold", a, (0,), (b,))
+        val, mask = matmul_threshold(al, bl, threshold)
+        return loc.wrap(val, {0: 0}), loc.wrap(mask, {0: 0})
     if _trace.RECORDER is not None:
         return _trace.as_node("matmul_threshold", (a, b), matmul_threshold,
                               a, b, threshold)

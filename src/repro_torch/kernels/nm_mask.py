@@ -31,7 +31,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _trace
+from repro_torch.kernels import _dtensor, _trace
 
 __all__ = ["nm_mask", "nm_mask_plain", "nm_mask_plan"]
 
@@ -109,7 +109,13 @@ def _launch(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
 
 def nm_mask(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     """Bool keep mask of per-m-block top-n along the last axis: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors.  A
+    DTensor crosses ``kernels/_dtensor.py``'s boundary: shards of the
+    leading dims stay, a sharded last axis (m-blocks across ranks) is
+    gathered and the mask re-sharded."""
+    if _dtensor.any_dtensor(x):
+        xl, _, loc = _dtensor.localize("nm_mask", x, tuple(range(x.ndim - 1)))
+        return loc.wrap(nm_mask(xl, n, m), {d: d for d in range(x.ndim)})
     if _trace.RECORDER is not None:
         return _trace.as_node("nm_mask", (x,), nm_mask, x, n, m)
     if x.device.type == "cpu":

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as nnf
 
 from repro_torch.core.layouts import GroupedNMTensor
-from repro_torch.kernels import _trace
+from repro_torch.kernels import _dtensor, _trace
 from repro_torch.kernels.nmg_gemv import MAX_M, _DTYPE_CODE, _pad_rows, \
     check_operands, chunk_geometry, gemv_launch, nmg_gemv_plain, row_plan
 
@@ -123,7 +123,13 @@ def nmg_qkv(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
     """Every weight of ``ws`` against one decode-shaped B[K, M] in one
     launch: the CUDA GEMV kernel over up to three segments for CUDA
     tensors, the plain version for CPU tensors.  ``config`` is
-    :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s."""
+    :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s.  DTensor operands
+    cross ``kernels/_dtensor.py``'s boundary."""
+    if _dtensor.any_dtensor(ws, b):
+        bl, wl, loc = _dtensor.localize("nmg_qkv", b, (1,), tuple(ws))
+        outs = nmg_qkv(wl, bl, out_dtype=out_dtype,
+                       transpose_out=transpose_out, config=config)
+        return tuple(loc.wrap(o, {1: int(not transpose_out)}) for o in outs)
     if _trace.RECORDER is not None:
         operands = [t for w in ws for t in (w.val, w.gather_plan().cols)]
         return _trace.as_node(
@@ -164,7 +170,13 @@ def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
     card, the plain version when both lie on the CPU.  A weight that
     :func:`fusable_ffn` rejects raises.  ``config`` is
     :func:`~repro_torch.kernels.nmg_gemv.row_plan`'s (the GEMV's at the
-    same K, format, gr and dtype)."""
+    same K, format, gr and dtype).  DTensor operands cross
+    ``kernels/_dtensor.py``'s boundary."""
+    if _dtensor.any_dtensor(w, b):
+        bl, (wl,), loc = _dtensor.localize("nmg_ffn", b, (1,), (w,))
+        return loc.wrap(nmg_ffn(wl, bl, act=act, out_dtype=out_dtype,
+                                transpose_out=transpose_out, config=config),
+                        {1: int(not transpose_out)})
     if _trace.RECORDER is not None:
         return _trace.as_node(
             "nmg_ffn", (w.val, w.gather_plan().cols, b), nmg_ffn, w, b,

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layouts import GroupedNMTensor
-from repro_torch.kernels import _trace
+from repro_torch.kernels import _dtensor, _trace
 
 __all__ = ["nmg_gemv", "nmg_gemv_plain", "gemv_launch", "MAX_M",
            "RowPlan", "row_plan", "tc_parts_choices", "chunk_geometry"]
@@ -251,7 +251,14 @@ def nmg_gemv(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
              max_m=MAX_M) -> torch.Tensor:
     """C = A_canonical @ B for narrow B: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  ``config`` is :func:`row_plan`'s;
-    ``max_m=None`` takes any width (16 columns at a time)."""
+    ``max_m=None`` takes any width (16 columns at a time).  DTensor
+    operands cross ``kernels/_dtensor.py``'s boundary (B's columns are
+    the rows it keeps sharded)."""
+    if _dtensor.any_dtensor(a, b):
+        bl, (al,), loc = _dtensor.localize("nmg_gemv", b, (1,), (a,))
+        return loc.wrap(nmg_gemv(al, bl, out_dtype=out_dtype,
+                                 transpose_out=transpose_out, config=config,
+                                 max_m=max_m), {1: int(not transpose_out)})
     if _trace.RECORDER is not None:
         return _trace.as_node(
             "nmg_gemv", (a.val, a.gather_plan().cols, b), nmg_gemv, a, b,

@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.layouts import GroupedNMTensor
-from repro_torch.kernels import _trace
+from repro_torch.kernels import _dtensor, _trace
 from repro_torch.kernels.nmg_gemv import _DTYPE_CODE, _pad_rows, \
     check_operands, gemv_launch
 from repro_torch.tune import routing
@@ -103,7 +103,14 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
     ``transpose_out``.  ``splits`` (a tuning table's ``spmm_cuda``
     entry) is the kernel's K split count, None for the shape's own; one
     the kernel cannot take raises, as does any on the GEMV route of gr
-    not a multiple of 64."""
+    not a multiple of 64.  DTensor operands cross
+    ``kernels/_dtensor.py``'s boundary (B's columns are the rows it keeps
+    sharded)."""
+    if _dtensor.any_dtensor(a, b):
+        bl, (al,), loc = _dtensor.localize("nmg_spmm", b, (1,), (a,))
+        return loc.wrap(nmg_spmm(al, bl, out_dtype=out_dtype,
+                                 transpose_out=transpose_out, splits=splits),
+                        {1: int(not transpose_out)})
     if _trace.RECORDER is not None:
         return _trace.as_node(
             "nmg_spmm", (a.val, a.gather_plan().cols, b), nmg_spmm, a, b,

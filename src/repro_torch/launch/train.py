@@ -99,8 +99,9 @@ def _batch_on(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def loss_and_grads(params, cfg, batch):
-    """(loss, aux, grads): one forward and backward.  ``grads`` mirrors
+def loss_and_grads(params, cfg, batch, **loss_kw):
+    """(loss, aux, grads): one forward and backward (``loss_kw`` to
+    ``loss_fn``: ``remat``, ``aux_weight``).  ``grads`` mirrors
     ``params`` with one tensor per trainable leaf (a layout's is the
     gradient of its value tensor: a ``FixedMaskTensor``'s ``val``, masked
     by the product) and None elsewhere."""
@@ -114,7 +115,7 @@ def loss_and_grads(params, cfg, batch):
         leaves.append(t)
         return with_values(p, t)
 
-    loss, aux = loss_fn(tree_map(with_grad, params), cfg, batch)
+    loss, aux = loss_fn(tree_map(with_grad, params), cfg, batch, **loss_kw)
     it = iter(torch.autograd.grad(loss, leaves))
     grads = tree_map(lambda p: None if trainable(p) is None else next(it),
                      params)

@@ -10,6 +10,15 @@ instead of the reference's online softmax over key chunks, which differs
 from it only by summation order.  MLA's dense projections are plain
 products (``mm``; only ``wo`` is converted for serving), and its latent
 einsums run in f32, as the reference computes them.
+
+Under a mesh, q, k and v may be DTensors.  :func:`chunked_attention` and
+:func:`decode_attention` then run on each rank's shard of the batch and
+heads (:func:`_on_local_heads`, the counterpart of the reference's GSPMD
+partitioning of those einsums): a rank's query heads read its own key /
+value heads when both head counts divide over the mesh dims that shard
+them, and anything else (a sequence-sharded decode cache, heads that do
+not divide) is gathered first.  Each (batch row, head) is computed alone,
+so the result is the unsharded one.
 """
 
 from __future__ import annotations
@@ -26,6 +35,12 @@ __all__ = ["pos_vec", "rope", "chunked_attention", "decode_attention",
            "init_gqa", "apply_gqa", "init_mla", "apply_mla", "decode_mla"]
 
 NEG_INF = -1e30
+
+
+def _is_dt(x) -> bool:
+    from repro_torch.dist.sharding import is_dtensor
+
+    return is_dtensor(x)
 
 
 def pos_vec(pos, B: int, device=None) -> torch.Tensor:
@@ -56,6 +71,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def _on_local_heads(fn, q, kv: tuple, per_row: tuple, **kw):
+    """``fn(q, *kv, *per_row, **kw)`` on this rank's batch rows and heads
+    of DTensor ``q`` [B, Sq, H, hd] and ``kv`` ([B, Sk, KV, ...]), its
+    result a DTensor [B, Sq, H, hdv] on the same mesh.  Batch shards of
+    ``q`` are kept, head shards where H and KV both divide over them;
+    every other dim is gathered.  ``per_row`` entries of B rows (cache
+    lengths) are sliced to the rank's rows; scalars pass."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.sharding import from_local, local_range, \
+        local_shard
+
+    mesh = q.device_mesh
+    want = [p if p.is_shard() and p.dim in (0, 2) else Replicate()
+            for p in q.placements]
+    n_heads = math.prod(mesh.size(i) for i, p in enumerate(want)
+                        if p.is_shard() and p.dim == 2)
+    if q.shape[2] % n_heads or kv[0].shape[2] % n_heads:
+        want = [Replicate() if p == Shard(2) else p for p in want]
+    want = tuple(want)
+    qd = q.redistribute(mesh, want)
+    b0, nb = local_range(qd, 0)
+    rows = [r[b0:b0 + nb] if torch.is_tensor(r) and r.ndim
+            and r.shape[0] == q.shape[0] else r for r in per_row]
+    out = fn(qd.to_local(), *(local_shard(t, mesh, want) for t in kv),
+             *rows, **kw)
+    return from_local(out, mesh, want, (*q.shape[:3], out.shape[-1]))
+
+
 def _block_mask(qpos, kpos, *, causal: bool, window: Optional[int],
                 prefix_len: int) -> torch.Tensor:
     """qpos [cq], kpos [ck] -> bool [cq, ck] (True = visible)."""
@@ -83,6 +127,11 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     query (the prefix-LM mask, bidirectional over the prefix);
     ``softcap`` c maps each score s to c·tanh(s/c) before the mask.
     Returns [B, Sq, H, hdv] in q.dtype."""
+    if type(q) is not torch.Tensor and _is_dt(q):
+        return _on_local_heads(
+            chunked_attention, q, (k, v), (), causal=causal, window=window,
+            prefix_len=prefix_len, softcap=softcap, chunk_q=chunk_q,
+            q_offset=q_offset, compute_dtype=compute_dtype)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -115,6 +164,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     last ``window`` valid rows are attended (a local layer over a
     full-length cache); a ring's window is its length
     (``models/transformer.py:init_cache``)."""
+    if type(q) is not torch.Tensor and _is_dt(q):
+        return _on_local_heads(decode_attention, q, (k_cache, v_cache),
+                               (cache_len,), softcap=softcap, window=window)
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV

@@ -6,8 +6,9 @@
 The port runs its decoder subset: GQA or MLA (multi-head latent)
 attention, a Mamba2 SSD mixer alone (``attn_type "none"``) or beside GQA
 attention (``"hybrid"``, hymba; ``models/ssm.py``), plain or gated MLP or
-a mixture of experts (``models/moe.py``, one device: the ``pjit``
-implementation with the ``gather`` or ``replicated`` combine), with or
+a mixture of experts (``models/moe.py``: the ``pjit`` and the
+expert-parallel ``shmap`` implementations, with the ``gather``,
+``replicated`` or ``scatter`` combine), with or
 without QKV bias and the MLP's inline threshold, global layers, all-local
 layers or alternating local/global layer pairs with a sliding window,
 attention and logit softcaps, post-norms, a tied or separate head, and a
@@ -18,8 +19,8 @@ global layers), with a KV cache in the model dtype or in any of
 :data:`KV_CACHE_DTYPES` (int8 among them).
 :meth:`ModelConfig.check_ported` raises ``NotImplementedError`` for the
 other families (enc-dec beside anything but whisper's shape, a KV cache
-dtype outside :data:`KV_CACHE_DTYPES`) and for the expert-parallel MoE
-strategies (``impl="shmap"``, ``combine="scatter"``).
+dtype outside :data:`KV_CACHE_DTYPES`) and for a MoE ``impl`` or
+``combine`` the reference does not have.
 """
 
 from __future__ import annotations
@@ -219,9 +220,10 @@ class ModelConfig:
         a KV cache stored in the model dtype, in int8 (``kv_cache_dtype
         "int8"``, the reference's static-scale quantizer) or in one of
         :data:`KV_CACHE_DTYPES` (any other name is refused by a message
-        that names it).  ``impl="shmap"`` and
-        ``combine="scatter"`` are expert-parallel sharding strategies:
-        they wait for distribution."""
+        that names it).  Every MoE strategy of the reference is ported:
+        ``impl="pjit"`` or ``"shmap"`` (expert parallelism over the
+        "model" axis of an active mesh, and ``apply_moe`` without one)
+        with the ``gather``, ``replicated`` or ``scatter`` combine."""
         moe, encdec = self.moe, self.n_enc_layers > 0
         unported = {
             "attn_type not in ('gqa', 'mla', 'none', 'hybrid')":
@@ -230,11 +232,12 @@ class ModelConfig:
                 self.attn_type == "mla" and self.mla is None,
             "moe without a MoEConfig":
                 moe is not None and not isinstance(moe, MoEConfig),
-            "moe impl 'shmap' (expert parallelism across devices)":
-                isinstance(moe, MoEConfig) and moe.impl != "pjit",
-            "moe combine 'scatter' (an expert-parallel combine)":
+            f"moe impl {getattr(moe, 'impl', None)!r}":
                 isinstance(moe, MoEConfig)
-                and moe.combine not in ("gather", "replicated"),
+                and moe.impl not in ("pjit", "shmap"),
+            f"moe combine {getattr(moe, 'combine', None)!r}":
+                isinstance(moe, MoEConfig)
+                and moe.combine not in ("gather", "replicated", "scatter"),
             "ssm without an SSMConfig":
                 self.ssm is not None and not isinstance(self.ssm, SSMConfig),
             "attn_type 'none' / 'hybrid' without an SSMConfig":

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN with capacity-buffer dispatch (port of
-``init_moe`` and ``apply_moe`` in ``repro/models/moe.py``; the
-expert-parallel ``apply_moe_shmap`` waits for distribution).
+``repro/models/moe.py``: ``init_moe``, ``apply_moe`` with its three
+combines, and the expert-parallel ``apply_moe_shmap``).
 
 Step for step as the reference: an f32 router and its softmax, the top-k
 experts of each token with their gates renormalised, the Switch-style
@@ -31,6 +31,23 @@ What the port adds, and why:
   ``[T, k, D].sum(1)``, a fixed order, not with float atomics: a replay
   equals the eager run bit for bit.
 
+The ``scatter`` combine is the reference's reverse dispatch: each kept
+slot's token and gate are written into [E, cap + 1] tables whose row
+``cap`` is a sink for every slot past capacity (the reference's
+``mode="drop"``: the pattern the paged pool uses, ROADMAP C2), and the
+expert rows, weighted, are added into [T, D] by token.  On the CPU the
+adds run in row order; on the card ``index_add_`` adds with atomics, so
+the scatter combine's last bits may move from run to run there, unlike
+the gather combine's.  The four ``logical_constraint`` sites are the
+reference's; each is the identity on plain tensors.
+
+:func:`apply_moe_shmap` is the reference's expert parallelism without
+token movement: under an active mesh with a "model" axis whose size
+divides E, each rank routes its local tokens, runs its ``E / ep``
+experts on ``to_local`` shards and the partial outputs are summed over
+"model" (a functional all-reduce); otherwise it is :func:`apply_moe`,
+as in the reference.
+
 The expert products stay ``torch.bmm``: the reference computes them
 outside any Pallas kernel.  :func:`route_log` records each call's router
 probabilities and expert choice, and replays a recorded choice in
@@ -40,14 +57,18 @@ another run; checks use it to compare two runs on the same routes.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.dist.sharding import active_rules, from_local, \
+    is_dtensor, local_shard, logical_constraint, mesh_axes, placements_of
 from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models.common import ModelConfig, MoEConfig, mm
 
-__all__ = ["init_moe", "apply_moe", "capacity", "route_log", "RouteLog"]
+__all__ = ["init_moe", "apply_moe", "apply_moe_shmap", "capacity",
+           "route_log", "RouteLog"]
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, L: int, device):
@@ -184,26 +205,160 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     dst = flat_e * (cap + 1) + torch.where(keep, pos, cap)
     buf.index_copy_(0, dst, x2[:, None].expand(T, k, D).reshape(T * k, D))
     buf = buf.view(E, cap + 1, D)[:, :cap]
+    buf = logical_constraint(buf, ("expert", None, None))
 
     # the experts as two batched products (the reference's einsums
     # ecd,edf->ecf and ecf,efd->ecd)
     h = _gated(torch.bmm(buf, p["wi"]), cfg)
-    out_buf = torch.bmm(h, p["wo"]).reshape(E * cap, D)
+    out_buf = torch.bmm(h, p["wo"])
+    out_buf = logical_constraint(out_buf, ("expert", None, None))
 
-    # combine (gather; "replicated" is the same on one device): a token's
-    # k slots summed in f32 in slot order
-    src = flat_e * cap + torch.where(keep, pos, cap - 1)
-    slot_out = out_buf.index_select(0, src)
-    slot_out = torch.where(keep[:, None], slot_out,
-                           torch.zeros_like(slot_out))
-    w = (gates.reshape(-1) * keep).float()[:, None]
-    y = (slot_out.float() * w).view(T, k, D).sum(1)
+    if mc.combine == "replicated":
+        out_buf = logical_constraint(out_buf, (None, None, None))
+    if mc.combine == "scatter":
+        y = _scatter_combine(out_buf, flat_e, pos, keep, gates, T, cap)
+    else:
+        # gather ("replicated" is the same on one device): a token's k
+        # slots summed in f32 in slot order
+        src = flat_e * cap + torch.where(keep, pos, cap - 1)
+        slot_out = out_buf.reshape(E * cap, D).index_select(0, src)
+        slot_out = torch.where(keep[:, None], slot_out,
+                               torch.zeros_like(slot_out))
+        w = (gates.reshape(-1) * keep).float()[:, None]
+        y = (slot_out.float() * w).view(T, k, D).sum(1)
 
     if mc.dense_residual:
-        hr = _gated(mm(x2, p["res_wi"]), cfg)
-        y = y + mm(hr, p["res_wo"]).float()
+        y = y + _residual(p, x2, cfg)
 
     if log is not None:
         log.calls.append({"probs": probs.detach(), "eidx": eidx,
                           "keep": keep.view(T, k)})
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _residual(p, x2, cfg: ModelConfig) -> torch.Tensor:
+    """Arctic's dense residual MLP over x2 [T, D], in f32."""
+    hr = _gated(mm(x2, p["res_wi"]), cfg)
+    return mm(hr, p["res_wo"]).float()
+
+
+def _scatter_combine(out_buf, flat_e, pos, keep, gates, T: int, cap: int):
+    """The reference's ``scatter`` combine: each kept slot's token and
+    gate into [E, cap + 1] tables (row ``cap`` the sink of every slot past
+    capacity, the reference's ``mode="drop"``), then the expert rows
+    weighted by their gates added into [T, D] f32 by token (an empty slot
+    adds a zero row to token 0, as in the reference)."""
+    E, _, D = out_buf.shape
+    dst = flat_e * (cap + 1) + torch.where(keep, pos, cap)
+    tok = torch.arange(T, device=out_buf.device).repeat_interleave(
+        flat_e.shape[0] // T)
+    slot_token = torch.zeros(E * (cap + 1), dtype=torch.long,
+                             device=out_buf.device).index_copy_(0, dst, tok)
+    slot_gate = torch.zeros(E * (cap + 1), dtype=torch.float32,
+                            device=out_buf.device).index_copy_(
+        0, dst, (gates.reshape(-1) * keep).float())
+    slot_token = slot_token.view(E, cap + 1)[:, :cap]
+    slot_gate = slot_gate.view(E, cap + 1)[:, :cap]
+    contrib = out_buf.float() * slot_gate[..., None]
+    y = torch.zeros((T, D), dtype=torch.float32, device=out_buf.device)
+    y.index_add_(0, slot_token.reshape(-1), contrib.reshape(E * cap, D))
+    return logical_constraint(y, ("batch", None))
+
+
+def apply_moe_shmap(p, x: torch.Tensor, cfg: ModelConfig):
+    """Expert parallelism with no token movement (the reference's
+    ``apply_moe_shmap``): the batch is replicated over "model", so every
+    model-rank (1) routes its local tokens (the same choice on every
+    rank), (2) dispatches only the slots of its ``E / ep`` experts into a
+    local capacity buffer (``max(8, ...)`` slots, the reference's), (3)
+    runs its experts, (4) combines locally and (5) all-reduces the
+    partial outputs over "model"; the auxiliary loss is averaged over the
+    data-parallel axes.  Arctic's dense residual runs outside, on the
+    sharded params.  Without active rules, without a "model" axis, or
+    when ep does not divide E, it is :func:`apply_moe`, as in the
+    reference.  Returns (out in x.dtype, aux)."""
+    ctx = active_rules()
+    mc: MoEConfig = cfg.moe
+    if ctx is None or "model" not in mesh_axes(ctx[0]):
+        return apply_moe(p, x, cfg)
+    mesh = ctx[0]
+    axes = mesh_axes(mesh)
+    ep = axes["model"]
+    E, k = mc.num_experts, mc.top_k
+    if E % ep != 0:
+        return apply_moe(p, x, cfg)
+    from torch.distributed.tensor import Partial, Replicate
+
+    # the data-parallel axes the batch is sharded over (a plain x, the
+    # same on every rank, is taken whole)
+    dp = tuple(a for a in ("pod", "data") if a in axes) \
+        if is_dtensor(x) else ()
+    E_loc = E // ep
+    B, S, D = x.shape
+    x_pl = placements_of((dp or None,), mesh)
+    w_pl = placements_of(("model",), mesh)
+
+    def part(pl, over):
+        """``pl`` with ``Partial`` on the mesh dims of ``over``: each of
+        their ranks holds part of a gradient (its tokens, its experts)."""
+        return tuple(Partial() if a in over else q
+                     for a, q in zip(axes, pl))
+
+    x_loc = local_shard(x, mesh, x_pl, part(x_pl, ("model",)))
+    router = local_shard(p["router"], mesh, placements_of((), mesh),
+                         part(placements_of((), mesh), dp + ("model",)))
+    wi, wo = (local_shard(p[n], mesh, w_pl, part(w_pl, dp))
+              for n in ("wi", "wo"))
+
+    Bl = x_loc.shape[0]
+    T = Bl * S
+    x2 = x_loc.reshape(T, D)
+    probs = _router_probs(x2, router)
+    gates, eidx = torch.sort(probs, stable=True, dim=-1, descending=True)
+    gates, eidx = gates[:, :k], eidx[:, :k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    assign = torch.zeros((T, E), dtype=torch.int32, device=x2.device)
+    assign.scatter_(1, eidx, 1)
+    aux = E * (probs.mean(0) * (assign.float().mean(0) / k)).sum()
+
+    # this rank's experts: [lo, lo + E_loc)
+    lo = mesh.get_local_rank(list(axes).index("model")) * E_loc
+    flat_e = eidx.reshape(-1)
+    mine = (flat_e >= lo) & (flat_e < lo + E_loc)
+    le = torch.where(mine, flat_e - lo, torch.zeros_like(flat_e))
+    cap = max(8, int(T * k / E * mc.capacity_factor))
+    cap = -(-cap // 8) * 8
+    # rank within the local expert: exclusive cumsum over the slots
+    onehot = torch.nn.functional.one_hot(le, E_loc).int() * mine[:, None]
+    pos = (torch.cumsum(onehot, 0, dtype=torch.int32) - onehot).gather(
+        1, le[:, None])[:, 0]
+    keep = mine & (pos < cap)
+    dst = le * (cap + 1) + torch.where(keep, pos, cap)
+    buf = x2.new_zeros((E_loc * (cap + 1), D))
+    buf.index_copy_(0, dst, x2[:, None].expand(T, k, D).reshape(T * k, D))
+    buf = buf.view(E_loc, cap + 1, D)[:, :cap]
+    h = _gated(torch.bmm(buf, wi), cfg)
+    out_buf = torch.bmm(h, wo).reshape(E_loc * cap, D)
+    src = le * cap + torch.where(keep, pos, torch.zeros_like(pos))
+    slot_out = out_buf.index_select(0, src)
+    slot_out = torch.where(keep[:, None], slot_out,
+                           torch.zeros_like(slot_out))
+    w = (gates.reshape(-1) * keep).float()[:, None]
+    y = (slot_out.float() * w).view(T, k, D).sum(1).reshape(Bl, S, D)
+    # the partial outputs summed over "model", the aux loss averaged over
+    # the data-parallel ranks, as DTensor redistributes (so gradients
+    # flow): every model rank computes the same aux, so each adds 1/ep
+    y = from_local(y, mesh, part(x_pl, ("model",)),
+                   (B, S, D)).redistribute(mesh, x_pl)
+    n = ep * math.prod(axes[a] for a in dp)
+    aux = from_local(aux / n, mesh, part(placements_of((), mesh),
+                                         dp + ("model",)), ()).redistribute(
+        mesh, (Replicate(),) * mesh.ndim)
+    if not is_dtensor(x):
+        y, aux = y.to_local(), aux.to_local()
+    if mc.dense_residual:
+        # the dense residual MLP outside the expert-parallel body, on the
+        # sharded params (the reference keeps it in pjit-land)
+        y = y + _residual(p, x.reshape(-1, D), cfg).reshape(B, S, D)
+    return y.to(x.dtype), aux

@@ -42,7 +42,19 @@ its input itself, so they change nothing then.  With
 ``cfg.mlp_inline_threshold`` the MLP up-projection carries the
 scalar-threshold inline sparsifier: on a dense ``mlp.wi`` it runs the
 fused ``matmul_threshold`` kernel.  ``forward`` and ``loss_fn``
-are autograd-safe (the training path); remat is not ported.
+are autograd-safe (the training path) and take the reference's ``remat``:
+``"full"`` runs each layer body (a pair's two layers, as the reference's
+scan body) under ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, whose recompute gives the same bits as the
+saved activations.  The default is ``"none"`` where the reference's is
+``"full"``: the reference's own trainer and serving pass ``"none"``, and
+only the sharded step programs (``launch/steps.py``) turn it on.
+
+Under an active mesh (``dist/sharding.py:use_rules``) params and
+activations may be DTensors.  The reference's ``logical_constraint``
+sites are here (the encoder's input, the embeddings before the first
+layer, the decode step's token embeddings): on plain tensors, and with
+no rules active, each is the identity.
 
 The KV cache ``{"k", "v"}`` ([L, B, S, KV, hd]; for a pair layout
 ``{"local": {"k", "v"}, "global": {...}}`` on [L/2], the local leaves a
@@ -79,11 +91,14 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.builder import tag
 from repro_torch.core.layouts import FixedMaskTensor, GroupedNMTensor
 from repro_torch.core.sparsifiers import ScalarThresholdSparsifier
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import from_local, is_dtensor, \
+    local_range, local_shard, logical_constraint
 from repro_torch.kernels.nmg_fused import act_fn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -248,8 +263,36 @@ def layer_list(layers) -> list:
     return list(layers.unbind(0))
 
 
+def _lookup(table, tokens) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table (vocab-sharded under the
+    rules) is gathered whole and indexed on each rank's own tokens, the
+    result sharded as the tokens are: every rank's rows, one local
+    gather, and a backward that is the one-card one per rank (its
+    gradient summed over the token shards, then re-sharded as the
+    table).  DTensor's own indexing of the sharded table is not used:
+    torch 2.11 cannot propagate its backward's ``index_put`` (a
+    ``Partial`` gradient)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    whole = table.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    shape = (*tokens.shape, table.shape[1])
+    if not is_dtensor(tokens):
+        return from_local(whole.to_local()[tokens], mesh,
+                          (Replicate(),) * mesh.ndim, shape)
+    rows = tuple(p if p.is_shard() else Replicate()
+                 for p in tokens.placements)
+    tokens = tokens.redistribute(mesh, rows)
+    grads = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    x = whole.to_local(grad_placements=grads)[tokens.to_local()]
+    return from_local(x, mesh, tuple(
+        Shard(p.dim) if p.is_shard() else p for p in rows), shape)
+
+
 def _embed(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    x = params["embedding"][tokens]
+    x = _lookup(params["embedding"], tokens)
     # the scale is rounded to the activation dtype first, then multiplied
     # (one rounding of the exact product, as dtype * dtype would give)
     scale = float(torch.tensor(math.sqrt(1.0 * cfg.d_model),
@@ -329,7 +372,9 @@ def _sublayer_ffn(lp, x, cfg):
         return x, None
     h = _rms(x, lp["ln2"])
     if "moe" in lp:
-        f, aux = moe_mod.apply_moe(lp["moe"], h, cfg)
+        apply = (moe_mod.apply_moe_shmap if cfg.moe.impl == "shmap"
+                 else moe_mod.apply_moe)
+        f, aux = apply(lp["moe"], h, cfg)
         f = tag("mlp.out", f)
         if cfg.post_norms:
             f = _rms(f, lp["post_ln2"])
@@ -356,15 +401,54 @@ def _sublayer_ffn(lp, x, cfg):
     return x + f, None
 
 
-def _run_encoder(params, cfg: ModelConfig, enc_embeds, dtype):
+def _remat(fn, remat: str):
+    """``fn`` as a layer body under ``remat``: ``"none"`` as it is,
+    ``"full"`` recomputed in the backward (non-reentrant checkpoint,
+    while gradients are recorded)."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
+    if remat == "none":
+        return fn
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return body
+
+
+def _enc_layer(lp, e, cfg):
+    e, _ = _sublayer_attn(lp, e, cfg, causal=False)
+    return _sublayer_ffn(lp, e, cfg)[0]
+
+
+def _run_encoder(params, cfg: ModelConfig, enc_embeds, dtype,
+                 remat: str = "none"):
     """The encoder stack over the frames ``enc_embeds`` [B, F, D], cast to
     the activation dtype (no embedding scale): every ``enc_layers`` layer
     non-causal, then ``enc_norm`` (the reference's ``_run_encoder``)."""
-    e = enc_embeds.to(dtype)
+    e = logical_constraint(enc_embeds.to(dtype), ("batch", "seq", None))
+    body = _remat(functools.partial(_enc_layer, cfg=cfg), remat)
     for lp in layer_list(params["enc_layers"]):
-        e, _ = _sublayer_attn(lp, e, cfg, causal=False)
-        e, _ = _sublayer_ffn(lp, e, cfg)
+        e = body(lp, e)
     return _rms(e, params["enc_norm"])
+
+
+def _dec_body(lps, x, *, cfg, groups, prefix_len, collect, enc_out):
+    """One scan step of the decoder: the layers of ``lps`` (one, or a
+    pair's local and global) in order.  Returns (x, the body's summed
+    MoE auxiliary loss or None, {group: cache contribution})."""
+    aux, cs = None, {}
+    for g, lp in zip(groups, lps):
+        x, c = _sublayer_attn(lp, x, cfg, is_local=_is_local(cfg, g),
+                              prefix_len=prefix_len, collect=collect,
+                              enc_out=enc_out)
+        x, da = _sublayer_ffn(lp, x, cfg)
+        if da is not None:
+            aux = da if aux is None else aux + da
+        cs[g] = c
+    return x, aux, cs
 
 
 def _need_frames(cfg: ModelConfig, enc_embeds) -> None:
@@ -376,7 +460,8 @@ def _need_frames(cfg: ModelConfig, enc_embeds) -> None:
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
             prefix_embeds=None, enc_embeds=None,
-            collect_cache: bool = False, with_aux: bool = False):
+            collect_cache: bool = False, with_aux: bool = False,
+            remat: str = "none"):
     """tokens [B, S] (or ``embeds`` [B, S, D], taken as they are, in
     place of the scaled token embeddings) -> hidden [B, P + S, D]
     (final-normed).  ``prefix_embeds`` [B, P, D] are cast to the
@@ -393,28 +478,31 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     for a pair layout {"local": {...}, "global": {...}} on
     [L/2].  With ``with_aux`` the f32 sum of the layers' MoE
     auxiliary losses (0 without MoE) comes last: (hidden, aux) or
-    (hidden, cache, aux)."""
+    (hidden, cache, aux).  ``remat``: ``"none"`` or ``"full"`` (each
+    layer body recomputed in the backward: the same values and
+    gradients)."""
     x = _embed(params, cfg, tokens) if embeds is None else embeds
     prefix_len = 0
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         prefix_len = prefix_embeds.shape[1]
+    x = logical_constraint(x, ("batch", "seq", None))
     _need_frames(cfg, enc_embeds)
-    enc_out = (_run_encoder(params, cfg, enc_embeds, x.dtype)
+    enc_out = (_run_encoder(params, cfg, enc_embeds, x.dtype, remat)
                if cfg.n_enc_layers > 0 else None)
     groups = _groups(cfg)
     contribs: dict = {g: {} for g in groups}
     aux = None
+    step = _remat(functools.partial(
+        _dec_body, cfg=cfg, groups=groups, prefix_len=prefix_len,
+        collect=collect_cache, enc_out=enc_out), remat)
     for body in zip(*(layer_list(_group(params["layers"], g))
                       for g in groups)):
-        for g, lp in zip(groups, body):
-            x, c = _sublayer_attn(lp, x, cfg, is_local=_is_local(cfg, g),
-                                  prefix_len=prefix_len,
-                                  collect=collect_cache, enc_out=enc_out)
-            x, da = _sublayer_ffn(lp, x, cfg)
-            if da is not None:
-                aux = da if aux is None else aux + da
-            if collect_cache:
+        x, da, cs = step(body, x)
+        if da is not None:
+            aux = da if aux is None else aux + da
+        if collect_cache:
+            for g, c in cs.items():
                 for name, t in c.items():
                     contribs[g].setdefault(name, []).append(t)
     x = _rms(x, params["final_norm"])
@@ -443,17 +531,20 @@ def logits_of(params, cfg: ModelConfig, hidden):
     return logits
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
+def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
+            remat: str = "none"):
     """Mean next-token cross-entropy: batch {"tokens" [B, S], "labels"
     [B, S], optional "prefix_embeds" [B, P, D] and "enc_embeds" [B, F, D]
     (an enc-dec model's frames)}, labels < 0 masked out;
     the prefix rows of the hidden states are dropped before the head;
     logits in f32.  Returns (ce + aux_weight · moe_aux, {"ce",
     "moe_aux"}), ``moe_aux`` the layers' summed MoE auxiliary loss (0
-    without MoE, so the loss is the cross-entropy alone)."""
+    without MoE, so the loss is the cross-entropy alone).  ``remat`` as
+    in :func:`forward`."""
     prefix = batch.get("prefix_embeds")
     hidden, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
-                          enc_embeds=batch.get("enc_embeds"), with_aux=True)
+                          enc_embeds=batch.get("enc_embeds"), with_aux=True,
+                          remat=remat)
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:]
     labels = batch["labels"].long()
@@ -603,14 +694,47 @@ def _decode_gqa_at(p, x, cfg, kc, vc, pv, *, is_local=False):
     S_c = kc.shape[1]
     ring = is_local and S_c <= cfg.local_window
     wpos = (pv % S_c if ring else pv.clamp(max=S_c - 1)).long()
-    kc.index_put_((rows, wpos), _q_cache(k[:, 0], cfg))
-    vc.index_put_((rows, wpos), _q_cache(v[:, 0], cfg))
+    if is_dtensor(kc):
+        _owner_put_(kc, wpos, _q_cache(k[:, 0], cfg))
+        _owner_put_(vc, wpos, _q_cache(v[:, 0], cfg))
+    else:
+        kc.index_put_((rows, wpos), _q_cache(k[:, 0], cfg))
+        vc.index_put_((rows, wpos), _q_cache(v[:, 0], cfg))
     n_valid = (pv + 1).clamp(max=S_c) if ring else pv + 1
     window = cfg.local_window if is_local and not ring else None
     out = attn.decode_attention(q, _dq_cache(kc, cfg), _dq_cache(vc, cfg),
                                 n_valid, softcap=cfg.attn_softcap,
                                 window=window)
     return mm(out.reshape(B, 1, -1), p["wo"])
+
+
+def _local_rows(t, dst, dim: int):
+    """This rank's rows of ``t`` along ``dim`` as ``dst`` (a DTensor)
+    holds them, whole along every other dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return local_shard(t, dst.device_mesh, tuple(
+        Shard(dim) if p.is_shard() and p.dim == dim else Replicate()
+        for p in dst.placements))
+
+
+def _owner_put_(cache, wpos, piece):
+    """``cache[b, wpos[b]] = piece[b]`` into a sharded decode cache view
+    ``cache`` [B, S_c, ...] (a DTensor, batch and sequence possibly
+    sharded), in place: each rank writes the rows it owns, at its offset
+    into the sequence, and keeps the others (an in-place indexed write
+    cannot cross a sharded dim).  ``wpos`` [B] is replicated."""
+    loc = cache.to_local()
+    b0, nb = local_range(cache, 0)
+    s0, ns = local_range(cache, 1)
+    w = wpos[b0:b0 + nb] - s0
+    mine = (w >= 0) & (w < ns)
+    w = w.clamp(0, ns - 1)
+    rows = torch.arange(nb, device=loc.device)
+    new = _local_rows(piece, cache, 0).to(loc.dtype)
+    keep = loc[rows, w]
+    mask = mine.reshape(-1, *([1] * (new.ndim - 1)))
+    loc.index_put_((rows, w), torch.where(mask, new, keep))
 
 
 def _decode_layer(lp, x, cfg, c, pv, *, is_local=False):
@@ -656,7 +780,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
             f"decode_step on the enc-dec model {cfg.name!r} over a cache "
             f"without cross K/V: build it with init_cache(..., enc_len=) "
             f"and admit with enc_embeds")
-    x = _embed(params, cfg, token)
+    x = logical_constraint(_embed(params, cfg, token), ("batch", None, None))
     pv = attn.pos_vec(pos, token.shape[0], device=token.device)
     # every leaf, a state leaf too, is stacked on [L] (or [L/2])
     for i in range(cache_leaves(_group(cache, groups[0]))[0].shape[0]):
@@ -722,9 +846,32 @@ def _write_leaf(dst, src, is_seq):
     state leaf whole; through :func:`_to_cache_dtype`."""
     if not is_seq:
         return dst.copy_(_to_cache_dtype(src, dst.dtype))
+    if is_dtensor(dst):
+        return _owner_write_leaf(dst, src)
     rows = _rows(src.shape[2], dst.shape[2], 0, dst.device)
     dst.index_copy_(2, rows, _to_cache_dtype(
         src[:, :, src.shape[2] - rows.shape[0]:], dst.dtype))
+    return dst
+
+
+def _owner_write_leaf(dst, src):
+    """:func:`_write_leaf` of a sequence leaf into a sharded cache ``dst``
+    (a DTensor [L, B, S_c, ...], batch and sequence possibly sharded):
+    each rank writes the rows of its own slice of the sequence, at its
+    offset, from ``src`` gathered along the sequence."""
+    loc = dst.to_local()
+    s0, ns = local_range(dst, 2)
+    S_src, S_c = src.shape[2], dst.shape[2]
+    rows = _rows(S_src, S_c, 0, torch.device("cpu"))
+    take = rows.shape[0]
+    sel = ((rows >= s0) & (rows < s0 + ns)).nonzero()[:, 0]
+    # every rank gathers (a collective), whether or not it owns a row
+    piece = _local_rows(src, dst, 1)[:, :, S_src - take:]
+    if sel.numel() == 0:
+        return dst
+    piece = piece.index_select(2, sel.to(piece.device))
+    loc.index_copy_(2, (rows[sel] - s0).to(loc.device),
+                    _to_cache_dtype(piece, loc.dtype))
     return dst
 
 

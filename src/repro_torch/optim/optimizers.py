@@ -75,12 +75,14 @@ def tree_leaves(tree) -> list:
 
 
 def adamw_init(params) -> dict:
-    """f32 zero moments for every trainable leaf; the step counter a 0-dim
-    int32 zero on the parameters' device."""
+    """f32 zero moments for every trainable leaf (each laid out as its
+    leaf: a DTensor's moments carry its placements, ZeRO-3's mirror of
+    the params); the step counter a 0-dim int32 zero on the parameters'
+    device."""
     def zeros(p):
         t = trainable(p)
-        return None if t is None else torch.zeros(
-            t.shape, dtype=torch.float32, device=t.device)
+        return None if t is None else torch.zeros_like(
+            t, dtype=torch.float32, memory_format=torch.contiguous_format)
 
     devices = [t.device for t in map(trainable, tree_leaves(params))
                if t is not None]
@@ -162,5 +164,11 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
                                    cfg.weight_decay))
         # p = (p - lr * delta), cast back to the parameter's dtype
         torch._foreach_mul_(delta, lr)
-        torch._foreach_copy_(ts, torch._foreach_sub(tfs, delta))
+        new = torch._foreach_sub(tfs, delta)
+        if any(type(t) is not torch.Tensor for t in ts):
+            # DTensor has no _foreach_copy_: one copy_ a leaf, same bits
+            for t, n in zip(ts, new):
+                t.copy_(n)
+        else:
+            torch._foreach_copy_(ts, new)
     return params, state, {"gnorm": gnorm}

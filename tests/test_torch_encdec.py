@@ -423,8 +423,9 @@ def test_serve_cli_refuses_enc_dec(capsys):
 @pytest.mark.parametrize("change,what", [
     # int8 KV is ported (tests/test_torch_kvcache.py); an unknown name not
     (dict(kv_cache_dtype="int4"), "kv_cache_dtype"),
-    (dict(moe=MoEConfig(impl="shmap")), "shmap"),
-    (dict(moe=MoEConfig(combine="scatter")), "scatter"),
+    # the MoE strategies are ported: an enc-dec MoE is refused as such
+    (dict(moe=MoEConfig(impl="shmap")), "enc-dec with a MoE$"),
+    (dict(moe=MoEConfig(combine="scatter")), "enc-dec with a MoE$"),
     (dict(moe=MoEConfig()), "enc-dec with a MoE"),
     (dict(attn_type="mla", mla=MLAConfig()), "enc-dec with attn_type 'mla'"),
     (dict(attn_type="none", ssm=SSMConfig()),
@@ -440,8 +441,9 @@ def test_check_ported_boundary_at_whisper(change, what):
     """whisper's shape (GQA, global layers) is ported; every other enc-dec
     combination is refused by a name that says ``enc-dec``, and a KV
     cache dtype the port does not store (the ``int8_kv`` case: int8
-    itself is ported) and the expert-parallel MoE strategies stay
-    refused."""
+    itself is ported) stays refused.  An enc-dec MoE is refused as an
+    enc-dec MoE alone, whatever its strategy (the ``shmap`` and
+    ``scatter`` cases: both strategies are ported)."""
     cfg = dataclasses.replace(get_smoke(ARCH), **change)
     with pytest.raises(NotImplementedError, match=what):
         cfg.check_ported()

@@ -621,23 +621,30 @@ def test_moe_config_is_the_reference_s():
         JMoEConfig())
 
 
-@pytest.mark.parametrize("change,ok", [
-    (dict(combine="gather"), True),
-    (dict(combine="replicated"), True),
-    (dict(combine="scatter"), False),
-    (dict(impl="shmap"), False),
+# the ids are the cases' names from when check_ported refused scatter
+# and shmap (change2-False, change3-False): each case now checks that its
+# strategy is taken, and that a name the reference lacks is refused
+@pytest.mark.parametrize("change,unknown", [
+    pytest.param(dict(combine="gather"), dict(combine="gathr"),
+                 id="change0-True"),
+    pytest.param(dict(combine="replicated"), dict(combine="replica"),
+                 id="change1-True"),
+    pytest.param(dict(combine="scatter"), dict(combine="scater"),
+                 id="change2-False"),
+    pytest.param(dict(impl="shmap"), dict(impl="shard_map"),
+                 id="change3-False"),
 ])
-def test_check_ported_moe_boundary(change, ok):
-    """The one-device implementation with the gather or replicated
-    combine is ported; ``impl="shmap"`` and ``combine="scatter"`` are
-    expert-parallel strategies and are refused, each by name."""
+def test_check_ported_moe_boundary(change, unknown):
+    """Every MoE strategy of the reference is ported (the gather,
+    replicated and scatter combines, the pjit and shmap
+    implementations); a name the reference does not have is refused,
+    by name."""
     cfg = _with_moe(get_smoke(MOONSHOT), **change)
-    if ok:
-        assert cfg.check_ported() is cfg
-        return
-    what = "shmap" if "impl" in change else "scatter"
-    with pytest.raises(NotImplementedError, match=what):
-        cfg.check_ported()
+    assert cfg.check_ported() is cfg
+    bad = _with_moe(get_smoke(MOONSHOT), **unknown)
+    with pytest.raises(NotImplementedError,
+                       match=repr(next(iter(unknown.values())))):
+        bad.check_ported()
 
 
 def test_replicated_combine_equals_gather():

@@ -504,13 +504,15 @@ def test_configs_are_the_reference_s(arch):
     (dict(kv_cache_dtype="int4"), "kv_cache_dtype"),
     (dict(moe=object()), "moe"),
     (dict(ssm=object()), "ssm"),
-    (dict(moe=MoEConfig(impl="shmap")), "shmap"),
-    (dict(moe=MoEConfig(combine="scatter")), "scatter"),
+    # the reference's MoE strategies are ported (shmap, scatter:
+    # tests/test_torch_moe.py); a name it lacks is refused
+    (dict(moe=MoEConfig(impl="shmap_all_to_all")), "shmap"),
+    (dict(moe=MoEConfig(combine="scatter_add")), "scatter"),
 ])
 def test_check_ported_still_refuses_the_other_families(change, what):
     """Families and strategies the port does not run: an untyped ``moe``
-    (not a ``MoEConfig``) and the expert-parallel MoE strategies among
-    them (a ``MoEConfig`` with the one-device defaults is ported)."""
+    (not a ``MoEConfig``) and a MoE ``impl`` or ``combine`` the reference
+    does not have (every one it has is ported)."""
     cfg = dataclasses.replace(get_smoke(MLA), **change)
     with pytest.raises(NotImplementedError, match=what):
         cfg.check_ported()
