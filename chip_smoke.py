@@ -99,10 +99,10 @@
       its step-3 checkpoint in a temporary directory must end bit for bit
       where it ended.
    Phases (d), (e), (h), (i) and (j) serve some models at a cut depth
-   (``PHASE_DEPTH``, printed on their lines): starcoder2-15b 20 of 40
-   layers, gemma2-9b 10 of 21 pairs, minicpm3-4b 16 of 62,
-   moonshot-v1-16b-a3b 24 of 48 (in (h)), mamba2-370m 24 of 48,
-   hymba-1.5b 16 of 32, whisper-large-v3 16 + 16 of 32 + 32; every check
+   (``PHASE_DEPTH``, printed on their lines): starcoder2-15b 10 of 40
+   layers, gemma2-9b 5 of 21 pairs, minicpm3-4b 8 of 62,
+   moonshot-v1-16b-a3b 12 of 48 (in (h)), mamba2-370m 8 of 48,
+   hymba-1.5b 8 of 32, whisper-large-v3 6 + 6 of 32 + 32; every check
    of each phase still runs, at full width.  Phases (m) and (n) run
    qwen1.5-4b at 4 layers and (n) moonshot-v1-16b-a3b at 2.
    d. full-width starcoder2-15b (40 layers, d_model 6144, GQA
@@ -302,6 +302,18 @@
       the four collectives on NCCL, each bitwise its input (or the
       ``ef_step`` payload scattered).  Multi-rank results are the CPU
       tests' (gloo ranks).
+   o. the dry-run (``launch/dryrun.py``, ``launch/cost_analysis.py``),
+      in (n)'s process after its NCCL group is destroyed: (o1) two
+      production cells at full width and depth on a fake process group
+      of 256 ranks over the 16x16 mesh (``mamba2-370m`` and
+      ``qwen1.5-4b --opt sparse=nmg``, both ``decode_32k``), each ok, its
+      roofline terms printed; (o2) qwen1.5-4b at full width, 4 of its 40
+      layers (``PHASE_DEPTH``), 1:4:8 gr64 ``attn=True``, its decode
+      step at ``decode_32k``'s per-device shape on that mesh (batch 8,
+      2048 cache rows) at world size 1: counted on meta, then run on the
+      card (CUDA events, median of 20, L2 not flushed): the measured time
+      at least the roofline bound, and the GEMV, fused QKV and FFN counts
+      of the count equal to the launches of one step on the card.
    f. the programming model (``repro_torch.sten``): (s1) the library at
       the model's shapes, bf16 — ``NMTensor.from_dense`` through
       ``nm_mask``, ``sten.linear`` / ``sten.matmul`` on n:m:g weights
@@ -369,6 +381,14 @@ BF16_FLOPS = H100["peak_flops_bf16"]      # dense bf16 tensor-core peak
 F32_FLOPS = H100["peak_flops_f32"]        # f32 outside the tensor cores
 REPS = 30
 SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's ~1.98 GHz boost clock
+#: seconds since the script started at the end of each of its phases
+#: (printed on the "smoke timeline" line and kept in chip_smoke.json)
+T_START = time.perf_counter()
+LAPS = {}
+
+
+def lap(name: str) -> None:
+    LAPS[name] = round(time.perf_counter() - T_START, 1)
 
 # each served model's projections as [K, N] weights (sparse along K):
 # which of them the decode GEMV and the prefill SpMM take on its path (the
@@ -1699,30 +1719,34 @@ def run_profiles() -> None:
 
 def device_profile(fn, wall_s: float) -> dict:
     """One call of ``fn`` under torch.profiler: the kernels' device time
-    (the sum of their self device times), launches, the top kernels, and
-    the busy share against ``wall_s``, the unprofiled wall time of one
-    call."""
+    (the sum of their durations), launches, the top kernels, and the busy
+    share against ``wall_s``, the unprofiled wall time of one call.
+
+    The session records device activity alone and sums the profiler's
+    raw events: for qwen1.5-4b's eager decode chunk (26,714 device
+    events, H100 80GB HBM3 at 700 W) a session that also recorded every
+    host op took 10.4 s and its ``key_averages()`` 17.6 s more, against
+    1.8 s for a device-only session; :func:`run_profiles` took 161 s of a
+    1162 s smoke that way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_prof = fn()
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_us = sum(dev_us(e) for e in kern)
-    top = sorted(kern, key=dev_us, reverse=True)[:8]
+    kern: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = kern.get(e.name(), (0, 0))
+            kern[e.name()] = (n + 1, ns + e.duration_ns())
+    busy_us = sum(ns for _, ns in kern.values()) / 1e3
+    top = sorted(kern.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
     return {"wall_profiled_ms": wall_prof * 1e3,
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
             "device_busy_share": busy_us / 1e6 / wall_s if busy_us else None,
-            "launches": sum(e.count for e in kern),
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "device_us": dev_us(e)} for e in top]}
+            "launches": sum(n for n, _ in kern.values()),
+            "top_kernels": [{"name": name[:80], "count": n,
+                             "device_us": ns / 1e3}
+                            for name, (n, ns) in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -1760,18 +1784,26 @@ FAMILY_RUNS = {
 #: (b)'s qwen1.5-4b at its full 40 layers, and (l) serves qwen at 40.
 #: moonshot runs 24 of its 48 layers too: with it whole the smoke read
 #: 1080 s on the H100 (PERF.md), over the 960 s it is to stay under.
+#: mamba2 runs 16 of its 48 layers and whisper 12 + 12 of 32 + 32 (24
+#: and 16 + 16 before): with phase (o) added the smoke read 1324 s on
+#: the H100's host, over its 1200 s limit (PERF.md).  The smoke then read
+#: 915 s on one host and 1162 s on another, and outlasted 1200 s on a
+#: third: each of these seven now runs half the depth it ran there
+#: (starcoder2 and gemma2 20, minicpm3 16, moonshot 24, mamba2 and hymba
+#: 16, whisper 12 + 12), so that the smoke ends in about half its limit.
 #: Models not named here run at their published depth.
 #: Phase (m) checks qwen1.5-4b's serve programs at 4 layers: the rules
 #: judge every layer's program alike, and R6 depends on widths alone.
 #: Phase (n) runs qwen1.5-4b's sharded prefill and decode at 4 layers and
 #: moonshot's expert-parallel forward at 2: DTensor dispatches every op
 #: eagerly on the host, the same for every layer, and the phase is to
-#: stay within 45 s.
-PHASE_DEPTH = {"starcoder2-15b": 20, "gemma2-9b": 20, "minicpm3-4b": 16,
-               "moonshot-v1-16b-a3b": 24, "mamba2-370m": 24,
-               "hymba-1.5b": 16, "whisper-large-v3": (16, 16),
+#: stay within 45 s.  Phase (o2) holds qwen1.5-4b's decode step at 4
+#: layers against its count (every layer's program is alike).
+PHASE_DEPTH = {"starcoder2-15b": 10, "gemma2-9b": 10, "minicpm3-4b": 8,
+               "moonshot-v1-16b-a3b": 12, "mamba2-370m": 8,
+               "hymba-1.5b": 8, "whisper-large-v3": (6, 6),
                "check/qwen1.5-4b": 4, "dist/qwen1.5-4b": 4,
-               "dist/moonshot-v1-16b-a3b": 2}
+               "dist/moonshot-v1-16b-a3b": 2, "dryrun/qwen1.5-4b": 4}
 WINDOW_PROMPT, WINDOW_SEQ, WINDOW_NEW = 4160, 4224, 32
 #: paligemma's image request: its 256 patch rows, a 32-token prompt, 32
 #: new tokens; minicpm3's long request: 1024 + 32 tokens
@@ -3635,17 +3667,24 @@ def families_child(flag: str, extra=()) -> int:
     (``--vlm-mla``), 3h (``--moe``), 3i (``--ssm``), 3j (``--encdec``)
     or 3k (``--kvcache``: :func:`kvcache_phase`) in its own process,
     started by :func:`main`: the earlier phases' params, graphs, pools
-    and profiler sessions are not in it.  Writes its results to
-    ``chiprun_out/`` under the flag's file name (:data:`FAMILY_RUNS`)."""
+    and profiler sessions are not in it.  With :data:`GO_FLAG` among
+    ``extra`` it readies itself and waits for "go" on its standard input
+    (:func:`run_children`).  Writes its results to ``chiprun_out/`` under
+    the flag's file name (:data:`FAMILY_RUNS`)."""
     import torch
 
     from repro_torch.kernels import _build
 
     archs, name = FAMILY_RUNS[flag]
+    wait = GO_FLAG in extra
+    extra = [x for x in extra if x != GO_FLAG]
     assert torch.cuda.is_available(), f"{flag} needs a CUDA device"
     card = nvidia_smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(("nmg_gemv", "nmg_spmm", "nmg_ffn"))
+    torch.zeros(1, device="cuda")        # the CUDA context, made now
+    if wait and sys.stdin.readline().strip() != "go":
+        return 1                         # the parent ended without it
     t0 = time.perf_counter()
     if flag == "--kvcache":
         res = kvcache_phase(card)
@@ -3655,6 +3694,7 @@ def families_child(flag: str, extra=()) -> int:
         res = check_phase(card, float(extra[0]))
     elif flag == "--dist":
         res = dist_phase(card)
+        res["o"] = dryrun_phase(card)
     else:
         res = {"families": [family_phase(a, smoke, gr, card)
                             for a, smoke, gr in archs]}
@@ -3665,15 +3705,46 @@ def families_child(flag: str, extra=()) -> int:
     return 0
 
 
-def run_families(flag: str, timeout: int, *extra: str) -> dict:
-    """Run :func:`families_child` for ``flag`` (and ``extra`` arguments)
-    in a child process and return what it wrote; raises if it fails or
-    outlasts ``timeout`` s."""
-    path = ROOT / "chiprun_out" / FAMILY_RUNS[flag][1]
-    path.unlink(missing_ok=True)
-    subprocess.run([sys.executable, str(Path(__file__).resolve()), flag,
-                    *extra], check=True, timeout=timeout)
-    return json.loads(path.read_text())
+#: a child started with this argument readies itself (imports, the CUDA
+#: context, its kernels) and then waits for "go" on its standard input
+GO_FLAG = "--wait-for-go"
+
+
+def run_children(children) -> dict:
+    """Run :func:`families_child` for each ``(flag, timeout, extra)`` of
+    ``children`` in turn, each in a process of its own, and return what
+    each wrote, by flag.  The next child is started while one runs and
+    waits, ready, for its turn (:data:`GO_FLAG`), so that a child's
+    start-up (about 12 s on the H100's host) runs beside the phase before
+    it; nothing a phase times runs before its "go".  Raises if a child
+    fails or outlasts its ``timeout`` s from its turn; every child
+    started is ended."""
+    def start(flag, extra):
+        (ROOT / "chiprun_out" / FAMILY_RUNS[flag][1]).unlink(missing_ok=True)
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), flag, *extra,
+             GO_FLAG], stdin=subprocess.PIPE, text=True)
+
+    procs = [start(children[0][0], children[0][2])]
+    out = {}
+    try:
+        for i, (flag, timeout, _) in enumerate(children):
+            if i + 1 < len(children):
+                procs.append(start(children[i + 1][0], children[i + 1][2]))
+            procs[i].stdin.write("go\n")
+            procs[i].stdin.close()
+            rc = procs[i].wait(timeout=timeout)
+            if rc != 0:
+                raise subprocess.CalledProcessError(rc, procs[i].args)
+            lap(flag.lstrip("-"))
+            out[flag] = json.loads(
+                (ROOT / "chiprun_out" / FAMILY_RUNS[flag][1]).read_text())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3690,7 +3761,7 @@ FIXED_PROMPT, FIXED_STEPS = 64, 32
 LONG_PROMPT, LONG_SEQ = 1536, 2048
 #: minicpm3-4b's depth in phase (k), of its 62 layers: every layer writes
 #: and reads its int8 latents through the same code, which (k4) holds per
-#: write and per step; phase (e) serves it at the same depth.  At 62
+#: write and per step; phase (e) serves it at 8.  At 62
 #: layers the minicpm3 part of (k) took 34 s of its 119 on an H100, which
 #: the smoke's 1200 s limit cannot spare
 KV_MLA_LAYERS = 16
@@ -5294,6 +5365,148 @@ def report_dist(res, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3o: the dry-run grid's cells and its count against the card
+# ---------------------------------------------------------------------------
+
+#: (o1)'s production cells: (arch, shape, --opt options)
+DRYRUN_CELLS = (("mamba2-370m", "decode_32k", {}),
+                ("qwen1.5-4b", "decode_32k", {"sparse": "nmg"}))
+#: (o2): decode_32k's per-device shape on the 16x16 mesh (128 / 16 rows,
+#: 32768 / 16 cache rows), and the timed steps
+DRYRUN_B, DRYRUN_S, DRYRUN_REPS = 8, 2048, 20
+
+
+def dryrun_cells(device: str = "cuda") -> list:
+    """(o1): each of :data:`DRYRUN_CELLS` through ``run_cell`` on a fake
+    process group of 256 ranks, its records written under
+    ``chiprun_out/dryrun_smoke``; a cell that is not ok raises."""
+    from repro_torch.launch import dryrun
+
+    out = []
+    for arch, shape, opts in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, False,
+                              str(ROOT / "chiprun_out" / "dryrun_smoke"),
+                              opts, device=device)
+        assert rec["ok"], f"dry-run cell {arch} {shape} {opts}: " \
+            f"{rec.get('error')}\n{rec.get('traceback', '')}"
+        out.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "opts", "roofline",
+            "useful_flops_ratio", "flops_per_dev", "bytes_per_dev",
+            "collective_bytes_per_dev", "kernels", "trace_s", "wall_s")})
+    return out
+
+
+def dryrun_count(device: str = "cuda", smoke: bool = False) -> dict:
+    """(o2): qwen1.5-4b at full width, ``PHASE_DEPTH["dryrun/qwen1.5-4b"]``
+    layers, 1:4:8 gr64 ``attn=True``, its decode step at batch
+    :data:`DRYRUN_B` over :data:`DRYRUN_S` cache rows at world size 1:
+    the count on meta (``analyze_program``) against the step on the card,
+    timed by CUDA events (median of :data:`DRYRUN_REPS`, L2 not flushed),
+    and the count's kernel nodes against one step's launches."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch.cost_analysis import analyze_program, \
+        roofline_terms
+    from repro_torch.models import decode_step, init_cache, init_lm
+    from repro_torch.serve import sparsify_for_serving
+
+    if smoke:
+        cfg, gr = get_smoke("qwen1.5-4b"), 16
+    else:
+        cfg, gr = dataclasses.replace(
+            get_config("qwen1.5-4b"),
+            n_layers=PHASE_DEPTH["dryrun/qwen1.5-4b"]), 64
+
+    def build(dev):
+        params = sparsify_for_serving(init_lm(cfg, seed=0, device=dev), 1, 4,
+                                      8, gr=gr, attn=True)
+        return params, init_cache(cfg, DRYRUN_B, DRYRUN_S, device=dev)
+
+    def step(p, c, tok, pos):
+        return decode_step(p, cfg, tok, c, pos)
+
+    mp, mc = build("meta")
+    cost = analyze_program(step, mp, mc, torch.empty(
+        DRYRUN_B, 1, dtype=torch.int32, device="meta"), torch.empty(
+        (), dtype=torch.int32, device="meta"))
+    terms = roofline_terms(cost["flops"], cost["bytes"],
+                           cost["collectives"]["total"])
+    params, cache = build(device)
+    gen = torch.Generator(device=device).manual_seed(33)
+    tok = torch.randint(0, cfg.vocab, (DRYRUN_B, 1), generator=gen,
+                        device=device, dtype=torch.int32)
+    pos = torch.tensor(DRYRUN_S // 2, dtype=torch.int32, device=device)
+    step(params, cache, tok, pos)                       # warm-up
+    reset_counts()
+    step(params, cache, tok, pos)
+    counts = read_counts()
+    launches = {k: counts[k] for k in KERNELS}
+    counted = {k: cost["kernels"].get(k, 0) for k in KERNELS}
+    ms = []
+    if device == "cuda":
+        for _ in range(DRYRUN_REPS):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            step(params, cache, tok, pos)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+    med = statistics.median(ms) if ms else float("nan")
+    bound_ms = terms.bound_s * 1e3
+    res = {"label": cfg.name, "layers": cfg.n_layers, "gr": gr,
+           "batch": DRYRUN_B, "cache_rows": DRYRUN_S,
+           "flops": cost["flops"], "bytes": cost["bytes"],
+           "compute_ms": terms.compute_s * 1e3,
+           "memory_ms": terms.memory_s * 1e3, "dominant": terms.dominant,
+           "bound_ms": bound_ms, "measured_ms": med,
+           "ratio": med / bound_ms, "counted": counted,
+           "launches": launches}
+    assert counted == launches or device != "cuda", \
+        f"the count's kernels {counted} != the card's launches {launches}"
+    if device == "cuda":
+        assert res["ratio"] >= 1.0, \
+            f"measured {med:.4f} ms under the roofline bound {bound_ms:.4f}"
+    return res
+
+
+def dryrun_phase(card: str, device: str = "cuda", smoke: bool = False
+                 ) -> dict:
+    """Phase 3o: (o1) :func:`dryrun_cells`, (o2) :func:`dryrun_count`."""
+    t0 = time.perf_counter()
+    res = {"o1": [] if smoke else dryrun_cells(device)}
+    t1 = time.perf_counter()
+    res["o2"] = dryrun_count(device, smoke)
+    res["walls_s"] = {"o1": t1 - t0, "o2": time.perf_counter() - t1}
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def report_dryrun(res, card) -> None:
+    for c in res["o1"]:
+        t = c["roofline"]
+        print(f"dryrun (o1) on {card}: {c['arch']} {c['shape']} {c['mesh']} "
+              f"{c['opts']} ok, dominant {t['dominant']}: compute "
+              f"{t['compute_s']:.6e} s, memory {t['memory_s']:.6e} s, "
+              f"collective {t['collective_s']:.6e} s; useful_flops_ratio "
+              f"{c['useful_flops_ratio']:.4f}; traced in {c['trace_s']} s "
+              f"({c['wall_s']} s the cell)")
+    o2 = res["o2"]
+    print(f"dryrun (o2): {o2['label']} {o2['layers']} layers "
+          f"(PHASE_DEPTH['dryrun/qwen1.5-4b']), 1:4:8 gr{o2['gr']} "
+          f"attn=True, decode step at batch {o2['batch']} over "
+          f"{o2['cache_rows']} rows: measured {o2['measured_ms']:.4f} ms "
+          f"(median of {DRYRUN_REPS}, L2 not flushed), roofline bound "
+          f"{o2['bound_ms']:.4f} ms ({o2['dominant']}; {o2['flops']:.4e} "
+          f"FLOPs, {o2['bytes']:.4e} B), ratio {o2['ratio']:.3f} (>= 1 "
+          f"met); kernels counted {o2['counted']}, launched "
+          f"{o2['launches']} (equal)")
+    w = res["walls_s"]
+    print(f"dryrun phase on {card}: {res['phase_s']:.1f} s in its process "
+          f"(o1 {w['o1']:.1f}, o2 {w['o2']:.1f})", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: training at full width
 # ---------------------------------------------------------------------------
 
@@ -6619,6 +6832,7 @@ def main() -> int:
                "matmul_threshold")
     build_s = _build.build_all(sources)
     print(f"kernels built in {build_s:.1f} s")
+    lap("build")
     for name in sources:   # one line per library: its entries' range
         log = _build.ptxas_log(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -6650,6 +6864,7 @@ def main() -> int:
     cases += kernel_phase(torch.Generator(device="cuda").manual_seed(29),
                           "qwen24")
     print(f"kernel phase: {len(cases)} cases within bounds ({card})")
+    lap("kernel phase")
     for c in cases:
         lib = ("none" if c["library_ms"] is None
                else f"{c['library_ms']:.4f} ms")
@@ -6674,6 +6889,7 @@ def main() -> int:
                 torch.Generator(device="cuda").manual_seed(22))}
     tune_s = time.perf_counter() - t0
     report_crossover(tune["crossover"], card)
+    lap("tuning cli and crossover")
 
     # (a) bert-base-sten: dense, sparse FFN, sparse FFN + attention
     cfg = get_config("bert-base-sten")
@@ -6710,6 +6926,7 @@ def main() -> int:
                 prefill_phase(cfg, sparse_all, "sparse_attn")]
     tune["serve"] = [serve_tuned(cfg, sparse_all, "bert_attn_gr64")]
     del params, sparse_ffn, sparse_all, sparse_gr16
+    lap("bert (a)")
 
     # (b) qwen1.5-4b at full width and depth: dense, sparse (attn=True)
     torch.cuda.empty_cache()
@@ -6753,33 +6970,31 @@ def main() -> int:
                  prefill_phase(qcfg, qsparse, "qwen_sparse")]
     tune["serve"].append(serve_tuned(qcfg, qsparse, "qwen_attn_gr64"))
     del qparams, qsparse
+    lap("qwen (b)")
 
-    # (d) starcoder2-15b and gemma2-9b at full width and depth, in a
-    # process of its own (this one still holds the earlier phases'
-    # profiles, and a profiler session would slow its launches)
+    # (d) starcoder2-15b and gemma2-9b at full width, in a process of its
+    # own (this one still holds the earlier phases' profiles, and a
+    # profiler session would slow its launches)
     torch.cuda.empty_cache()
-    fam = run_families("--families", 700)
-    # (e) paligemma-3b and minicpm3-4b the same way, in another process
-    vlm = run_families("--vlm-mla", 600)
-    # (h) moonshot-v1-16b-a3b at full width and arctic-480b at SMOKE
-    moe = run_families("--moe", 600)
-    # (i) mamba2-370m and hymba-1.5b, recurrent state, in another process
-    ssm = run_families("--ssm", 500)
-    # (j) whisper-large-v3, enc-dec, in another process
-    encdec = run_families("--encdec", 400)
-    # (k) the int8 KV cache and paged serving, in another process
-    kvc = run_families("--kvcache", 500)
-    # (l) SLO-controlled serving with resident sparsity tiers
-    slo = run_families("--slo", 400)
-    # (m) the static checker; (m5)'s SLO is 1.5 x bert's dense p50
+    # (e) paligemma-3b and minicpm3-4b the same way, in another process;
+    # (h) moonshot-v1-16b-a3b at full width and arctic-480b at SMOKE;
+    # (i) mamba2-370m and hymba-1.5b, recurrent state; (j)
+    # whisper-large-v3, enc-dec; (k) the int8 KV cache and paged serving;
+    # (l) SLO-controlled serving with resident sparsity tiers; (m) the
+    # static checker, (m5)'s SLO 1.5 x bert's dense p50; (n) distribution,
+    # the sharded steps over DTensor, NCCL at world 1, and (o) the dry-run
     bert_p50_ms = runs[0]["metrics"]["tok_latency_p50"] * 1e3
-    chk = run_families("--check", 300, f"{bert_p50_ms * 1.5:.4f}")
+    kids = run_children((
+        ("--families", 700, ()), ("--vlm-mla", 600, ()), ("--moe", 600, ()),
+        ("--ssm", 500, ()), ("--encdec", 400, ()), ("--kvcache", 500, ()),
+        ("--slo", 400, ()), ("--check", 300, (f"{bert_p50_ms * 1.5:.4f}",)),
+        ("--dist", 240, ())))
+    fam, vlm, moe, ssm, encdec, kvc, slo, chk, dst = kids.values()
     chk["held_main"] = len(R6_HELD)
     assert chk["held_main"] > 0, "no kernel-phase case held to R6"
     report_check(chk, card)
-    # (n) distribution: the sharded steps over DTensor, NCCL at world 1
-    dst = run_families("--dist", 240)
     report_dist(dst, card)
+    report_dryrun(dst["o"], card)
     all_fams = (fam["families"] + vlm["families"] + moe["families"]
                 + ssm["families"] + encdec["families"])
     fam_counts = {r["label"]: r["counts"] for f in all_fams
@@ -6799,7 +7014,9 @@ def main() -> int:
     # (c) bert-base-sten training at full width: the CLI's masked path,
     # then the library API through both training kernels
     train = [train_cli_run(), train_lib_run()]
+    lap("train (c)")
     ckpt = ckpt_phase()
+    lap("checkpoint")
     print(f"checkpoint/resume (a's model, 6 steps, resumed at step 3) on "
           f"{card}: bitwise the uninterrupted run; {ckpt['leaves']} leaves, "
           f"{ckpt['ckpt_bytes'] / 2**20:.1f} MiB a checkpoint; runs "
@@ -6809,6 +7026,7 @@ def main() -> int:
                 "wi_grad_share_of_bound":
                     train[1]["parity"]["wi_grad_rel_err"] / 2 ** -6}]
     margins += train_margins()
+    lap("train margins")
     for mg in margins:
         print(f"train parity (b) seed {mg['seed']}: loss rel err "
               f"{mg['loss_rel_err']:.3e} (bound 1e-3), mlp.wi gradient rel "
@@ -6819,6 +7037,7 @@ def main() -> int:
     # full-width bert-base-sten under an intermediate and gradient plan
     sten_lib = sten_library_phase(gen)
     sten_model = sten_model_phase(card)
+    lap("sten (f)")
     sten_counts = {kk: sum(c["launches"].get(kk, 0) for c in sten_lib)
                    + sum(v.get(kk, 0) for v in sten_model["counts"].values())
                    for kk in KERNELS + TRAIN_KERNELS}
@@ -6827,6 +7046,7 @@ def main() -> int:
 
     # every profiler session last: one slows every later launch
     run_profiles()
+    lap("profiles")
     report_graphs([finish_graph(p) for p in graphs + q_graphs], card)
     report_prefill(prefills, card)
     report_train(train, card)
@@ -6852,8 +7072,10 @@ def main() -> int:
         "slo": slo, "check": chk, "dist": dst, "r6_held": R6_HELD,
         "sten": {"library": sten_lib, "model": sten_model},
         "tuning": tune,
-        "kernels": kernels, "wall_s": time.perf_counter() - t_start},
-        indent=1))
+        "kernels": kernels, "laps": LAPS,
+        "wall_s": time.perf_counter() - t_start}, indent=1))
+    print(f"smoke timeline on {card}: seconds since start at the end of "
+          + ", ".join(f"{k} {v}" for k, v in LAPS.items()))
     print(json.dumps({"serve": {
         r["label"]: {mode: {
             "tok_s": round(r[key]["throughput_tok_s"], 2),
@@ -6959,6 +7181,14 @@ def main() -> int:
             "n3_logit_err": {k: dst["n3"][k]["max_abs_err"]
                              for k in ("shmap", "scatter")},
             "phase_s": round(dst["phase_s"], 1)},
+        "dryrun": {
+            "o1": {f"{c['arch']}/{c['shape']}": {
+                "dominant": c["roofline"]["dominant"],
+                "useful_flops_ratio": c["useful_flops_ratio"],
+                "wall_s": c["wall_s"]} for c in dst["o"]["o1"]},
+            "o2": {k: dst["o"]["o2"][k] for k in (
+                "measured_ms", "bound_ms", "ratio", "counted", "launches")},
+            "phase_s": round(dst["o"]["phase_s"], 1)},
         "check": {
             "r6_held": chk["held_main"],
             "qwen_diagnostics": chk["m3"]["diagnostics_per_rule"],

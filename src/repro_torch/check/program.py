@@ -65,6 +65,7 @@ class Node:
     in_devices: tuple = ()     # of the tensors it reads
     name: str = ""             # an input's path
     from_input: bool = False   # its value depends on a program input
+    flops: float = 0.0         # a kernel's operations (its wrapper's count)
 
     @property
     def shape(self) -> tuple:
@@ -152,7 +153,8 @@ class Recorder(TorchDispatchMode):
         self._keep: list = []
         self._paused = False
 
-    def _add(self, op, kind, inputs=(), outs=(), in_devices=(), name=""):
+    def _add(self, op, kind, inputs=(), outs=(), in_devices=(), name="",
+             flops=0.0):
         outs = [t for t in outs if isinstance(t, torch.Tensor)]
         nodes = self.graph.nodes
         node = Node(len(nodes), op, kind, tuple(inputs),
@@ -160,7 +162,7 @@ class Recorder(TorchDispatchMode):
                     tuple(t.dtype for t in outs),
                     tuple(t.device.type for t in outs), tuple(in_devices),
                     name, kind == "input"
-                    or any(nodes[i].from_input for i in inputs))
+                    or any(nodes[i].from_input for i in inputs), flops)
         nodes.append(node)
         for t in outs:
             self._of[id(t)] = node.index
@@ -194,11 +196,12 @@ class Recorder(TorchDispatchMode):
         finally:
             self._paused = prev
 
-    def kernel(self, name: str, operands, out) -> None:
-        """One node for one kernel call, from ``operands`` to ``out``."""
+    def kernel(self, name: str, operands, out, flops: float = 0.0) -> None:
+        """One node for one kernel call, from ``operands`` to ``out``,
+        with the kernel's ``flops``."""
         ins = [self.value(t) for t in operands]
         self._add(name, "kernel", ins, _tensors(out),
-                  [t.device.type for t in operands])
+                  [t.device.type for t in operands], flops=flops)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

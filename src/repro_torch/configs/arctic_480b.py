@@ -30,3 +30,5 @@ SMOKE = CONFIG.scaled(
     moe=MoEConfig(num_experts=4, top_k=2, d_expert=64, dense_residual=True,
                   dense_residual_ff=64),
 )
+
+SKIP_LONG = "pure full attention (quadratic 524288 prefill / full cache)"

@@ -21,3 +21,5 @@ CONFIG = ModelConfig(
 
 SMOKE = CONFIG.scaled(vocab=512, d_model=64, n_layers=2, n_heads=4,
                       n_kv_heads=4, head_dim=16, d_ff=128)
+
+SKIP_LONG = "paper-eval model; not part of the 40-cell grid"

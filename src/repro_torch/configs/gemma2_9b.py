@@ -31,3 +31,5 @@ SMOKE = CONFIG.scaled(
     vocab=512, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128, local_window=16,
 )
+
+SKIP_LONG = None  # runs: local+global alternation is sub-quadratic locally

@@ -32,3 +32,5 @@ SMOKE = CONFIG.scaled(
     d_ff=128, local_window=16,
     ssm=SSMConfig(state_dim=8, head_dim=8, expand=2, conv_width=4, chunk=16),
 )
+
+SKIP_LONG = None  # runs: sliding-window attn + constant SSM state

@@ -24,3 +24,5 @@ SMOKE = CONFIG.scaled(
     vocab=512, d_model=64, n_layers=2,
     ssm=SSMConfig(state_dim=16, head_dim=8, expand=2, conv_width=4, chunk=16),
 )
+
+SKIP_LONG = None  # runs: constant-size recurrent state

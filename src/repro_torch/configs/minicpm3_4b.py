@@ -34,3 +34,5 @@ SMOKE = CONFIG.scaled(
     mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
                   qk_rope_head_dim=8, v_head_dim=16),
 )
+
+SKIP_LONG = "pure full attention (quadratic 524288 prefill / full cache)"

@@ -28,3 +28,5 @@ SMOKE = CONFIG.scaled(
     vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4, head_dim=16,
     d_ff=64, moe=MoEConfig(num_experts=4, top_k=2, d_expert=64),
 )
+
+SKIP_LONG = "pure full attention (quadratic 524288 prefill / full cache)"

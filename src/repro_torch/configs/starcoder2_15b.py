@@ -23,3 +23,5 @@ SMOKE = CONFIG.scaled(
     vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128,
 )
+
+SKIP_LONG = "pure full attention (quadratic 524288 prefill / full cache)"

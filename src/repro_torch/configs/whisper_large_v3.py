@@ -32,3 +32,5 @@ SMOKE = CONFIG.scaled(
 )
 
 FAMILY = "audio"
+
+SKIP_LONG = "pure full attention decoder (quadratic 524288 / full cache)"

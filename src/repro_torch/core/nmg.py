@@ -165,7 +165,9 @@ def dense_to_grouped_nm(x: torch.Tensor, n: int, m: int, g: int,
                         gr: int = 1, sparse_dim: int = -1,
                         method: str = "greedy") -> GroupedNMTensor:
     """Convert dense 2-D ``x`` to n:m:g; ``sparse_dim`` is the axis that
-    carries the n:m structure, ``gr`` rows share one chunk permutation."""
+    carries the n:m structure, ``gr`` rows share one chunk permutation.
+    A ``meta`` tensor gives the layout's storage at its shapes and runs no
+    search (the counterpart of the reference's ``jax.eval_shape``)."""
     assert x.ndim == 2, "n:m:g conversion operates on matrices"
     sd = sparse_dim % 2
     orig_shape = tuple(x.shape)
@@ -181,7 +183,11 @@ def dense_to_grouped_nm(x: torch.Tensor, n: int, m: int, g: int,
     mags = xp.abs().reshape(Gr, gr, nchunks, CG, m).sum(dim=1)
     scores = torch.einsum("bkm,pm->bkp", mags.reshape(Gr * nchunks, CG, m),
                           pat_onehot)
-    if method == "greedy":
+    if xp.device.type == "meta":
+        # shapes alone (the dry-run): the layout's storage, no search
+        perm = torch.empty(scores.shape[:2], dtype=torch.int32,
+                           device=xp.device)
+    elif method == "greedy":
         perm = _greedy_assign(scores, g)
     elif method == "swap":
         perm = _swap_refine(scores, _greedy_assign(scores, g), g)

@@ -8,7 +8,9 @@ kernel, so while a recorder is set (``RECORDER``), every kernel wrapper of
 call runs as it would untraced, with recording paused, and is recorded as
 one node named after the kernel, from its operand tensors to its outputs.
 Outside a trace ``RECORDER`` is None and the wrappers run as they did,
-for the price of one attribute read.
+for the price of one attribute read.  On the ``meta`` device a wrapper
+returns its output's shape and dtype and launches nothing (the dry-run's
+route, counted ``(kernel, "meta")`` in ``kernel_counters``).
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ __all__ = ["RECORDER", "as_node"]
 RECORDER = None
 
 
-def as_node(name: str, operands, fn, *args, **kwargs):
+def as_node(name: str, operands, fn, *args, flops: float = 0.0, **kwargs):
     """``fn(*args, **kwargs)`` with the recorder unset and paused (so the
     wrapper ``fn`` takes its untraced path and none of its ops is
     recorded), then one node ``name`` from the tensors ``operands`` to
-    what it returned."""
+    what it returned, carrying the kernel's ``flops`` (its operations,
+    the same rule as the kernel table's bounds: ``launch/
+    cost_analysis.py`` reads them)."""
     global RECORDER
     rec, RECORDER = RECORDER, None
     try:
@@ -31,5 +35,5 @@ def as_node(name: str, operands, fn, *args, **kwargs):
             out = fn(*args, **kwargs)
     finally:
         RECORDER = rec
-    rec.kernel(name, operands, out)
+    rec.kernel(name, operands, out, flops=flops)
     return out

@@ -96,7 +96,11 @@ class MatmulThreshold(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, threshold):
-        if a.device.type == "cpu" and b.device.type == "cpu":
+        if a.device.type == "meta":
+            val = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
+                              device=a.device)
+            mask = torch.empty(val.shape, dtype=torch.bool, device=a.device)
+        elif a.device.type == "cpu" and b.device.type == "cpu":
             with torch.no_grad():
                 val, mask = matmul_threshold_plain(a, b, threshold)
         else:
@@ -131,7 +135,8 @@ def matmul_threshold(a: torch.Tensor, b: torch.Tensor,
         return loc.wrap(val, {0: 0}), loc.wrap(mask, {0: 0})
     if _trace.RECORDER is not None:
         return _trace.as_node("matmul_threshold", (a, b), matmul_threshold,
-                              a, b, threshold)
+                              a, b, threshold,
+                              flops=2 * a.shape[0] * a.shape[1] * b.shape[1])
     return MatmulThreshold.apply(a, b, float(threshold))
 
 

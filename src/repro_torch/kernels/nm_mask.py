@@ -94,6 +94,8 @@ def nm_mask_plan(x: torch.Tensor, n: int, m: int) -> dict:
 
 
 def _launch(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"nm_mask operand lies on {x.device}")
     x2 = _operand(x, n, m)
     out = torch.empty(x2.shape, dtype=torch.bool, device=x.device)
     fn = _fn("nm_mask_launch", [ctypes.c_int] + [ctypes.c_void_p] * 2
@@ -117,11 +119,12 @@ def nm_mask(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
         xl, _, loc = _dtensor.localize("nm_mask", x, tuple(range(x.ndim - 1)))
         return loc.wrap(nm_mask(xl, n, m), {d: d for d in range(x.ndim)})
     if _trace.RECORDER is not None:
-        return _trace.as_node("nm_mask", (x,), nm_mask, x, n, m)
+        return _trace.as_node("nm_mask", (x,), nm_mask, x, n, m,
+                              flops=2 * m * x.numel())
+    if x.device.type == "meta":
+        return torch.empty(x.shape, dtype=torch.bool, device=x.device)
     if x.device.type == "cpu":
         return nm_mask_plain(x, n, m)
-    if x.device.type != "cuda":
-        raise ValueError(f"nm_mask operand lies on {x.device}")
     return _launch(x, n, m)
 
 

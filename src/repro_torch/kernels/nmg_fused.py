@@ -30,7 +30,8 @@ import torch.nn.functional as nnf
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels import _dtensor, _trace
 from repro_torch.kernels.nmg_gemv import MAX_M, _DTYPE_CODE, _pad_rows, \
-    check_operands, chunk_geometry, gemv_launch, nmg_gemv_plain, row_plan
+    check_operands, chunk_geometry, gemv_launch, meta_out, nmg_gemv_plain, \
+    product_flops, row_plan
 
 __all__ = ["act_fn", "fusable_qkv", "fusable_ffn", "fused_segments",
            "nmg_qkv", "nmg_qkv_plain", "nmg_ffn", "nmg_ffn_plain"]
@@ -133,8 +134,12 @@ def nmg_qkv(ws: Sequence, b: torch.Tensor, *, out_dtype=None,
     if _trace.RECORDER is not None:
         operands = [t for w in ws for t in (w.val, w.gather_plan().cols)]
         return _trace.as_node(
-            "nmg_qkv", (*operands, b), nmg_qkv, ws, b, out_dtype=out_dtype,
+            "nmg_qkv", (*operands, b), nmg_qkv, ws, b,
+            flops=product_flops(ws, b), out_dtype=out_dtype,
             transpose_out=transpose_out, config=config)
+    if b.device.type == "meta":
+        return tuple(meta_out(w.canonical_rows(), b, out_dtype,
+                              transpose_out) for w in ws)
     if b.device.type == "cpu":
         return nmg_qkv_plain(ws, b, out_dtype=out_dtype,
                              transpose_out=transpose_out)
@@ -180,8 +185,10 @@ def nmg_ffn(w: GroupedNMTensor, b: torch.Tensor, *, act: str = "silu",
     if _trace.RECORDER is not None:
         return _trace.as_node(
             "nmg_ffn", (w.val, w.gather_plan().cols, b), nmg_ffn, w, b,
-            act=act, out_dtype=out_dtype, transpose_out=transpose_out,
-            config=config)
+            flops=product_flops([w], b), act=act, out_dtype=out_dtype,
+            transpose_out=transpose_out, config=config)
+    if b.device.type == "meta":
+        return meta_out(w.canonical_rows() // 2, b, out_dtype, transpose_out)
     if b.device.type == "cpu" and w.val.device.type == "cpu":
         return nmg_ffn_plain(w, b, act=act, out_dtype=out_dtype,
                              transpose_out=transpose_out)

@@ -39,7 +39,8 @@ from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels import _dtensor, _trace
 
 __all__ = ["nmg_gemv", "nmg_gemv_plain", "gemv_launch", "MAX_M",
-           "RowPlan", "row_plan", "tc_parts_choices", "chunk_geometry"]
+           "RowPlan", "row_plan", "tc_parts_choices", "chunk_geometry",
+           "meta_out", "product_flops"]
 
 #: widest right operand the kernel takes (its register tile)
 MAX_M = 16
@@ -135,6 +136,22 @@ def chunk_geometry(w: GroupedNMTensor) -> tuple:
     rows of B (the K axis), for every chunk and fiber group."""
     cg = math.comb(w.m, w.n) * w.g
     return w.n * cg, w.m * cg
+
+
+def meta_out(R: int, b: torch.Tensor, out_dtype, transpose_out: bool
+             ) -> torch.Tensor:
+    """The output of ``R`` rows against B [K, M] on the ``meta`` device:
+    its shape and dtype, nothing computed (a wrapper's meta route)."""
+    M = b.shape[1]
+    return torch.empty((M, R) if transpose_out else (R, M),
+                       dtype=torch.float32 if out_dtype is None else out_dtype,
+                       device=b.device)
+
+
+def product_flops(ws, b: torch.Tensor) -> int:
+    """Operations of the weights ``ws`` against B [K, M]: 2 per stored
+    value and column, 2·M·R·K·n/m (the kernel table's bound)."""
+    return 2 * sum(w.val.numel() for w in ws) * b.shape[1]
 
 
 def _pad_rows(b: torch.Tensor, K_pad: int) -> torch.Tensor:
@@ -262,8 +279,10 @@ def nmg_gemv(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
     if _trace.RECORDER is not None:
         return _trace.as_node(
             "nmg_gemv", (a.val, a.gather_plan().cols, b), nmg_gemv, a, b,
-            out_dtype=out_dtype, transpose_out=transpose_out, config=config,
-            max_m=max_m)
+            flops=product_flops([a], b), out_dtype=out_dtype,
+            transpose_out=transpose_out, config=config, max_m=max_m)
+    if b.device.type == "meta":
+        return meta_out(a.canonical_rows(), b, out_dtype, transpose_out)
     if b.device.type == "cpu":
         return nmg_gemv_plain(a, b, out_dtype=out_dtype,
                               transpose_out=transpose_out)

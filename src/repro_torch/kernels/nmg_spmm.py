@@ -39,7 +39,7 @@ import torch
 from repro_torch.core.layouts import GroupedNMTensor
 from repro_torch.kernels import _dtensor, _trace
 from repro_torch.kernels.nmg_gemv import _DTYPE_CODE, _pad_rows, \
-    check_operands, gemv_launch
+    check_operands, gemv_launch, meta_out, product_flops
 from repro_torch.tune import routing
 
 __all__ = ["nmg_spmm", "nmg_spmm_plain", "spmm_split_choices"]
@@ -114,7 +114,10 @@ def nmg_spmm(a: GroupedNMTensor, b: torch.Tensor, *, out_dtype=None,
     if _trace.RECORDER is not None:
         return _trace.as_node(
             "nmg_spmm", (a.val, a.gather_plan().cols, b), nmg_spmm, a, b,
-            out_dtype=out_dtype, transpose_out=transpose_out, splits=splits)
+            flops=product_flops([a], b), out_dtype=out_dtype,
+            transpose_out=transpose_out, splits=splits)
+    if b.device.type == "meta":
+        return meta_out(a.canonical_rows(), b, out_dtype, transpose_out)
     if b.device.type == "cpu":
         return nmg_spmm_plain(a, b, out_dtype=out_dtype,
                               transpose_out=transpose_out)

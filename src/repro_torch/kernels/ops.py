@@ -13,7 +13,9 @@ launch) and ``maybe_fused_ffn`` (the packed gated-MLP weight, projection
 and ``act(u) * v`` in one launch).  The training side adds ``nm_mask``
 (the n:m sparsifier's keep mask) and ``matmul_threshold`` (matmul with
 the fused inline threshold sparsifier).  Each op runs the CUDA kernel for
-CUDA tensors and its plain version for CPU tensors.  ``kernel_counters``
+CUDA tensors and its plain version for CPU tensors; on the ``meta``
+device it returns its output's shape and dtype, launches nothing and
+counts ``(kernel, "meta")`` (the dry-run's route).  ``kernel_counters``
 is the port's account of routing decisions and launches per (kernel,
 route), kept on the ``repro_torch.obs`` registry as the reference keeps
 its own (family ``kernel_routes``): ``("nmg_linear",
@@ -165,7 +167,10 @@ def restore_counters(snap: dict) -> None:
 
 
 def _where(b: torch.Tensor) -> str:
-    return "plain" if b.device.type == "cpu" else "cuda"
+    """Where a kernel call runs: ``plain`` on the CPU, ``meta`` on the
+    meta device (shapes alone, nothing launched), else ``cuda``."""
+    t = b.device.type
+    return "plain" if t == "cpu" else "meta" if t == "meta" else "cuda"
 
 
 def _route_ctx(a: GroupedNMTensor, dtype) -> dict:

@@ -116,7 +116,10 @@ def loss_and_grads(params, cfg, batch, **loss_kw):
         return with_values(p, t)
 
     loss, aux = loss_fn(tree_map(with_grad, params), cfg, batch, **loss_kw)
-    it = iter(torch.autograd.grad(loss, leaves))
+    # a leaf the loss does not reach (a pure SSM layer's ln2) gets zeros,
+    # as the reference's jax.grad gives it
+    it = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                  materialize_grads=True))
     grads = tree_map(lambda p: None if trainable(p) is None else next(it),
                      params)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads

@@ -32,7 +32,8 @@ from repro_torch.models.common import ModelConfig, mm, mm_fused_qkv, \
     torch_dtype
 
 __all__ = ["pos_vec", "rope", "chunked_attention", "decode_attention",
-           "init_gqa", "apply_gqa", "init_mla", "apply_mla", "decode_mla"]
+           "init_gqa", "apply_gqa", "init_mla", "apply_mla", "decode_mla",
+           "heads_view", "merge_heads"]
 
 NEG_INF = -1e30
 
@@ -41,6 +42,51 @@ def _is_dt(x) -> bool:
     from repro_torch.dist.sharding import is_dtensor
 
     return is_dtensor(x)
+
+
+def _shards(t, dim: int) -> int:
+    """Ranks the DTensor ``t``'s dim ``dim`` is split over."""
+    return math.prod(t.device_mesh.size(i) for i, p in enumerate(
+        t.placements) if p.is_shard() and p.dim == dim)
+
+
+def _gather_dims(t, dims):
+    """DTensor ``t`` with its shards of ``dims`` gathered."""
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_shard() and p.dim in dims else p
+        for p in t.placements))
+
+
+def heads_view(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``, where the last dim of ``t`` splits into
+    (heads, head dim) ``shape[-2:]``.  A DTensor whose last dim is sharded
+    over more ranks than divide the heads (qwen1.5-4b's 20 over 16) is
+    gathered along it first: DTensor cannot unflatten an uneven shard,
+    where GSPMD pads it."""
+    if type(t) is not torch.Tensor and _is_dt(t) and \
+            shape[-2] % _shards(t, t.ndim - 1):
+        t = _gather_dims(t, (t.ndim - 1,))
+    return t.reshape(*shape)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [B, S, H, hd] as [B, S, H * hd].  A DTensor is merged on its
+    local tensor and wrapped again (an even head shard becomes a shard of
+    the merged dim; an uneven one is gathered first), so the backward
+    splits a local gradient: DTensor's view of a gradient sharded on the
+    merged dim cannot split it into heads that do not divide over the
+    mesh (minicpm3-4b's 40 over 16)."""
+    if type(t) is torch.Tensor or not _is_dt(t):
+        return t.reshape(*t.shape[:2], -1)
+    from repro_torch.dist.sharding import from_local
+
+    if t.shape[2] % _shards(t, 2) or _shards(t, 3) > 1:
+        t = _gather_dims(t, (2, 3))
+    loc = t.to_local(grad_placements=t.placements)
+    return from_local(loc.reshape(*loc.shape[:2], -1), t.device_mesh,
+                      t.placements, (*t.shape[:2], t.shape[2] * t.shape[3]))
 
 
 def pos_vec(pos, B: int, device=None) -> torch.Tensor:
@@ -212,9 +258,9 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     q, k, v = mm_fused_qkv(x, p["wq"], p["wk"], p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(B, S, KV, hd)
+    q = rope(heads_view(q, B, S, H, hd), positions, cfg.rope_theta)
+    k = rope(heads_view(k, B, S, KV, hd), positions, cfg.rope_theta)
+    return q, k, heads_view(v, B, S, KV, hd)
 
 
 def apply_gqa(p, x, cfg: ModelConfig, *, is_local: bool = False,
@@ -232,7 +278,7 @@ def apply_gqa(p, x, cfg: ModelConfig, *, is_local: bool = False,
                             softcap=cfg.attn_softcap,
                             chunk_q=cfg.attn_chunk_q,
                             compute_dtype=torch_dtype(cfg.attn_dtype))
-    return mm(out.reshape(B, S, -1), p["wo"]), (k, v)
+    return mm(merge_heads(out), p["wo"]), (k, v)
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, *, L: int, device):
@@ -275,7 +321,7 @@ def _mla_q(p, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     nd, rd = mla.qk_nope_head_dim, mla.qk_rope_head_dim
     cq = _mla_rms(mm(x, p["wdq"]), p["q_norm"])
-    q = mm(cq, p["wuq"]).reshape(B, S, cfg.n_heads, nd + rd)
+    q = heads_view(mm(cq, p["wuq"]), B, S, cfg.n_heads, nd + rd)
     return q[..., :nd], rope(q[..., nd:], positions, cfg.rope_theta)
 
 
@@ -284,7 +330,8 @@ def _mla_kv_latent(p, x, cfg: ModelConfig, positions):
     [B, S, 1, rd] with RoPE applied)."""
     B, S, _ = x.shape
     ckv = _mla_rms(mm(x, p["wdkv"]), p["kv_norm"])
-    k_rope = rope(mm(x, p["wkr"]).reshape(B, S, 1, cfg.mla.qk_rope_head_dim),
+    k_rope = rope(heads_view(mm(x, p["wkr"]), B, S, 1,
+                             cfg.mla.qk_rope_head_dim),
                   positions, cfg.rope_theta)
     return ckv, k_rope
 
@@ -304,13 +351,13 @@ def apply_mla(p, x, cfg: ModelConfig, *, positions=None,
         positions = torch.arange(S, device=x.device)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     ckv, k_rope = _mla_kv_latent(p, x, cfg, positions)
-    k_nope = mm(ckv, p["wuk"]).reshape(B, S, H, nd)
-    v = mm(ckv, p["wuv"]).reshape(B, S, H, vd)
+    k_nope = heads_view(mm(ckv, p["wuk"]), B, S, H, nd)
+    v = heads_view(mm(ckv, p["wuv"]), B, S, H, vd)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = chunked_attention(q, k, v, causal=causal, chunk_q=cfg.attn_chunk_q,
                             compute_dtype=torch_dtype(cfg.attn_dtype))
-    return mm(out.reshape(B, S, -1), p["wo"]), ckv, k_rope
+    return mm(merge_heads(out), p["wo"]), ckv, k_rope
 
 
 def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv, *, q_cache,
@@ -338,11 +385,17 @@ def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv, *, q_cache,
     rows = torch.arange(B, device=x.device)
     S = ckv_c.shape[1]
     wpos = pv.clamp(max=S - 1).long()
-    ckv_c.index_put_((rows, wpos), q_cache(ckv_t[:, 0], cfg))
-    kr_c.index_put_((rows, wpos), q_cache(kr_t.reshape(B, rd), cfg))
+    if _is_dt(ckv_c):   # each rank writes the rows it owns
+        from repro_torch.models.transformer import _owner_put_
+
+        _owner_put_(ckv_c, wpos, q_cache(ckv_t[:, 0], cfg))
+        _owner_put_(kr_c, wpos, q_cache(kr_t.reshape(B, rd), cfg))
+    else:
+        ckv_c.index_put_((rows, wpos), q_cache(ckv_t[:, 0], cfg))
+        kr_c.index_put_((rows, wpos), q_cache(kr_t.reshape(B, rd), cfg))
     ckv = dq_cache(ckv_c, cfg).float()
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(),
-                         p["wuk"].reshape(r, H, nd).float())
+                         heads_view(p["wuk"], r, H, nd).float())
     s = torch.einsum("bhr,bsr->bhs", q_lat, ckv)
     s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
                          dq_cache(kr_c, cfg).float())
@@ -352,5 +405,5 @@ def decode_mla(p, x, cfg: ModelConfig, ckv_c, kr_c, pv, *, q_cache,
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     out_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), ckv)
     out = torch.einsum("bhr,rhv->bhv", out_lat,
-                       p["wuv"].reshape(r, H, vd).float())
-    return mm(out.reshape(B, 1, H * vd).to(x.dtype), p["wo"])
+                       heads_view(p["wuv"], r, H, vd).float())
+    return mm(merge_heads(out[:, None]).to(x.dtype), p["wo"])

@@ -165,14 +165,28 @@ def _gated(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     """x [B, S, D] -> (out [B, S, D] in x.dtype, aux: the f32 Switch
-    load-balancing loss)."""
+    load-balancing loss).  A DTensor x (the sharded steps' "pjit" MoE)
+    is gathered whole and routed, dispatched and combined on every rank
+    as one device does it, as the reference's GSPMD program routes the
+    global batch (one capacity from the global token count); only the
+    dispatch buffer and the expert products are DTensors, sharded by
+    expert as the weights are, and the output is sharded as x.  The
+    routing runs on local tensors: torch 2.11's DTensor has no
+    ``index_copy_`` and mis-shards ``index_select``'s backward."""
     mc: MoEConfig = cfg.moe
     B, S, D = x.shape
     E, k = mc.num_experts, mc.top_k
     T = B * S
+    x_in, mesh, router = x, None, p["router"]
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        whole = (Replicate(),) * mesh.ndim
+        x, router = (local_shard(t, mesh, whole) for t in (x, router))
     x2 = x.reshape(T, D)
 
-    probs = _router_probs(x2, p["router"])                  # [T, E]
+    probs = _router_probs(x2, router)                       # [T, E]
     log = _LOG
     if log is not None and log.pin is not None:
         eidx = log.pin[len(log.calls)].to(probs.device)
@@ -205,6 +219,8 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     dst = flat_e * (cap + 1) + torch.where(keep, pos, cap)
     buf.index_copy_(0, dst, x2[:, None].expand(T, k, D).reshape(T * k, D))
     buf = buf.view(E, cap + 1, D)[:, :cap]
+    if mesh is not None:
+        buf = from_local(buf, mesh, whole, buf.shape)
     buf = logical_constraint(buf, ("expert", None, None))
 
     # the experts as two batched products (the reference's einsums
@@ -215,6 +231,8 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
 
     if mc.combine == "replicated":
         out_buf = logical_constraint(out_buf, (None, None, None))
+    if mesh is not None:
+        out_buf = local_shard(out_buf, mesh, whole)
     if mc.combine == "scatter":
         y = _scatter_combine(out_buf, flat_e, pos, keep, gates, T, cap)
     else:
@@ -227,13 +245,23 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
         w = (gates.reshape(-1) * keep).float()[:, None]
         y = (slot_out.float() * w).view(T, k, D).sum(1)
 
-    if mc.dense_residual:
-        y = y + _residual(p, x2, cfg)
-
     if log is not None:
         log.calls.append({"probs": probs.detach(), "eidx": eidx,
                           "keep": keep.view(T, k)})
-    return y.reshape(B, S, D).to(x.dtype), aux
+    if mesh is None:
+        if mc.dense_residual:
+            y = y + _residual(p, x2, cfg)
+        return y.reshape(B, S, D).to(x.dtype), aux
+    # x's token shards (a partial x's mesh dims replicated); arctic's
+    # residual MLP on x itself, on the sharded params; the aux loss a
+    # replicated DTensor, so its gradient enters the local graph local
+    aux = from_local(aux, mesh, whole, ())
+    y = from_local(y.reshape(B, S, D), mesh, whole, (B, S, D)).redistribute(
+        mesh, tuple(Replicate() if pl.is_partial() else pl
+                    for pl in x_in.placements))
+    if mc.dense_residual:
+        y = y + _residual(p, x_in.reshape(T, D), cfg).reshape(B, S, D)
+    return y.to(x.dtype), aux
 
 
 def _residual(p, x2, cfg: ModelConfig) -> torch.Tensor:

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.common import ModelConfig, SSMConfig, mm, \
     torch_dtype
 
@@ -100,7 +101,10 @@ def apply_ssm(p, x, cfg: ModelConfig, return_state: bool = False):
     hand over, and ``return_state`` raises ``ValueError`` for it: the
     reference hands over the short tail, which its slot prefill refuses
     (an assertion) and its classic prefill writes left-aligned, where
-    decode reads the window right-aligned (ROADMAP C11)."""
+    decode reads the window right-aligned (ROADMAP C11).  A DTensor x
+    runs on each rank's batch rows (:func:`_ssm_on_local_rows`)."""
+    if type(x) is not torch.Tensor and is_dtensor(x):
+        return _ssm_on_local_rows(p, x, cfg, return_state)
     s: SSMConfig = cfg.ssm
     B, S, D = x.shape
     di, H, N, P = s.d_inner(D), s.num_heads(D), s.state_dim, s.head_dim
@@ -192,6 +196,34 @@ def init_ssm_state(cfg: ModelConfig, batch: int, *, L: int, device):
         "ssm": torch.zeros((L, batch, H, P, N), dtype=torch.float32,
                            device=device),
     }
+
+
+def _ssm_on_local_rows(p, x, cfg: ModelConfig, return_state: bool):
+    """:func:`apply_ssm` of DTensor x [B, S, D] on this rank's batch rows,
+    every other dim gathered and the mixer's params whole (their
+    gradients partial over the mesh dims that shard the batch); the output
+    and state are sharded as the rows.  The chunked scan's pads, head
+    splits and einsums then run on local tensors: torch 2.11's DTensor
+    cannot plan the redistribute of a ``pad`` over a sharded operand,
+    and cannot split heads that do not divide the mesh."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.dist.sharding import from_local, local_shard
+
+    mesh = x.device_mesh
+    rows = tuple(pl if pl.is_shard() and pl.dim == 0 else Replicate()
+                 for pl in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grads = tuple(Partial() if pl.is_shard() else Replicate() for pl in rows)
+    pl = {k: local_shard(v, mesh, whole, grads) if is_dtensor(v) else v
+          for k, v in p.items()}
+    y, state = apply_ssm(pl, local_shard(x, mesh, rows), cfg, return_state)
+
+    def wrap(t):
+        return from_local(t, mesh, rows, (x.shape[0], *t.shape[1:]))
+
+    return wrap(y), None if state is None else {
+        k: wrap(v) for k, v in state.items()}
 
 
 def decode_ssm(p, x, cfg: ModelConfig, state):

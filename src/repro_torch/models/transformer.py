@@ -119,7 +119,11 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
     f32 scratch of one layer's shape, scaled in place and cast into the
     preallocated [L, ...] result: init's peak is the params plus one
     layer's scratch (drawn whole, starcoder2-15b's ``mlp.wi`` would take
-    24 GB of f32 and as much again for its scaled copy)."""
+    24 GB of f32 and as much again for its scaled copy).  On the ``meta``
+    device it draws nothing (``gen`` may be None): the leaf's shape and
+    dtype alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) > 1 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
 
@@ -211,10 +215,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     ``alt_local_global``; an enc-dec config's ``enc_layers`` and
     ``enc_norm`` beside the decoder's ``layers``, which hold ``xattn``
     and ``lnx``; different numbers: the reference draws from
-    ``jax.random``), each stacked leaf drawn a layer at a time."""
+    ``jax.random``), each stacked leaf drawn a layer at a time.  With
+    ``device="meta"`` the leaves have their shapes and dtypes and nothing
+    is drawn or allocated (the counterpart of the reference's
+    ``jax.eval_shape(init_lm)``)."""
     cfg.validate()
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     D, L, dt = cfg.d_model, cfg.n_layers, cfg.tdtype
     params: dict[str, Any] = {
         "embedding": dense_init(gen, (cfg.vocab, D), dt, dev, scale=1.0),
@@ -348,8 +356,9 @@ def _cross_attn(p, x, enc_out, cfg):
     hd]), the latter what decode caches as ``xk`` / ``xv``."""
     B = x.shape[0]
     KV, hd = cfg.n_kv_heads, cfg.hd
-    k = mm(enc_out, p["wk"]).reshape(B, -1, KV, hd)
-    v = mm(enc_out, p["wv"]).reshape(B, -1, KV, hd)
+    F_ = enc_out.shape[1]
+    k = attn.heads_view(mm(enc_out, p["wk"]), B, F_, KV, hd)
+    v = attn.heads_view(mm(enc_out, p["wv"]), B, F_, KV, hd)
     return _cross_attn_cached(p, x, k, v, cfg), (k, v)
 
 
@@ -358,10 +367,10 @@ def _cross_attn_cached(p, x, xk, xv, cfg):
     ``xv`` [B, F, KV, hd] (read only): the decode step's, and the
     forward's once its k and v are formed."""
     B, S, _ = x.shape
-    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = attn.heads_view(mm(x, p["wq"]), B, S, cfg.n_heads, cfg.hd)
     out = attn.chunked_attention(q, xk, xv, causal=False,
                                  chunk_q=cfg.attn_chunk_q)
-    return mm(out.reshape(B, S, -1), p["wo"])
+    return mm(attn.merge_heads(out), p["wo"])
 
 
 def _sublayer_ffn(lp, x, cfg):
@@ -705,7 +714,7 @@ def _decode_gqa_at(p, x, cfg, kc, vc, pv, *, is_local=False):
     out = attn.decode_attention(q, _dq_cache(kc, cfg), _dq_cache(vc, cfg),
                                 n_valid, softcap=cfg.attn_softcap,
                                 window=window)
-    return mm(out.reshape(B, 1, -1), p["wo"])
+    return mm(attn.merge_heads(out), p["wo"])
 
 
 def _local_rows(t, dst, dim: int):

@@ -211,3 +211,49 @@ def _wrappers(inp):
     val.sum().backward()
     res["matmul_threshold/grads"] = (_full(a2.grad), _full(b2.grad))
     return res
+
+
+def families(rank, world, payload):
+    """On four ranks at (2, 2), for each case of ``payload["cases"]``
+    {name: (cfg, params, kind)}: ``"train"`` one sharded train step
+    (remat "none") on ``payload["batch"]`` (its metrics, and the params
+    after it, whole); ``"serve"`` the sharded prefill of
+    ``payload["tokens"]`` and ``payload["steps"]`` greedy decode steps
+    (the logits of each, whole)."""
+    torch.set_num_threads(1)
+    from repro_torch.dist import ShardingRules, distribute_params
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import StepConfig, make_decode_step, \
+        make_prefill_step, make_train_step, shard_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    mesh = make_host_mesh(2, 2, device="cpu")
+    rules = ShardingRules()
+    sc = StepConfig(remat="none")
+    res = {}
+    for name, (cfg, params, kind) in payload["cases"].items():
+        dp = distribute_params(params, mesh, rules)
+        if kind == "train":
+            batch = dict(payload["batch"])
+            if cfg.n_enc_layers > 0:
+                batch["enc_embeds"] = payload["frames"]
+            step = make_train_step(cfg, AdamWConfig(), sc, mesh, rules)
+            dp, _, m = step(dp, adamw_init(dp), shard_batch(batch, mesh,
+                                                            rules))
+            res[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                         "params": {p: _full(t) for p, t in _leaves(dp)}}
+            continue
+        prefill = make_prefill_step(cfg, sc, mesh, rules,
+                                    payload["cache_len"])
+        decode = make_decode_step(cfg, sc, mesh, rules)
+        logits, cache = prefill(dp, shard_batch(
+            {"tokens": payload["tokens"]}, mesh, rules))
+        out = [_full(logits)]
+        pos = payload["tokens"].shape[1]
+        for i in range(payload["steps"]):
+            tok = out[-1].argmax(-1)[:, None].int()
+            logits, cache = decode(dp, cache, shard_batch(
+                {"t": tok}, mesh, rules)["t"], pos + i)
+            out.append(_full(logits))
+        res[name] = {"logits": out}
+    return res if rank == 0 else None

@@ -244,20 +244,33 @@ def test_fused_qkv_routing():
                                     ports[2]]) is None
 
 
-def test_non_cpu_tensor_never_takes_the_plain_version():
+def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     """A tensor that is not on the CPU goes to the kernel or raises; the
-    plain version is only for CPU tensors.  A meta tensor stands in for a
-    device tensor here (it is neither CPU nor CUDA)."""
+    plain version is only for CPU tensors.  A meta tensor takes the
+    wrappers' meta route (its output's shape and dtype, nothing run or
+    launched: the dry-run's), never the plain version; the kernel's
+    launch path refuses any operand off the card."""
     _, (port,) = _weights(FORMATS[0])
     b = torch.empty((128, 4), device="meta")
-    before = (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches)
+    for mod, name in ((nmg_gemv, "nmg_gemv_plain"),
+                      (nmg_spmm, "nmg_spmm_plain"),
+                      (nmg_fused, "nmg_qkv_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, **k: pytest.fail(name))
+    before = (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches,
+              nmg_fused.nmg_qkv.launches)
+    R = port.canonical_rows()
+    out = nmg_gemv.nmg_gemv(port, b)
+    assert (out.device.type, tuple(out.shape), out.dtype) == \
+        ("meta", (R, 4), torch.float32)
+    out = nmg_spmm.nmg_spmm(port, torch.empty((128, 40), device="meta"),
+                            transpose_out=True)
+    assert (out.device.type, tuple(out.shape)) == ("meta", (40, R))
+    outs = nmg_fused.nmg_qkv([port] * 3, b)
+    assert [tuple(o.shape) for o in outs] == [(R, 4)] * 3
+    assert (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches,
+            nmg_fused.nmg_qkv.launches) == before
     with pytest.raises(ValueError, match="not CUDA"):
-        nmg_gemv.nmg_gemv(port, b)
-    with pytest.raises(ValueError, match="not CUDA"):
-        nmg_spmm.nmg_spmm(port, torch.empty((128, 40), device="meta"))
-    with pytest.raises(ValueError, match="not CUDA"):
-        nmg_fused.nmg_qkv([port] * 3, b)
-    assert (nmg_gemv.nmg_gemv.launches, nmg_spmm.nmg_spmm.launches) == before
+        nmg_gemv.gemv_launch([port], b)
 
 
 @pytest.mark.pallas_interpret
@@ -329,14 +342,22 @@ def test_mm_gated_declines_on_promotion_and_inline():
     assert mm_gated(x.float(), port, "silu").shape == (4, 32)
 
 
-def test_ffn_non_cpu_tensor_never_takes_the_plain_version():
+def test_ffn_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     """As for the other wrappers: an operand off the CPU goes to the
-    kernel or raises (a meta tensor stands in for a device tensor)."""
+    kernel or raises; a meta operand takes the meta route (shape and
+    dtype, no launch, never the plain version)."""
     _, (port,) = _weights(FFN_FMT)
+    monkeypatch.setattr(nmg_fused, "nmg_ffn_plain",
+                        lambda *a, **k: pytest.fail("plain"))
     before = nmg_fused.nmg_ffn.launches
-    with pytest.raises(ValueError, match="not CUDA"):
-        nmg_fused.nmg_ffn(port, torch.empty((128, 4), device="meta"))
+    out = nmg_fused.nmg_ffn(port, torch.empty((128, 4), device="meta"),
+                            out_dtype=torch.bfloat16)
+    assert (out.device.type, tuple(out.shape), out.dtype) == \
+        ("meta", (port.canonical_rows() // 2, 4), torch.bfloat16)
     assert nmg_fused.nmg_ffn.launches == before
+    with pytest.raises(ValueError, match="not CUDA"):
+        nmg_gemv.check_operands([port], torch.empty((128, 4),
+                                                    device="meta"))
 
 
 @pytest.mark.pallas_interpret

@@ -302,8 +302,17 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     fused_sparse_matmul.matmul_threshold(x, torch.randn(8, 3), 0.5)
     assert (nm_mask.nm_mask.launches,
             fused_sparse_matmul.matmul_threshold.launches) == before
+    # a meta operand takes the meta route (shape and dtype, no launch);
+    # the launch paths refuse anything off the card
+    m = nm_mask.nm_mask(x.to("meta"), 2, 4)
+    assert (m.device.type, m.shape, m.dtype) == ("meta", x.shape, torch.bool)
+    val, mask = fused_sparse_matmul.matmul_threshold(
+        x.to("meta"), torch.randn(8, 3).to("meta"), 0.5)
+    assert (val.device.type, tuple(val.shape), val.dtype) == \
+        ("meta", (4, 3), torch.float32) and mask.dtype == torch.bool
+    assert (nm_mask.nm_mask.launches,
+            fused_sparse_matmul.matmul_threshold.launches) == before
     with pytest.raises(ValueError):
-        nm_mask.nm_mask(x.to("meta"), 2, 4)
+        nm_mask._launch(x.to("meta"), 2, 4)
     with pytest.raises(ValueError):
-        fused_sparse_matmul.matmul_threshold(x.to("meta"),
-                                             torch.randn(8, 3), 0.5)
+        fused_sparse_matmul._launch(x.to("meta"), torch.randn(8, 3), 0.5)
